@@ -1,0 +1,1100 @@
+"""Batched hybrid-query engine on one device — port of the single-device,
+fp32 part of ``repro/core/engine.py``.
+
+The engine holds the cluster-tree leaves as padded bucket tiles plus
+per-tile ball/box metadata on ``device``, plans a batch of heterogeneous
+query trees into a few vectorized stages, and executes them:
+
+  1. **Predicate masks** — exact (g, n) masks per (type, attr) group: a
+     fused compare for N.E/N.R, and for V.R the tile triangle bound
+     (``_vr_leaf_plan``), then either the union GEMM over surviving tiles
+     (``_vr_union_eval``) or the dense pairwise pass
+     (``_vr_dense_masks``), with rows near the boundary re-checked on
+     the host by the exact formula.
+  2. **Masked KNN** — every V.K node becomes a job; jobs are grouped per
+     attribute and scanned in beam rounds through the fused
+     ``topk_l2_masked`` kernel over each query's best-lower-bound tiles.
+
+Two beam loops return identical rows: the host doubling loop
+(``batched_knn``, the exactness oracle) and the device loop
+(``batched_knn_device``: one fused first round, then a straggler loop
+that reads the (G,) active mask once per round where the reference runs
+a ``lax.while_loop``; same static round budget, same retirement rounds,
+same stats).
+
+Certified exact re-rank (a port decision the reference does not make):
+the fused kernels compute squared distances by the quadratic expansion
+|q|^2 + |p|^2 - 2 q.p in fp32, whose error is at most
+E = 4 d u (|q|^2 + max|p|^2) with u = 2^-24. At d=512 and |q|^2 ~ 2e4
+that bound (~5) exceeds the gaps between consecutive neighbours' squared
+distances, so expansion order and the oracle's exact order may disagree.
+The scan therefore keeps up to ``_RERANK_EXTRA`` more candidates than
+the stopping rank (which stays k, so rounds, buckets and rows scanned are
+unchanged), and each job's candidates are re-ranked on the host by the
+oracle's own formula ``sum((x - q)**2)``. ``_rerank_certified`` then
+proves the result: the k-th exact distance among the candidates must lie
+strictly below a lower bound, net of every fp32 error, on each row left
+out (rows the kernel ranked past the candidates, rows it may have skipped
+by their tile bound, rows of tiles never scanned). The jobs that fail the
+proof take ``_widen``: one pairwise pass of their queries over the whole
+column keeps every row that could still rank within k, and those rows
+are re-ranked exactly (``EngineStats.knn_exact_fallbacks`` counts the
+jobs). Where the expansion order is already exact the certified rows
+are the reference's.
+"""
+from __future__ import annotations
+
+import math
+import time
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.core import cost as costm
+from repro_torch.core import query as Q
+from repro_torch.core.lake import _next_pow2
+from repro_torch.kernels import fused_topk, ops
+from repro_torch.kernels.ref import stable_topk
+
+# candidates kept past the stopping rank for the re-rank: a margin for
+# speed only, since a job whose margin is too thin to certify takes
+# ``HybridEngine._widen`` instead
+_RERANK_EXTRA = 8
+_INF = float("inf")
+_U32 = 2.0 ** -24   # unit roundoff of fp32
+
+
+# ---------------------------------------------------------------------------
+# Device leaf state
+# ---------------------------------------------------------------------------
+@dataclass
+class LeafGeometry:
+    """Struct-of-arrays for one vector space over the shared bucket
+    layout: per-tile ball metadata plus padded bucket row tiles."""
+    centroid: torch.Tensor     # (L, d)
+    radius: torch.Tensor       # (L,)
+    bucket_rows: torch.Tensor  # (L, cap) int64; -1 = padding
+    cap: int
+    # scales of the certified re-rank's error bounds (host floats)
+    cen_max2: float = 0.0      # max |centroid|^2
+    rad_max: float = 0.0       # max tile radius
+
+    @property
+    def n_leaves(self) -> int:
+        return int(self.centroid.shape[0])
+
+
+def bucket_tiles(starts: np.ndarray, ends: np.ndarray, tile: int = 0
+                 ) -> Tuple[np.ndarray, int, np.ndarray]:
+    """Padded physical-row tiles from leaf [start, end) ranges.
+
+    tile=0: one tile per leaf, cap = max bucket size. tile>0: each leaf is
+    split into fixed ``tile``-row chunks. Returns (rows (T, cap), cap,
+    leaf_of_tile (T,)); chunks of one leaf are consecutive, so a stable
+    lower-bound sort preserves the scalar executor's bucket visit order.
+    """
+    starts = np.asarray(starts)
+    ends = np.asarray(ends)
+    if tile <= 0:
+        sizes = ends - starts
+        cap = int(sizes.max(initial=1))
+        rows = np.full((len(starts), cap), -1, np.int32)
+        for i, (s, e) in enumerate(zip(starts, ends)):
+            rows[i, :e - s] = np.arange(s, e, dtype=np.int32)
+        return rows, cap, np.arange(len(starts), dtype=np.int32)
+    chunks: List[np.ndarray] = []
+    leaf_of_tile: List[int] = []
+    for i, (s, e) in enumerate(zip(starts, ends)):
+        for c0 in range(int(s), int(e), tile):
+            chunks.append(np.arange(c0, min(c0 + tile, int(e)),
+                                    dtype=np.int32))
+            leaf_of_tile.append(i)
+    if not chunks:  # degenerate: no rows at all
+        chunks.append(np.empty(0, np.int32))
+        leaf_of_tile.append(0)
+    rows = np.full((len(chunks), tile), -1, np.int32)
+    for i, c in enumerate(chunks):
+        rows[i, :len(c)] = c
+    return rows, tile, np.asarray(leaf_of_tile, np.int32)
+
+
+def _tile_geometry(col: np.ndarray, rows_np: np.ndarray,
+                   bucket_rows: torch.Tensor, cap: int) -> LeafGeometry:
+    """Per-tile ball (centroid, radius) over the tile's own rows. Host
+    numpy, as in the reference, so both packages derive bit-identical
+    balls from the same table."""
+    valid = rows_np >= 0
+    cnt = np.maximum(valid.sum(1), 1)
+    pts = np.asarray(col, np.float32)[np.maximum(rows_np, 0)]
+    pts = np.where(valid[:, :, None], pts, 0.0)
+    cen = pts.sum(1) / cnt[:, None]
+    d2 = ((pts - cen[:, None, :]) ** 2).sum(2)
+    rad = np.sqrt(np.max(np.where(valid, d2, 0.0), axis=1))
+    dev = bucket_rows.device
+    return LeafGeometry(
+        centroid=torch.as_tensor(cen, dtype=torch.float32, device=dev),
+        radius=torch.as_tensor(rad, dtype=torch.float32, device=dev),
+        bucket_rows=bucket_rows, cap=cap,
+        cen_max2=float((cen.astype(np.float64) ** 2).sum(1).max(initial=0)),
+        rad_max=float(rad.max(initial=0)))
+
+
+def tile_data(col: np.ndarray, bucket_rows: np.ndarray) -> np.ndarray:
+    """(n, d) column -> (T, cap, d) tile-major copy (padding rows are row
+    0; a tile's validity mask excludes them)."""
+    col = np.asarray(col, np.float32)
+    safe = np.maximum(np.asarray(bucket_rows), 0)
+    return col[safe]
+
+
+@dataclass
+class EngineStats:
+    """Aggregate stats for one batch."""
+    queries: int = 0
+    predicate_buckets: int = 0   # leaves surviving box/ball pruning
+    knn_buckets: int = 0         # bucket tiles scanned across beam rounds
+    rows_scanned: int = 0        # valid rows fed to the top-k kernel
+    knn_rounds: int = 0
+    knn_exact_fallbacks: int = 0  # V.K jobs whose re-rank took _widen
+    vr_tiles_scanned: int = 0    # tiles gathered by the V.R tile planner
+    vr_tiles_pruned: int = 0     # tiles dropped by the V.R triangle bound
+    vr_dense_fallbacks: int = 0  # V.R groups that took the dense column path
+    time_s: float = 0.0
+    # (archetype, converged width in tiles) per executed KNN group — the
+    # feedback signal Session records into QBS for query-aware seeding
+    knn_group_widths: List[Tuple[str, int]] = field(default_factory=list)
+    # (stage kind, feature vector, observed seconds) per executed stage
+    stage_samples: List[Tuple[str, Tuple[float, ...], float]] = \
+        field(default_factory=list)
+
+
+# ---------------------------------------------------------------------------
+# Batched exact KNN over bucket tiles (one vector space)
+# ---------------------------------------------------------------------------
+def _gather_tiles(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """(G, T, cap) x (G, w) tile ids -> (G, w, cap)."""
+    return torch.gather(t, 1, sel[:, :, None].expand(-1, -1, t.shape[2]))
+
+
+def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows, *,
+               w0: int, w1: int, k: int):
+    """One beam round for the ``act`` query subset: scan each query's
+    [w0, w1) best-lower-bound tiles with the fused distance+top-k kernel.
+    Returns (sq_dists (G, k), physical rows (G, k), valid rows per
+    query)."""
+    qa = qs[act]
+    sel = order[act][:, w0:w1]                            # (G, w)
+    g, w = sel.shape
+    cand = bucket_rows[sel].reshape(g, -1)                # (G, w*cap)
+    valid = cand >= 0
+    if masks_tiles is not None:
+        valid = valid & _gather_tiles(masks_tiles[act], sel).reshape(g, -1)
+    pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
+    d2, idx = ops.topk_l2_masked(qa, pts, valid, k)
+    rows = torch.gather(cand, 1, idx.clamp_min(0))
+    rows = torch.where(idx >= 0, rows, torch.full_like(rows, -1))
+    return d2, rows, valid.sum(1)
+
+
+def _tile_masks(masks, bucket_rows):
+    """Re-layout per-row masks (G, n) into tile-major (G, T, cap) once per
+    KNN group, so beam rounds gather masks by tile index."""
+    t, cap = bucket_rows.shape
+    flat = bucket_rows.reshape(-1).clamp_min(0)
+    return masks[:, flat].reshape(masks.shape[0], t, cap)
+
+
+def _lower_bounds(qs, centroid, radius, masks_tiles):
+    d2c = ops.pairwise_sq_l2(qs, centroid)
+    dc = torch.sqrt(torch.clamp_min(d2c, 0.0))
+    lb = torch.clamp_min(dc - radius[None, :], 0.0)       # (G, L)
+    if masks_tiles is not None:
+        lb = torch.where(masks_tiles.any(dim=2), lb,
+                         torch.full_like(lb, _INF))
+    return lb
+
+
+def _knn_prologue(qs, centroid, radius, masks_tiles=None):
+    """Per-query tile lower bounds, visit order, and sorted bounds.
+
+    With a row mask, tiles holding NO masked rows get lb = +inf: they
+    sort last and the stopping bound treats them as exhausted."""
+    lb = _lower_bounds(qs, centroid, radius, masks_tiles)
+    order = torch.argsort(lb, dim=1, stable=True)
+    return order, torch.gather(lb, 1, order)
+
+
+def _knn_prologue_fast(qs, centroid, radius, masks_tiles=None):
+    """``_knn_prologue`` with a packed single-key sort (below 4096 tiles).
+
+    The fp32 bound's bit pattern is order-preserving for non-negative
+    floats, so bound and tile index share one int32 key: the low 12
+    mantissa bits are truncated and replaced by the tile index.
+    Truncation only lowers the reported bound, so the stopping rule stays
+    conservative; near-equal bounds order by tile index."""
+    lb = _lower_bounds(qs, centroid, radius, masks_tiles)
+    bits = lb.contiguous().view(torch.int32)
+    l = lb.shape[1]
+    key = (bits & ~4095) | torch.arange(l, dtype=torch.int32,
+                                        device=lb.device)[None, :]
+    key = torch.sort(key, dim=1).values
+    order = (key & 4095).to(torch.int64)
+    lb_sorted = (key & ~4095).contiguous().view(torch.float32)
+    return order, lb_sorted
+
+
+def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
+                masks: Optional[torch.Tensor] = None, beam: int = 8,
+                k_stop: Optional[int] = None,
+                stats: Optional[EngineStats] = None,
+                conv_out: Optional[list] = None,
+                next_lb_out: Optional[list] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact batched (optionally row-masked) KNN, host doubling loop.
+
+    qs: (G, d) tensor; data_tiles: (T, cap, d) tile-major copy of the
+    column; masks: optional (G, n) bool. Returns (dists (G, k) fp32 L2,
+    rows (G, k) int64; -1/inf pad slots). A query's result is final once
+    its ``k_stop``-th (default k) distance <= the next unscanned lower
+    bound — the scalar executor's stopping rule; the beam doubles and
+    finished queries leave the batch. ``conv_out`` receives each query's
+    converged beam width (the QBS convergence signal), ``next_lb_out``
+    the least lower bound among its unscanned tiles (+inf: none left)."""
+    t0 = time.time()
+    k_stop = k if k_stop is None else k_stop
+    dev = data_tiles.device
+    qs = qs.float()
+    masks_tiles = None
+    if masks is not None:
+        masks_tiles = _tile_masks(masks, geom.bucket_rows)
+    g = int(qs.shape[0])
+    l = geom.n_leaves
+    prologue = _knn_prologue_fast if l <= 4096 else _knn_prologue
+    order, lb_dev = prologue(qs, geom.centroid, geom.radius, masks_tiles)
+    lb_sorted = lb_dev.cpu().numpy()
+    best_d2 = np.full((g, k), np.inf, np.float32)
+    best_r = np.full((g, k), -1, np.int64)
+    conv = np.zeros(g, np.int64)
+    next_lb = np.full(g, np.inf, np.float32)
+    active = np.arange(g)
+    w0, w = 0, max(1, min(beam, l))
+    while len(active):
+        na = len(active)
+        gp = _next_pow2(na)
+        padded = np.zeros(gp, np.int64)
+        padded[:na] = active
+        d2, rows, nvalid = _knn_round(
+            torch.as_tensor(padded, device=dev), qs, order, masks_tiles,
+            data_tiles, geom.bucket_rows, w0=w0, w1=w, k=k)
+        d2 = d2[:na].cpu().numpy()
+        rows = rows[:na].cpu().numpy()
+        if stats is not None:
+            stats.knn_rounds += 1
+            stats.knn_buckets += na * (w - w0)
+            stats.rows_scanned += int(nvalid[:na].sum())
+        # host merge with the carry: carried entries come from earlier
+        # (lower-lb) buckets, so a stable sort keeps the visit-order
+        # tie-break
+        alld = np.concatenate([best_d2[active], d2], axis=1)
+        allr = np.concatenate([best_r[active], rows], axis=1)
+        pick = np.argsort(alld, axis=1, kind="stable")[:, :k]
+        merged_d = np.take_along_axis(alld, pick, axis=1)
+        merged_r = np.take_along_axis(allr, pick, axis=1)
+        best_d2[active] = merged_d
+        best_r[active] = merged_r
+        kth = np.sqrt(merged_d[:, k_stop - 1])
+        nxt = lb_sorted[active, w] if w < l else np.full(na, np.inf)
+        done = (kth <= nxt) | (w >= l)
+        conv[active[done]] = w
+        next_lb[active[done]] = nxt[done]
+        active = active[~done]
+        w0, w = w, min(2 * w, l)
+    if stats is not None:
+        stats.time_s += time.time() - t0
+    if conv_out is not None:
+        conv_out.append(conv)
+    if next_lb_out is not None:
+        next_lb_out.append(next_lb)
+    return np.sqrt(best_d2), best_r
+
+
+def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
+                     lb_sorted, masks_tiles, data_tiles, bucket_rows, *,
+                     w1: int, w: int, budget: int, k: int, k_stop: int):
+    """The straggler beam loop. ``idx`` selects the straggler subset
+    (padded to a power of two; ``active0`` marks the real rows) out of
+    the full-batch arrays; the first round's (d2, rows) seed the top-k
+    carry, and each straggler keeps its remaining visit order (columns
+    past ``w1``) padded to the static budget*w width with tile-0 columns
+    whose +inf lower bound kills them. The reference runs this as one
+    ``lax.while_loop``; here the host reads the (G,) active mask once
+    per round to evaluate the same condition. Returns (best_d2,
+    best_rows, [rounds, buckets_scanned, rows_scanned], per-query
+    retirement round)."""
+    l = order.shape[1]
+    cap = bucket_rows.shape[1]
+    qs = qs_full[idx]
+    bd = d2_full[idx]
+    br = rows_full[idx]
+    order_pad = F.pad(order[idx][:, w1:], (0, budget * w - (l - w1)))
+    lb_pad = F.pad(lb_sorted[idx][:, w1:], (0, budget * w + 1 - (l - w1)),
+                   value=_INF)
+    if masks_tiles is not None:
+        masks_tiles = masks_tiles[idx]
+    g = qs.shape[0]
+    dev = qs.device
+    active = active0.clone()
+    rr = torch.zeros(g, dtype=torch.int64, device=dev)
+    nbuck = torch.zeros((), dtype=torch.int64, device=dev)
+    nrows = torch.zeros((), dtype=torch.int64, device=dev)
+    r = 0
+    while r < budget and bool(active.any()):
+        start = r * w
+        sel = order_pad[:, start:start + w]
+        lb_col = lb_pad[:, start:start + w]
+        # columns whose lower bound is +inf are padding, or real tiles
+        # with no mask-surviving rows — neither can contribute a row
+        colv = ~torch.isinf(lb_col)                       # (G, w)
+        cand = bucket_rows[sel].reshape(g, -1)            # (G, w*cap)
+        valid = ((cand >= 0) & colv.repeat_interleave(cap, dim=1)
+                 & active[:, None])
+        if masks_tiles is not None:
+            valid = valid & _gather_tiles(masks_tiles, sel).reshape(g, -1)
+        # per-candidate squared tile bounds: the kernel's chunk early-out
+        lb2 = (lb_col * lb_col).repeat_interleave(cap, dim=1)
+        pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
+        d2, ix = ops.topk_l2_masked(qs, pts, valid, k, lb2=lb2)
+        rows = torch.gather(cand, 1, ix.clamp_min(0))
+        rows = torch.where(ix >= 0, rows, torch.full_like(rows, -1))
+        # merge with the carry: carry first and a stable top-k, so earlier
+        # (lower-lb) tiles keep the visit-order tie-break; inactive
+        # queries contribute only +inf candidates (valid was zeroed)
+        md, pick = stable_topk(torch.cat([bd, d2], dim=1), k)
+        mr = torch.gather(torch.cat([br, rows], dim=1), 1, pick)
+        kth = torch.sqrt(md[:, k_stop - 1])
+        nxt = lb_pad[:, start + w]
+        active2 = active & ~(kth <= nxt)
+        rr = torch.where(active & ~active2, r + 1, rr)
+        nbuck = nbuck + (colv & active[:, None]).sum()
+        nrows = nrows + valid.sum()
+        bd, br, active = md, mr, active2
+        r += 1
+    rr = torch.where(active, r, rr)  # budget-exhausted: scanned everything
+    return bd, br, (r, int(nbuck), int(nrows)), rr
+
+
+def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
+               *, w1: int, k: int, k_stop: int):
+    """Prologue + first beam round over the full batch + the stopping
+    rule: a query stays active iff its ``k_stop``-th distance exceeds the
+    next unscanned lower bound."""
+    g = qs.shape[0]
+    prologue = _knn_prologue_fast if centroid.shape[0] <= 4096 \
+        else _knn_prologue
+    order, lb_sorted = prologue(qs, centroid, radius, masks_tiles)
+    l = lb_sorted.shape[1]
+    d2, rows, nvalid = _knn_round(
+        torch.arange(g, device=qs.device), qs, order, masks_tiles,
+        data_tiles, bucket_rows, w0=0, w1=w1, k=k)
+    kth = torch.sqrt(d2[:, k_stop - 1])
+    nxt = lb_sorted[:, w1] if w1 < l else \
+        torch.full((g,), _INF, device=qs.device)
+    return order, lb_sorted, d2, rows, kth > nxt, int(nvalid.sum())
+
+
+def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
+                       masks: Optional[torch.Tensor] = None, beam: int = 8,
+                       w1: Optional[int] = None, ws: Optional[int] = None,
+                       k_stop: Optional[int] = None,
+                       stats: Optional[EngineStats] = None,
+                       conv_out: Optional[list] = None,
+                       next_lb_out: Optional[list] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact batched (optionally row-masked) KNN with the beam loop on
+    the device: same contract and rows as ``batched_knn``.
+
+    ONE fused first round scans every query's top beam/2 lower-bound
+    tiles; one (G,) active-mask read compacts the stragglers (padded to
+    a power of two) and the straggler loop runs rounds of ``ws`` (default
+    beam) tiles with the static budget ceil(remaining / ws), retiring
+    queries by the same bound check. ``conv_out`` receives per-query
+    converged widths: w1 for queries the first round finished, w1 + r*ws
+    for a straggler retired in loop round r (capped at the tile count);
+    ``next_lb_out`` the least lower bound among tiles that may hold rows
+    the scan left out (+inf: none)."""
+    t0 = time.time()
+    k_stop = k if k_stop is None else k_stop
+    dev = data_tiles.device
+    qs = qs.float()
+    masks_tiles = None
+    if masks is not None:
+        masks_tiles = _tile_masks(masks, geom.bucket_rows)
+    g = int(qs.shape[0])
+    l = geom.n_leaves
+    w1 = max(1, min(w1 if w1 else max(1, beam // 2), l))
+    order, lb_sorted, d2, rows, active, nvalid = _knn_start(
+        qs, masks_tiles, geom.centroid, geom.radius, data_tiles,
+        geom.bucket_rows, w1=w1, k=k, k_stop=k_stop)
+    if stats is not None:
+        stats.knn_rounds += 1
+        stats.knn_buckets += g * w1
+        stats.rows_scanned += nvalid
+    conv = np.full(g, w1, np.int64)
+    act = np.nonzero(active.cpu().numpy())[0]
+    d2f = d2.cpu().numpy()
+    rowsf = rows.cpu().numpy()
+    if len(act) and w1 < l:
+        na = len(act)
+        gp = _next_pow2(na)
+        padded = np.zeros(gp, np.int64)
+        padded[:na] = act
+        idx = torch.as_tensor(padded, device=dev)
+        active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
+        w = max(1, ws if ws else beam)
+        budget = -(-(l - w1) // w)
+        bd, br, (rounds, nbuck, nrows), retire_round = _knn_device_loop(
+            idx, active0, qs, d2, rows, order, lb_sorted, masks_tiles,
+            data_tiles, geom.bucket_rows, w1=w1, w=w, budget=budget, k=k,
+            k_stop=k_stop)
+        d2f = d2f.copy()
+        rowsf = rowsf.copy()
+        d2f[act] = bd[:na].cpu().numpy()
+        rowsf[act] = br[:na].cpu().numpy()
+        conv[act] = np.minimum(
+            w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w, l)
+        if stats is not None:
+            stats.knn_rounds += rounds
+            stats.knn_buckets += nbuck
+            stats.rows_scanned += nrows
+    if stats is not None:
+        stats.time_s += time.time() - t0
+    if conv_out is not None:
+        conv_out.append(conv)
+    if next_lb_out is not None:
+        # the least bound among tiles that may hold left-out rows: tiles
+        # past each query's converged width, and scanned tiles whose rows
+        # the lb2 early-out may have skipped (bound^2 at or above the
+        # final k-th expansion distance, which no running k-th undercuts)
+        lbs = F.pad(lb_sorted, (0, 1), value=_INF).double()
+        thr = np.sqrt(d2f[:, -1].astype(np.float64) * (1 - 4 * _U32))
+        pos = torch.minimum(
+            torch.searchsorted(lbs, torch.as_tensor(thr, device=dev)[:, None]),
+            torch.as_tensor(conv, device=dev)[:, None])
+        next_lb_out.append(torch.gather(lbs, 1, pos)[:, 0].cpu().numpy())
+    return np.sqrt(d2f), rowsf.astype(np.int64)
+
+
+def _rerank_certified(t_k: float, m: float, next_lb: float, qq: float,
+                      dim: int, pmax2: float, cmax2: float,
+                      rmax: float) -> bool:
+    """Whether a job's re-ranked candidates hold the oracle's top-k.
+
+    ``t_k`` is the k-th exact squared distance among the candidates (+inf
+    with fewer than k), ``m`` the expansion's squared distance in the last
+    candidate slot (+inf if empty), ``next_lb`` the least bound of the
+    tiles that may hold rows the scan left out (unscanned, or skipped by
+    the kernel's lb2 early-out). A row left out was either ranked past the
+    last slot by the kernel (expansion >= m) or lies behind such a bound.
+    The bound on its distance takes off the expansion's error
+    (``e_row``); for a tile bound b, the centroid distance's error
+    (``e_cen``, which moves b by at most e_cen / b) and the rounding of b
+    and of the tile radius; and the oracle's own rounding comes off the
+    result. Ties fail the proof."""
+    e_row = 4 * dim * _U32 * (qq + pmax2)
+    e_cen = 4 * dim * _U32 * (qq + cmax2)
+    b = next_lb
+    if 0.0 < b < _INF:
+        b = max(0.0, b - e_cen / b - (dim + 8) * _U32 * (b + 2 * rmax))
+    # m came back as an fp32 sqrt, squared
+    lo = min(m * (1 - 4 * _U32) - e_row, max(b, 0.0) ** 2)
+    if math.isinf(t_k):
+        return math.isinf(lo)
+    return t_k < lo * (1 - (dim + 2) * _U32)
+
+
+# ---------------------------------------------------------------------------
+# Grouped predicate masks (one call per (type, attr) group)
+# ---------------------------------------------------------------------------
+def _ne_group_masks(col, num_lo, num_hi, row_leaf, v, tol):
+    leaf_ok = ((num_lo[None, :] <= (v + tol)[:, None])
+               & (num_hi[None, :] >= (v - tol)[:, None]))
+    m = torch.abs(col[None, :] - v[:, None]) <= tol[:, None]
+    return m & leaf_ok[:, row_leaf], int(leaf_ok.sum())
+
+
+def _nr_group_masks(col, num_lo, num_hi, row_leaf, lo, hi):
+    leaf_ok = ((num_lo[None, :] <= hi[:, None])
+               & (num_hi[None, :] >= lo[:, None]))
+    m = (col[None, :] >= lo[:, None]) & (col[None, :] <= hi[:, None])
+    return m & leaf_ok[:, row_leaf], int(leaf_ok.sum())
+
+
+_VR_DENSE_CUTOFF = 0.5  # surviving-tile row fraction above which the
+#                         gather costs more than one dense column pass
+
+
+def _vr_leaf_plan(qs, r, centroid, radius):
+    """Tile-level V.R planner: (g, T) survival from the triangle bound
+    |q - C| - R <= r, with the reference's conservative slack (absolute
+    plus a relative ``1e-4 * dc`` term: the expansion's error grows with
+    coordinate magnitude, and a wrongly pruned tile cannot be rescued)."""
+    d2c = ops.pairwise_sq_l2(qs, centroid)
+    dc = torch.sqrt(torch.clamp_min(d2c, 0.0))
+    slack = 1e-4 * (1.0 + r[:, None] + radius[None, :]) + 1e-4 * dc
+    return dc - radius[None, :] <= r[:, None] + slack
+
+
+def _vr_union_eval(qs, r2, sel_u, member, data_tiles, tile_pp, bucket_rows):
+    """Exact radius test over the UNION of the group's surviving tiles:
+    ONE (g, d) x (d, U*cap) fp32 GEMM. Returns one packed int8
+    (g, U*cap) — bit 0: within radius, bit 1: within fp noise of the
+    boundary (the host re-checks those exactly)."""
+    pts = data_tiles[sel_u]                          # (U, cap, d)
+    rows = bucket_rows[sel_u]                        # (U, cap)
+    u, cap, dim = pts.shape
+    pts = pts.reshape(u * cap, dim)
+    rows = rows.reshape(u * cap)
+    valid = (rows >= 0)[None, :] & member.repeat_interleave(cap, dim=1)
+    qq = torch.sum(qs * qs, dim=1)
+    pp = tile_pp[sel_u].reshape(u * cap)
+    ops.require_ieee_matmul(qs)
+    cross = qs @ pts.T                               # (g, U*cap)
+    d2 = torch.clamp_min(qq[:, None] + pp[None, :] - 2.0 * cross, 0.0)
+    within = valid & (d2 <= r2[:, None])
+    near = valid & (torch.abs(d2 - r2[:, None]) <= 1e-3 * (r2[:, None] + 1.0))
+    return within.to(torch.int8) | (near.to(torch.int8) << 1)
+
+
+def _vr_dense_masks(qs, r, leaf_ok, col, row_leaf):
+    """Dense path: full-column distances, masked by the tile survival
+    matrix through the row->tile map; rows within fp noise of the
+    boundary are flagged for the host's exact re-check."""
+    d2 = ops.pairwise_sq_l2(qs, col)
+    r2 = (r * r)[:, None]
+    m = d2 <= r2
+    near = torch.abs(d2 - r2) <= 1e-3 * (r2 + 1.0)
+    return m & leaf_ok[:, row_leaf], near
+
+
+# ---------------------------------------------------------------------------
+# Query planning
+# ---------------------------------------------------------------------------
+def _contains_vk(q: Q.Query) -> bool:
+    return any(isinstance(b, Q.VK) for b in Q.basic_queries(q))
+
+
+def plannable(q: Q.Query) -> bool:
+    """True when every V.K candidate mask derives from predicate-only
+    subtrees."""
+    if isinstance(q, (Q.NE, Q.NR, Q.VR, Q.VK)):
+        return True
+    if isinstance(q, Q.And):
+        return all(isinstance(p, Q.VK) or
+                   (not _contains_vk(p) and plannable(p))
+                   for p in q.parts)
+    if isinstance(q, Q.Or):
+        return all(plannable(p) for p in q.parts)
+    return False
+
+
+def knn_archetype(attr: str, kmax: int, masked: bool,
+                  device_loop: bool) -> str:
+    """QBS convergence key for one KNN job group (widths are in tiles of
+    the layout the loop scans, hence the loop tag)."""
+    tag = "dl" if device_loop else "hl"
+    return (f"VK:{attr}:k{kmax}:{'masked' if masked else 'plain'}"
+            f":{tag}")
+
+
+@dataclass(frozen=True)
+class KnnGroupSpec:
+    """One KNN job group: which jobs run together through the beam loop."""
+    attr: str
+    jobs: Tuple[int, ...]   # job indices, masked jobs first
+    kmax: int
+    n_masked: int
+    archetype: str          # ``knn_archetype`` key for QBS feedback
+
+
+def group_job_specs(job_specs: Sequence[Tuple[str, int, bool]],
+                    device_loop: bool) -> Tuple[KnnGroupSpec, ...]:
+    """The grouping policy, shared by the engine and the planner: the
+    device loop runs ONE group per attribute (unmasked jobs get an
+    all-true mask); the host loop keeps masked jobs apart. Within a
+    group, masked jobs order first."""
+    by_grp: Dict[Tuple, List[int]] = defaultdict(list)
+    for i, (attr, k, masked) in enumerate(job_specs):
+        key = attr if device_loop else (attr, masked)
+        by_grp[key].append(i)
+    specs: List[KnnGroupSpec] = []
+    for key, idxs in by_grp.items():
+        attr = key if device_loop else key[0]
+        idxs = sorted(idxs, key=lambda i: not job_specs[i][2])
+        kmax = max(job_specs[i][1] for i in idxs)
+        n_masked = sum(1 for i in idxs if job_specs[i][2])
+        specs.append(KnnGroupSpec(
+            attr=attr, jobs=tuple(idxs), kmax=kmax, n_masked=n_masked,
+            archetype=knn_archetype(attr, kmax, n_masked > 0,
+                                    device_loop)))
+    return tuple(specs)
+
+
+@dataclass
+class EnginePlan:
+    """Pre-derived execution structure for one batch archetype (built and
+    cached by the planner): the V.K job layout, the KNN grouping and the
+    QBS-seeded beam widths."""
+    device_loop: bool
+    job_specs: Tuple[Tuple[str, int, bool], ...]  # (attr, k, masked)/job
+    groups: Tuple[KnnGroupSpec, ...]
+    seeds: Optional[Dict[str, int]] = None        # archetype -> width
+
+
+class HybridEngine:
+    """Batched executor over one prepared table, on one device, in fp32.
+    ``HybridEngine(tree, table, meta, device=...)`` over numpy state
+    (``ClusterTree``, the permuted ``MMOTable``, ``LeafMeta``)."""
+
+    def __init__(self, tree, table, meta, *, beam: int = 16,
+                 tile: int = 128, device_loop: bool = True,
+                 device_tile: Optional[int] = None, device=None):
+        self.device = dev = resolve_device(device)
+        self.device_loop = device_loop
+        self.device_tile = device_tile or max(32, tile // 2)
+        leaves = tree.leaf_ids
+        starts = np.asarray(tree.bucket_start[leaves])
+        ends = np.asarray(tree.bucket_end[leaves])
+        rows_np, cap, leaf_of_tile = bucket_tiles(starts, ends, tile)
+        self.bucket_rows = torch.as_tensor(rows_np, dtype=torch.int64,
+                                           device=dev)
+        self.bucket_rows_np = rows_np
+        self.cap = cap
+        self.tile = tile
+        self.n = table.n_rows
+        self.n_leaves = len(leaves)
+        self.n_tiles = len(leaf_of_tile)
+        self.beam = beam
+        # all metadata lives at TILE granularity; row_tile maps rows back
+        row_tile = np.zeros(max(1, self.n), np.int64)
+        for t in range(len(rows_np)):
+            valid = rows_np[t][rows_np[t] >= 0]
+            row_tile[valid] = t
+        self.row_leaf = torch.as_tensor(row_tile[:self.n], device=dev)
+        self.vec = {a: torch.as_tensor(np.asarray(c, np.float32), device=dev)
+                    for a, c in table.vector.items()}
+        self.vec_np = {a: np.asarray(c, np.float32)
+                       for a, c in table.vector.items()}
+        self.vec_tiles, self.vec_tile_pp = {}, {}
+        self.vec_max2 = {}   # max |row|^2, padded against its fp32 rounding
+        for a, c in table.vector.items():
+            tiles = tile_data(c, rows_np)
+            pp = (tiles ** 2).sum(-1)
+            self.vec_tiles[a] = torch.as_tensor(tiles, device=dev)
+            self.vec_tile_pp[a] = torch.as_tensor(pp, device=dev)
+            self.vec_max2[a] = float(pp.max(initial=0)) * (
+                1 + (tiles.shape[-1] + 2) * _U32)
+            del tiles, pp
+        self.num = {a: torch.as_tensor(np.asarray(c, np.float32), device=dev)
+                    for a, c in table.numeric.items()}
+        # per-TILE balls/boxes, not the leaf's (tighter lower bounds)
+        valid = rows_np >= 0
+        self.geom = {a: _tile_geometry(c, rows_np, self.bucket_rows, cap)
+                     for a, c in table.vector.items()}
+        # finer KNN-only layout for the device beam loop
+        rows_dev, cap_dev, _ = bucket_tiles(starts, ends, self.device_tile)
+        br_dev = torch.as_tensor(rows_dev, dtype=torch.int64, device=dev)
+        self.bucket_rows_dev = br_dev
+        self.vec_tiles_dev = {a: torch.as_tensor(tile_data(c, rows_dev),
+                                                 device=dev)
+                              for a, c in table.vector.items()}
+        self.geom_dev = {a: _tile_geometry(c, rows_dev, br_dev, cap_dev)
+                         for a, c in table.vector.items()}
+        self.num_lo, self.num_hi = {}, {}
+        for a, c in table.numeric.items():
+            cv = np.asarray(c, np.float32)[np.maximum(rows_np, 0)]
+            self.num_lo[a] = torch.as_tensor(
+                np.where(valid, cv, np.inf).min(axis=1), dtype=torch.float32,
+                device=dev)
+            self.num_hi[a] = torch.as_tensor(
+                np.where(valid, cv, -np.inf).max(axis=1),
+                dtype=torch.float32, device=dev)
+
+    # ------------------------------------------------------------ stage 1+2
+    def _predicate_masks(self, queries: Sequence[Q.Query],
+                         stats: EngineStats, tile_route: bool = True
+                         ) -> Dict[Q.Query, np.ndarray]:
+        """Exact (n,) host row masks for every distinct basic predicate
+        in the batch, computed group-wise: one compare/kernel call per
+        (type, attr) group."""
+        nodes: List[Q.Query] = []
+        seen = set()
+        for q in queries:
+            for b in Q.basic_queries(q):
+                if isinstance(b, Q.VK) or b in seen:
+                    continue
+                seen.add(b)
+                nodes.append(b)
+        groups: Dict[Tuple[str, str], List[Q.Query]] = defaultdict(list)
+        for b in nodes:
+            groups[(type(b).__name__, b.attr)].append(b)
+
+        def vals(xs):
+            return torch.as_tensor(np.asarray(xs, np.float32),
+                                   device=self.device)
+
+        masks: Dict[Q.Query, np.ndarray] = {}
+        for (tname, attr), grp in groups.items():
+            if tname == "NE":
+                m, touched = _ne_group_masks(
+                    self.num[attr], self.num_lo[attr], self.num_hi[attr],
+                    self.row_leaf, vals([b.value for b in grp]),
+                    vals([b.tol for b in grp]))
+                m = m.cpu().numpy()
+            elif tname == "NR":
+                m, touched = _nr_group_masks(
+                    self.num[attr], self.num_lo[attr], self.num_hi[attr],
+                    self.row_leaf, vals([b.lo for b in grp]),
+                    vals([b.hi for b in grp]))
+                m = m.cpu().numpy()
+            else:  # VR
+                m, touched = self._vr_masks(attr, grp, stats, tile_route)
+            stats.predicate_buckets += int(touched)
+            for i, b in enumerate(grp):
+                masks[b] = m[i]
+        return masks
+
+    def _vr_masks(self, attr: str, grp: List[Q.Query],
+                  stats: EngineStats, tile_route: bool
+                  ) -> Tuple[np.ndarray, int]:
+        """(g, n) exact radius masks for one V.R group. tile_route=True
+        (device path): the triangle bound keeps only plausible tiles and
+        distances are evaluated on their union, unless the survivors
+        cover more than ``_VR_DENSE_CUTOFF`` of the table, where the
+        dense column pass runs instead; tile_route=False (oracle path):
+        always the dense pass. Rows near the boundary are re-checked on
+        the host with the exact formula either way."""
+        t_vr0 = time.time()
+        vecs = np.stack([b.vec() for b in grp])
+        r = np.asarray([b.radius for b in grp], np.float32)
+        r2 = r.astype(np.float32) ** 2
+        qs = torch.as_tensor(vecs, dtype=torch.float32, device=self.device)
+        r_t = torch.as_tensor(r, device=self.device)
+        leaf_ok_t = _vr_leaf_plan(qs, r_t, self.geom[attr].centroid,
+                                  self.geom[attr].radius)
+        leaf_ok = leaf_ok_t.cpu().numpy()
+        touched = int(leaf_ok.sum())
+        g = len(grp)
+        stats.vr_tiles_pruned += g * self.n_tiles - touched
+        union = np.nonzero(leaf_ok.any(axis=0))[0]
+        dim = vecs.shape[1]
+        col = self.vec_np[attr]
+        if not tile_route or \
+                len(union) * self.cap > _VR_DENSE_CUTOFF * max(1, self.n):
+            if tile_route:
+                stats.vr_dense_fallbacks += 1
+            m, near = _vr_dense_masks(qs, r_t, leaf_ok_t, self.vec[attr],
+                                      self.row_leaf)
+            m, near = m.cpu().numpy(), near.cpu().numpy()
+            gis, ris = np.nonzero(near)
+            if len(gis):
+                exact = (((col[ris] - vecs[gis]) ** 2).sum(1) <= r2[gis])
+                m[gis, ris] = exact
+            stats.stage_samples.append(
+                ("vr:dense", costm.vr_features("vr:dense", g, len(union),
+                                               self.cap, dim, self.n),
+                 time.time() - t_vr0))
+            return m, touched
+        stats.vr_tiles_scanned += touched
+        # pad the union to a power of two (bounded shape universe, as in
+        # the reference); pad columns have no members
+        u = len(union)
+        up = _next_pow2(u)
+        sel_u = np.zeros(up, np.int64)
+        sel_u[:u] = union
+        member = np.zeros((g, up), bool)
+        member[:, :u] = leaf_ok[:, union]
+        packed = _vr_union_eval(
+            qs, torch.as_tensor(r2, device=self.device),
+            torch.as_tensor(sel_u, device=self.device),
+            torch.as_tensor(member, device=self.device),
+            self.vec_tiles[attr], self.vec_tile_pp[attr],
+            self.bucket_rows).cpu().numpy()
+        within, near = (packed & 1).astype(bool), (packed & 2).astype(bool)
+        rows = self.bucket_rows_np[sel_u].reshape(-1)     # host-side map
+        m = np.zeros((g, self.n), bool)
+        gis, cis = np.nonzero(within)
+        m[gis, rows[cis]] = True
+        gis, cis = np.nonzero(near)
+        if len(gis):
+            rws = rows[cis]
+            exact = (((col[rws] - vecs[gis]) ** 2).sum(1) <= r2[gis])
+            m[gis, rws] = exact
+        stats.stage_samples.append(
+            ("vr:tile", costm.vr_features("vr:tile", g, len(union),
+                                          self.cap, dim, self.n),
+             time.time() - t_vr0))
+        return m, touched
+
+    # --------------------------------------------------------------- stage 3
+    def _walk(self, q, ambient, pred_masks, jobs, job_rows, ctr):
+        """Mirror of the scalar executor over host masks. Planning pass
+        (job_rows None): registers every V.K as (node, candidate mask)
+        and returns None for VK-containing subtrees. Finishing pass:
+        substitutes batched KNN results. Traversal order is identical in
+        both passes, so ``ctr`` indexes the same job list."""
+        if isinstance(q, (Q.NE, Q.NR, Q.VR)):
+            m = pred_masks[q]
+            return m if ambient is None else (m & ambient)
+        if isinstance(q, Q.VK):
+            i = ctr[0]
+            ctr[0] += 1
+            if job_rows is None:
+                jobs.append((q, ambient))
+                return None
+            rows = np.asarray(job_rows[i])
+            m = np.zeros(self.n, bool)
+            m[rows[rows >= 0]] = True
+            return m
+        if isinstance(q, Q.And):
+            mask = ambient
+            vks = []
+            for p in q.parts:
+                if isinstance(p, Q.VK):
+                    vks.append(p)
+                    continue
+                pm = self._walk(p, mask, pred_masks, jobs, job_rows, ctr)
+                mask = pm if mask is None else (mask & pm)
+            if not vks:
+                return mask if mask is not None \
+                    else np.ones(self.n, bool)
+            res = None
+            for p in vks:
+                vm = self._walk(p, mask, pred_masks, jobs, job_rows, ctr)
+                if vm is not None:
+                    res = vm if res is None else (res & vm)
+            return res
+        if isinstance(q, Q.Or):
+            out = np.zeros(self.n, bool)
+            any_unknown = False
+            for p in q.parts:
+                pm = self._walk(p, ambient, pred_masks, jobs, job_rows, ctr)
+                if pm is None:
+                    any_unknown = True
+                else:
+                    out = out | pm
+            return None if any_unknown else out
+        raise TypeError(q)
+
+    def _group_jobs(self, jobs, device_loop: bool) -> List[KnnGroupSpec]:
+        specs = tuple((vk.attr, vk.k, m is not None) for vk, m in jobs)
+        return list(group_job_specs(specs, device_loop))
+
+    def _rerank(self, attr: str, geom: LeafGeometry, qv: np.ndarray,
+                dist: np.ndarray, rows: np.ndarray, next_lb: float,
+                k: int) -> Tuple[np.ndarray, bool, float]:
+        """The scan's candidates re-ranked by the oracle's own formula
+        (the stable sort keeps the scan's visit order among exactly equal
+        distances). Returns (top-k rows, whether ``_rerank_certified``
+        proves them complete, the k-th exact squared distance)."""
+        x = self.vec_np[attr]
+        cand = rows[rows >= 0]
+        d2 = np.sum((x[cand] - qv[None, :]) ** 2, axis=1)
+        order = np.argsort(d2, kind="stable")
+        t_k = float(d2[order[k - 1]]) if len(cand) >= k else _INF
+        q64 = qv.astype(np.float64)
+        ok = _rerank_certified(t_k, float(dist[-1]) ** 2, float(next_lb),
+                               float(q64 @ q64), len(qv),
+                               self.vec_max2[attr], geom.cen_max2,
+                               geom.rad_max)
+        return cand[order[:k]], ok, t_k
+
+    def _widen(self, attr: str, qs: torch.Tensor, qv: np.ndarray,
+               masks: Optional[torch.Tensor], fails, jobs, out) -> None:
+        """Exact rows for the jobs whose re-rank was not proven, from one
+        pairwise pass of their queries over the whole column. Each job's
+        k-th exact candidate distance ``t_k`` bounds the oracle's k-th
+        from above, so every oracle row has an expansion distance within
+        t_k plus the fp32 errors; the rows within that threshold (and the
+        job's mask) are re-ranked by the oracle's formula. ``fails`` holds
+        (position in the group, job index, t_k)."""
+        pos = [f[0] for f in fails]
+        dim = qv.shape[1]
+        q64 = qv[pos].astype(np.float64)
+        e_row = 4 * dim * _U32 * ((q64 * q64).sum(1) + self.vec_max2[attr])
+        t_k = np.asarray([f[2] for f in fails])
+        # the (1 + 4u) factor keeps the fp32 cast from rounding it down
+        thr = (t_k / (1 - (dim + 2) * _U32) + e_row) * (1 + 4 * _U32)
+        sel = torch.as_tensor(pos, device=self.device)
+        hit = ops.pairwise_sq_l2(qs[sel], self.vec[attr]) <= torch.as_tensor(
+            thr, dtype=torch.float32, device=self.device)[:, None]
+        if masks is not None:
+            hit &= masks[sel]
+        at = torch.nonzero(hit).cpu().numpy()
+        x = self.vec_np[attr]
+        for j, (p, i, _) in enumerate(fails):
+            cand = at[at[:, 0] == j, 1]
+            d2 = np.sum((x[cand] - qv[p][None, :]) ** 2, axis=1)
+            out[i] = cand[np.argsort(d2, kind="stable")[:jobs[i][0].k]]
+
+    def _run_jobs(self, jobs, stats: EngineStats, device_loop: bool,
+                  groups: Optional[Sequence[KnnGroupSpec]] = None,
+                  seeds: Optional[Dict[str, int]] = None
+                  ) -> List[np.ndarray]:
+        """Run every V.K job as one beam-loop masked KNN per group.
+
+        ``seeds`` maps group archetypes to QBS convergence widths. The
+        device loop uses a seed as its straggler round width, the host
+        loop adds it to its first doubling beam; seeds are quantized to
+        powers of two and never change results. The recorded signal is
+        each group's p90 width BEYOND its first round, so seeds can
+        decay."""
+        out: List[Optional[np.ndarray]] = [None] * len(jobs)
+        if groups is None:
+            groups = self._group_jobs(jobs, device_loop)
+        for grp in groups:
+            t_g0 = time.time()
+            idxs = list(grp.jobs)
+            attr, kmax, n_masked = grp.attr, grp.kmax, grp.n_masked
+            seed = seeds.get(grp.archetype) if seeds else None
+            conv: list = []
+            next_lb: list = []
+            qv = np.stack([jobs[i][0].vec() for i in idxs])
+            qs = torch.as_tensor(qv, device=self.device)
+            masks = None
+            if n_masked:
+                masks = torch.as_tensor(np.stack(
+                    [jobs[i][1] for i in idxs[:n_masked]]),
+                    device=self.device)
+                if n_masked < len(idxs):
+                    masks = torch.cat(
+                        [masks, torch.ones((len(idxs) - n_masked, self.n),
+                                           dtype=torch.bool,
+                                           device=self.device)])
+            geom = self.geom_dev[attr] if device_loop else self.geom[attr]
+            tiles = self.vec_tiles_dev[attr] if device_loop \
+                else self.vec_tiles[attr]
+            l = geom.n_leaves
+            # the kernels rank at most fused_topk.MAX_K; a larger k keeps
+            # no margin (and raises on the card)
+            k_scan = max(kmax, min(kmax + _RERANK_EXTRA, fused_topk.MAX_K))
+            if device_loop:
+                ws = max(self.beam, _next_pow2(seed)) if seed else None
+                dist, rows = batched_knn_device(
+                    geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
+                    ws=ws, k_stop=kmax, stats=stats, conv_out=conv,
+                    next_lb_out=next_lb)
+                w_base = max(1, min(max(1, self.beam // 2), l))
+            else:
+                beam_eff = max(self.beam,
+                               _next_pow2(self.beam + seed)) \
+                    if seed else self.beam
+                dist, rows = batched_knn(
+                    geom, tiles, qs, k_scan, masks=masks, beam=beam_eff,
+                    k_stop=kmax, stats=stats, conv_out=conv,
+                    next_lb_out=next_lb)
+                w_base = max(1, min(beam_eff, l))
+            signal = np.maximum(conv[0] - w_base, 0)
+            width = int(np.ceil(np.quantile(signal, 0.9))) \
+                if len(signal) else 0
+            stats.knn_group_widths.append((grp.archetype, width))
+            feats = costm.knn_plan_features(
+                device_loop=device_loop, g=len(idxs), k=kmax,
+                beam=self.beam, tiles=l, cap=geom.cap, dim=qv.shape[1],
+                precision="fp32", seed=seed)
+            stats.stage_samples.append(
+                (costm.knn_kind(device_loop), feats, time.time() - t_g0))
+            fails = []
+            for pos, i in enumerate(idxs):
+                out[i], proven, t_k = self._rerank(
+                    attr, geom, qv[pos], dist[pos], rows[pos],
+                    next_lb[0][pos], jobs[i][0].k)
+                if not proven:
+                    fails.append((pos, i, t_k))
+            if fails:
+                stats.knn_exact_fallbacks += len(fails)
+                self._widen(attr, qs, qv, masks, fails, jobs, out)
+        return out  # type: ignore[return-value]
+
+    # -------------------------------------------------------------- explain
+    def vr_tile_estimate(self, vr: Q.VR) -> Tuple[int, int]:
+        """(surviving, total) tile counts under the V.R triangle bound
+        for one query — the planner's pruned-tile estimate."""
+        g = self.geom[vr.attr]
+        ok = _vr_leaf_plan(
+            torch.as_tensor(vr.vec()[None, :], device=self.device),
+            torch.as_tensor([vr.radius], dtype=torch.float32,
+                            device=self.device), g.centroid, g.radius)
+        return int(ok.sum()), self.n_tiles
+
+    # -------------------------------------------------------------- execute
+    def execute_batch(self, queries: Sequence[Q.Query], *,
+                      device_loop: Optional[bool] = None,
+                      plan: Optional[EnginePlan] = None
+                      ) -> Tuple[List[np.ndarray], EngineStats]:
+        """Execute a batch of plannable query trees. Returns one row array
+        per query: top-level V.K results distance-ordered, everything else
+        ascending row ids. ``plan`` (from the planner) supplies the job
+        layout, grouping and beam seeds; the job layout is cross-checked
+        against this batch's walk."""
+        if plan is not None:
+            device_loop = plan.device_loop
+        elif device_loop is None:
+            device_loop = self.device_loop
+        t0 = time.time()
+        stats = EngineStats(queries=len(queries))
+        if plan is None:
+            for q in queries:
+                if not plannable(q):
+                    raise ValueError(
+                        f"query not plannable for the batched engine: "
+                        f"{q!r}")
+        pred_masks = self._predicate_masks(queries, stats,
+                                           tile_route=device_loop)
+        jobs, groups, seeds = self._plan_jobs(queries, pred_masks, plan)
+        job_rows = self._run_jobs(jobs, stats, device_loop,
+                                  groups=groups, seeds=seeds)
+        out = self._finish_walk(queries, pred_masks, jobs, job_rows)
+        stats.time_s = time.time() - t0
+        return out, stats
+
+    def _plan_jobs(self, queries: Sequence[Q.Query],
+                   pred_masks: Dict[Q.Query, np.ndarray],
+                   plan: Optional[EnginePlan]):
+        """Walk the batch into V.K jobs and cross-check a cached plan's
+        job layout against them. Returns (jobs, groups, seeds)."""
+        jobs: List[Tuple[Q.VK, Optional[np.ndarray]]] = []
+        ctr = [0]
+        for q in queries:
+            self._walk(q, None, pred_masks, jobs, None, ctr)
+        groups = seeds = None
+        if plan is not None:
+            got = tuple((vk.attr, vk.k, m is not None) for vk, m in jobs)
+            if got != plan.job_specs:
+                raise ValueError(
+                    f"EnginePlan job layout does not match this batch "
+                    f"(stale or mis-keyed plan cache): plan expects "
+                    f"{plan.job_specs}, walk produced {got}")
+            groups, seeds = plan.groups, plan.seeds
+        return jobs, groups, seeds
+
+    def _finish_walk(self, queries: Sequence[Q.Query],
+                     pred_masks: Dict[Q.Query, np.ndarray], jobs,
+                     job_rows: List[np.ndarray]) -> List[np.ndarray]:
+        """Finishing pass: substitute job rows into each query's mask
+        walk (host numpy)."""
+        out: List[np.ndarray] = []
+        ctr = [0]
+        for q in queries:
+            if isinstance(q, Q.VK):
+                ctr[0] += 1  # consume this query's own job slot
+                rows = np.asarray(job_rows[ctr[0] - 1])
+                out.append(rows[rows >= 0].astype(np.int64))
+                continue
+            m = self._walk(q, None, pred_masks, jobs, job_rows, ctr)
+            out.append(np.nonzero(m)[0].astype(np.int64))
+        return out

@@ -1,0 +1,134 @@
+"""Build and load the CUDA kernels: ``nvcc`` into shared libraries with a
+plain C interface, loaded with ``ctypes``.
+
+Each source in ``repro_torch/csrc/`` becomes one library, compiled at
+first use for ``sm_90a`` into ``repro_torch/_build/`` (listed in
+``.gitignore``) under a name that carries the hash of the source and
+the flags, so an edited source rebuilds and an unchanged one loads the
+library already built. ``build_all`` starts one ``nvcc`` per source at
+once. A failed build raises with the compiler's output; nothing is ever
+taken from outside the repository's own sources.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("pairwise_l2", "fused_topk")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points per library: name -> argtypes (pointers and the stream
+# are c_void_p; a bare int would cut a 64-bit pointer)
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "pairwise_l2": {
+        "pairwise_sq_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "fused_topk": {
+        "topk_l2_masked_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
+        "topk_l2_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fused_topk_max_k": [],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc on the machine with the "
+                           "card")
+    return path
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Start one nvcc for ``name`` unless its library is already built.
+    Returns (name, target, process or None)."""
+    so = _target(name)
+    if os.path.exists(so):
+        return name, so, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, so, (proc, tmp)
+
+
+def _finish(name: str, so: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    with open(f"{so}.log", "w") as f:
+        f.write(out)
+    os.replace(tmp, so)       # atomic: a concurrent loader sees all or none
+
+
+def _load(name: str, so: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel library, one nvcc per source, all started
+    together, and load them. Returns {name: compiler output} (ptxas
+    register/shared-memory report; empty for a library already built)."""
+    with _lock:
+        jobs = [_start(n) for n in SOURCES if n not in _libs]
+        logs = {}
+        for name, so, job in jobs:
+            _finish(name, so, job)
+            _load(name, so)
+            logs[name] = ""
+            if job is not None:
+                with open(f"{so}.log") as f:
+                    logs[name] = f.read()
+        return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            n, so, job = _start(name)
+            _finish(n, so, job)
+            _load(n, so)
+        return _libs[name]
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise when a C entry point reports a CUDA error at launch."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")

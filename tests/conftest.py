@@ -8,6 +8,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import numpy as np
 import pytest
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); "
+        "skips where there is none")
+
 # ---------------------------------------------------------------------------
 # Graceful degradation when `hypothesis` is absent (see requirements-dev.txt):
 # install a stand-in module so the property-test modules still COLLECT; every

@@ -1,0 +1,178 @@
+"""The port's query and build modules against the JAX package on the same
+numpy inputs: query signatures and the brute-force oracle, the
+hyperspace transform, LPGF on both of its branches, DPC and the index
+build. Also the package's import and device rules.
+
+Tolerance: trees, labels, ids and rows exact; floats rtol=1e-5,
+atol=1e-5 (fp32 summation order, XLA vs torch's CPU GEMM).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import query as JQ
+from repro.core.dpc import dpc as jdpc
+from repro.core.index import build_index as jbuild_index
+from repro.core.lake import MMOTable as JTable
+from repro.core.lpgf import lpgf as jlpgf
+from repro.core.lpgf import mean_nn_distance as jmean_nn
+from repro.core.transform import init_transform as jinit_transform
+from repro_torch.core import lpgf as tlpgf_mod
+from repro_torch.core import query as TQ
+from repro_torch.core.dpc import dpc as tdpc
+from repro_torch.core.index import build_index as tbuild_index
+from repro_torch.core.lake import MMOTable as TTable
+from repro_torch.core.lpgf import lpgf as tlpgf
+from repro_torch.core.lpgf import mean_nn_distance as tmean_nn
+from repro_torch.core.platform import MQRLD
+from repro_torch.core.transform import init_transform as tinit_transform
+
+torch.set_num_threads(1)
+
+RTOL = ATOL = 1e-5   # fp32 summation order (XLA vs torch CPU GEMM)
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _table_pair(n=400, d=6, seed=0):
+    rng = np.random.default_rng(seed)
+    vec = rng.normal(size=(n, d)).astype(np.float32)
+    price = rng.uniform(0, 100, n).astype(np.float32)
+    cat = rng.integers(0, 5, n).astype(np.float32)
+    mk = lambda T: (T("t").add_vector("v", vec).add_numeric("price", price)
+                    .add_numeric("cat", cat))
+    return mk(JTable), mk(TTable), vec
+
+
+def _queries(M, vec, seed=1):
+    """The same query trees built from either package's AST classes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(12):
+        v = vec[rng.integers(len(vec))]
+        out += [
+            M.VK.of("v", v, 5),
+            M.And.of(M.NR("price", 20, 70), M.VK.of("v", v, 7)),
+            M.And.of(M.VR.of("v", v, 2.5), M.NE("cat", 3.0)),
+            M.Or.of(M.NE("cat", 1.0), M.And.of(M.VR.of("v", v, 2.0),
+                                                M.NR("price", 0, 50))),
+            M.And.of(M.And.of(M.NR("price", 10, 90), M.NE("cat", 2.0)),
+                     M.VK.of("v", v, 4)),
+        ]
+    return out
+
+
+def test_signatures_and_bruteforce_rows_equal():
+    jt, tt, vec = _table_pair()
+    for jq, tq in zip(_queries(JQ, vec), _queries(TQ, vec)):
+        jn, tn = JQ.normalize(jq), TQ.normalize(tq)
+        assert JQ.signature(jn) == TQ.signature(tn)
+        np.testing.assert_array_equal(JQ.execute_bruteforce(jt, jq),
+                                      TQ.execute_bruteforce(tt, tq))
+
+
+def test_init_transform_matches():
+    x = np.random.default_rng(2).normal(size=(500, 9)).astype(np.float32)
+    x[:, 0] *= 5
+    j, t = jinit_transform(x), tinit_transform(x)
+    for a, b in ((j.r, t.r), (j.s, t.s), (j.mean, t.mean)):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(j.apply(x), t.apply(x), rtol=RTOL, atol=ATOL)
+
+
+def _grid_points(n, d, seed):
+    """Quarter-integer coordinates: every squared distance, on both
+    packages, is exact in fp32, so LPGF's self-masking and ring
+    thresholds see identical values."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-12, 13, (n, d)) * 0.25).astype(np.float32)
+
+
+def test_mean_nn_distance_matches():
+    x = _grid_points(700, 5, 3)
+    j = jmean_nn(x, sample=300, seed=4)
+    t = tmean_nn(x, sample=300, seed=4, device="cpu")
+    assert abs(j - t) <= ATOL + RTOL * abs(j)
+
+
+@pytest.mark.parametrize("n,block,iters", [(300, 4096, 2), (700, 256, 1)])
+def test_lpgf_matches_on_both_branches(n, block, iters):
+    """N <= block goes through lpgf_force, N > block through the tiled
+    pairwise + GEMM path (``_tile_disp``). The tiled path masks self
+    pairs by ``d2 <= 1e-12``, which only exact distances make reliable,
+    so it is compared on one step (the platform default) from grid
+    points; the moved points of a second step are no longer exact."""
+    x = _grid_points(n, 4, 5)
+    j = jlpgf(x, iters=iters, block=block, seed=1)
+    t = tlpgf(x, iters=iters, block=block, seed=1, device="cpu")
+    # moved points, not squared distances: two steps compound the fp32
+    # summation-order difference (about 3e-5 on these inputs)
+    np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [100, 256])
+def test_lpgf_tile_row_chunks_match_reference(monkeypatch, chunk):
+    """``_tile_disp`` evaluates each tile in row chunks (1024 rows at the
+    default): ragged and whole-tile chunks of a 256-row tile return the
+    reference's moved points."""
+    monkeypatch.setattr(tlpgf_mod, "_ROW_CHUNK", chunk)
+    x = _grid_points(700, 4, 5)
+    j = jlpgf(x, iters=1, block=256, seed=1)
+    t = tlpgf(x, iters=1, block=256, seed=1, device="cpu")
+    np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
+
+
+def test_dpc_labels_identical(blobs):
+    x, _, _ = blobs
+    j = jdpc(x[:800], max_clusters=8, seed=0)
+    t = tdpc(x[:800], max_clusters=8, seed=0, device="cpu")
+    np.testing.assert_array_equal(j.labels, t.labels)
+    np.testing.assert_array_equal(j.centers, t.centers)
+
+
+def test_build_index_trees_identical(blobs):
+    x, _, _ = blobs
+    kw = dict(min_leaf=32, max_leaf=256, dpc_sample=512, seed=0)
+    jt, jperm, _ = jbuild_index(x, **kw)
+    tt, tperm, rep = tbuild_index(x, device="cpu", **kw)
+    np.testing.assert_array_equal(jperm, tperm)
+    assert jt.children == tt.children
+    for f in ("parent", "is_leaf", "bucket_start", "bucket_end", "depth"):
+        np.testing.assert_array_equal(getattr(jt, f), getattr(tt, f))
+    for f in ("centroid", "radius", "lm_a", "lm_b"):
+        np.testing.assert_allclose(getattr(jt, f), getattr(tt, f),
+                                   rtol=RTOL, atol=ATOL)
+    assert rep.n_leaves == len(tt.leaf_ids) > 1
+
+
+def test_import_leaves_jax_and_reference_out():
+    """Every port module, and chip_smoke.py, imports neither JAX nor the
+    reference package."""
+    code = ("import sys, importlib, pkgutil, repro_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'repro' "
+            "or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(SRC), os.path.abspath(os.path.join(SRC, ".."))]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_the_card():
+    _, tt, _ = _table_pair(n=20)
+    if torch.cuda.is_available():
+        assert MQRLD(tt).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MQRLD(tt)
+    assert MQRLD(tt, device="cpu").device.type == "cpu"
