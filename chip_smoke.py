@@ -6,20 +6,32 @@
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
-1. build: every kernel of the main path compiled from ``src/repro_torch/
-   csrc`` with nvcc (one process per source, all started together);
+1. build: every kernel compiled from ``src/repro_torch/csrc`` with nvcc
+   (one process per source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card at the main path's shapes — ids exactly equal, squared distances
-   within the fp32 dot-product error bound — and timed beside its plain
+   card at the shapes its path gives it — ids exactly equal, squared
+   distances within the fp32 dot-product error bound, ``quant_lb2``'s
+   bounds never above the exact distance — and timed beside its plain
    version, a PyTorch library yardstick and its roofline bound;
-3. main path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
+3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
-   then timed), every result row-equal to ``p.oracle(q)``, with every
-   kernel's launch count on that path above zero.
+   then timed) and one batch of V.K queries at k = 300 and 1000, every
+   result row-equal to ``p.oracle(q)``;
+4. mixed-precision path: ``session(precision="int8")`` and
+   ``session(precision="bf16")`` on the same platform, a warm and a timed
+   batch each, every row equal to the oracle's and to the fp32 rows, and
+   at least one V.K job's re-rank proven without the widening pass; then
+   ``quant_lb2`` held and timed again, as in phase 2, at the widest
+   (G, C) each precision launched it with on this path;
+5. small-table path: ``prepare()`` with its defaults on a 4,096-row
+   table (LPGF's force kernel), then a 64-query batch, every row equal to
+   the oracle's.
 
-The last lines are the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+Each path's kernels must have launched in that path's run (counts set to
+0 just before it, read just after). The last lines are the kernels JSON,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -35,8 +47,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
-# sheet): fp32 outside the tensor cores, and HBM3 bandwidth
+# sheet): fp32 outside the tensor cores, dense bf16 and int8 tensor-core
+# rates, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_OPS = {"fp32": PEAK_FP32, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 U32 = 2.0 ** -24          # unit roundoff of fp32
 
@@ -50,8 +64,8 @@ def fail(msg: str) -> int:
     return 1
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -137,7 +151,8 @@ def check_topk_l2(torch, ft, ref, dev, gen, rows: int, dim: int):
     idx = torch.randperm(rows, generator=gen, device=dev)[:m]
     gq = gp[idx].contiguous()
     ok = True
-    for mm, kk in ((m, k), (512, 256)):
+    # k above the old 256 limit: 1000 takes the global-scratch buffers
+    for mm, kk in ((m, k), (512, 256), (256, 300), (128, 1000)):
         gd, gi = ft.topk_l2_cuda(gq[:mm].contiguous(), gp, kk)
         wd, wi = _plain_topk(torch, ref, gq[:mm], gp, kk)
         ok &= torch.equal(gi, wi) and torch.equal(gd, wd)
@@ -187,6 +202,12 @@ def check_topk_masked(torch, ft, ref, dev, gen, dim: int, k: int):
                                     v[:, :16].contiguous(), k)
     wsd, wsi = ref.topk_l2_masked(gq, gp[:, :16], v[:, :16], k)
     ok &= torch.equal(si, wsi) and torch.equal(sd, wsd)
+    # k above the old 256 limit, ids exact (and distances: exact sums)
+    for kk in (300, 1000):
+        for hint in (None, lb2):
+            bd, bi = ft.topk_l2_masked_cuda(gq, gp, v, kk, lb2=hint)
+            wbd, wbi = ref.topk_l2_masked(gq, gp, v, kk)
+            ok &= torch.equal(bi, wbi) and torch.equal(bd, wbd)
     # gaussian, all valid: timing and the distance bound
     q = torch.randn((g, dim), generator=gen, device=dev)
     p = torch.randn((g, c, dim), generator=gen, device=dev)
@@ -212,6 +233,183 @@ def check_topk_masked(torch, ft, ref, dev, gen, dim: int, k: int):
         library="torch.cdist + torch.topk")
 
 
+def _row_chunks(g: int, c: int, dim: int, elems: int = 2 ** 27):
+    """Query ranges whose (rows, c, dim) temporaries hold about ``elems``
+    elements (1 GiB in fp64), for the plain version and the exact check
+    at the widest rounds."""
+    b = max(1, elems // max(1, c * dim))
+    return [(i, min(g, i + b)) for i in range(0, g, b)]
+
+
+def _quant_inputs(torch, plan_tiles, dev, gen, dim: int, precision: str,
+                  g: int, c: int):
+    """A mixed-precision round of ``g`` queries x ``c`` candidates (tiles
+    of 64 rows, each query's tiles drawn without repeats), with an
+    all-masked row, an all-zero tile (the int8 scale floors), a constant
+    tile and duplicate rows. Returns the kernel's operands, the fp32
+    tiles and the selection, from which the exact distances follow."""
+    cap = 64
+    w = -(-c // cap)
+    t = max(64, w)
+    tiles = torch.randn((t, cap, dim), generator=gen, device=dev) * 4
+    tiles[3] = 0.0
+    tiles[4] = 2.5
+    tiles[1] = tiles[0]                                  # duplicate rows
+    tv = torch.ones((t, cap), dtype=torch.bool, device=dev)
+    tv[-1, 40:] = False
+    sel = torch.argsort(torch.rand((g, t), generator=gen, device=dev),
+                        dim=1)[:, :w]
+    sel[:, 0] = torch.arange(g, device=dev) % 5          # the edge tiles
+    q = torch.randn((g, dim), generator=gen, device=dev) * 4
+    if g > 1:
+        q[1] = tiles[sel[1, 0], 5]                       # distance 0
+    v = (torch.rand((g, c), generator=gen, device=dev) < 0.8) \
+        & tv[sel].reshape(g, w * cap)[:, :c]
+    v[0] = False                                         # all masked
+    if g > 2:
+        v[2, 100:] = False
+    pl = plan_tiles(tiles.cpu().numpy(), tv.cpu().numpy(), precision)
+    pl = [x.to(dev) for x in pl]
+    codes = pl[0][sel].reshape(g, w * cap, dim)[:, :c].contiguous()
+    cs = pl[1][sel].repeat_interleave(cap, 1)[:, :c].contiguous()
+    cp = pl[2][sel].reshape(g, w * cap)[:, :c].contiguous()
+    ce = pl[3][sel].repeat_interleave(cap, 1)[:, :c].contiguous()
+    return (q, codes, cs, cp, ce, v.contiguous()), tiles, sel
+
+
+def check_quant_lb2(torch, qk, ref, build, plan_tiles, dev, gen, dim: int,
+                    precision: str, g: int = 256, c: int = 1024):
+    """``quant_lb2`` at (g, c, dim): bounds against the plain version
+    (int8 bit for bit, bf16 within its cross term's summation order),
+    +inf exactly where invalid, and no bound above the exact (fp64)
+    squared distance. Times the wrapper (which quantizes the query with
+    a few torch operations first), the kernel's own launch on the
+    pre-quantized operands, the plain version and, for bf16, a bf16
+    ``bmm`` with the elementwise epilogue."""
+    from repro_torch.utils.quant import quantize_query
+    args, tiles, sel = _quant_inputs(torch, plan_tiles, dev, gen, dim,
+                                     precision, g, c)
+    q, codes, cs, cp, ce, v = args
+    chunks = _row_chunks(g, c, dim)
+
+    def plain():
+        return torch.cat([ref.quant_lb2(*(x[a:b] for x in args),
+                                        precision=precision)
+                          for a, b in chunks])
+    got = qk.quant_lb2_cuda(*args, precision=precision)
+    want = plain()
+    ok = torch.equal(torch.isinf(got), ~v)
+    mag = ((q * q).sum(1)[:, None] + cp).clamp_min(0)
+    err = (got - want).abs()[v]
+    if precision == "int8":   # exact integer cross term, same epilogue
+        ok &= torch.equal(got, want)
+    else:                     # the cross term's sum order
+        ok &= bool((err <= 1e-3 * mag.sqrt()[v]).all())
+    del want, mag
+    # the conservative-bound contract against the exact distance (fp64)
+    violations = 0
+    for a, b in chunks:
+        pts = tiles[sel[a:b]].reshape(b - a, -1, dim)[:, :c].double()
+        exact = ((pts - q[a:b, None, :].double()) ** 2).sum(-1)
+        del pts
+        violations += int((got[a:b].double()[v[a:b]]
+                           > exact[v[a:b]]).sum())
+        del exact
+    ok &= violations == 0
+    del tiles, sel
+    # the kernel alone, on operands quantized beforehand
+    qc, qscale, qqq, qeps = (t.contiguous()
+                             for t in quantize_query(q, precision))
+    lib = build.library("quant_lb2")
+    out = torch.empty_like(got)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():
+        build.check(lib.quant_lb2_launch(
+            qc.data_ptr(), qscale.data_ptr(), qqq.data_ptr(),
+            qeps.data_ptr(), codes.data_ptr(), cs.data_ptr(), cp.data_ptr(),
+            ce.data_ptr(), v.data_ptr(), out.data_ptr(), g, c, dim,
+            int(precision == "int8"), stream), "quant_lb2")
+    kernel()
+    torch.cuda.synchronize()
+    ok &= torch.equal(out, got)
+    ms = time_ms(torch, lambda: qk.quant_lb2_cuda(*args, precision=precision),
+                 20)
+    kernel_ms = time_ms(torch, kernel, 20)
+    plain_ms = time_ms(torch, plain, 5)
+    qprep = time_ms(torch, lambda: quantize_query(q, precision), 20)
+    lib_ms = None
+    if precision == "bf16":
+        # one bf16 bmm for the cross terms plus the elementwise epilogue
+        def library():
+            qb, _, qn, qe = quantize_query(q, "bf16")
+            cross = torch.bmm(codes, qb[:, :, None])[:, :, 0].float()
+            d2h = (qn[:, None] + cp - 2.0 * cross).clamp_min(0)
+            dh = d2h.sqrt()
+            lbr = (dh - (qe[:, None] + ce) - (1e-4 + 1e-4 * dh + 2e-3 * (
+                qn[:, None] + cp).clamp_min(0).sqrt())).clamp_min(0)
+            return torch.where(v, lbr * lbr, float("inf"))
+        lib_ms = time_ms(torch, library, 20)
+    esz = 1 if precision == "int8" else 2
+    nvalid = int(v.sum())
+    # bytes the function must move: the valid candidates' codes and
+    # metadata (scale, norm, error: 12 bytes), every candidate's validity
+    # byte and output, and the query
+    bms, by = bound_ms(2.0 * nvalid * dim,
+                       esz * (nvalid * dim + g * dim) + 12.0 * nvalid
+                       + 5.0 * g * c + 16.0 * g, PEAK_OPS[precision])
+    return ok, dict(
+        name="quant_lb2", route="cuda",
+        source="src/repro_torch/csrc/quant_lb2.cu",
+        replaces="src/repro/kernels/fused_topk.py:283",
+        max_abs_err=float(err.max()) if err.numel() else 0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        violations=violations, kernel_ms=kernel_ms,
+        query_quantize_ms=qprep, shape=f"({g}, {c}, {dim}) {precision}",
+        library="torch.bmm in bf16 + epilogue" if lib_ms else "none")
+
+
+def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
+    """Quarter-integer points make every squared distance exact, so the
+    kernel and the plain version take the same ring decisions; F agrees
+    within 1e-5 of its largest entry and W within rtol 1e-5 (sum
+    order)."""
+    ok, errs = True, []
+    for n in (4096, 1000):
+        x = torch.randint(-12, 13, (n, dim), generator=gen,
+                          device=dev).float() * 0.25
+        x[7] = x[3]                                       # a duplicate
+        d2 = ref.pairwise_sq_l2(x, x)
+        d2.fill_diagonal_(float("inf"))
+        g = float(d2.min(1).values.sqrt().mean())
+        del d2
+        gf, gw = lf.lpgf_force_cuda(x, 7.5 * g, g)
+        wf, ww = ref.lpgf_force(x, 7.5 * g, g)
+        scale = float(wf.abs().max()) + 1e-6
+        errs.append(float((gf - wf).abs().max()))
+        ok &= errs[-1] <= 1e-5 * scale
+        ok &= bool(((gw - ww).abs() <= 1e-5 + 1e-5 * ww.abs()).all())
+        if n == 4096:
+            xt, rt, gt = x, 7.5 * g, g
+    n = xt.shape[0]
+    ms = time_ms(torch, lambda: lf.lpgf_force_cuda(xt, rt, gt), 5)
+    plain = time_ms(torch, lambda: ref.lpgf_force(xt, rt, gt), 2)
+    lib = time_ms(torch, lambda: torch.cdist(
+        xt, xt, compute_mode="use_mm_for_euclid_dist"), 5)
+    # the least work of the function: every squared distance once, N^2*D
+    # operations with the Gram matrix's symmetry, and w @ x, 2*N^2*D (the
+    # kernel forms each distance tile twice, in its two passes, as the
+    # TPU kernel does: 6*N^2*D)
+    bms, by = bound_ms(3.0 * n * n * dim, 4.0 * (2 * n * dim + n))
+    return ok, dict(
+        name="lpgf_force", route="cuda",
+        source="src/repro_torch/csrc/lpgf_force.cu",
+        replaces="src/repro/kernels/lpgf_force.py:84",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+        bound_by=by, library_ms=lib, shape=f"({n}, {dim}); also (1000, "
+        f"{dim})", library="torch.cdist (phase 1 only)")
+
+
 # -------------------------------------------------------------- main path
 def hybrid_batch(Q, np, vecs, radius: float, n: int, seed: int):
     """The four paper archetypes round-robin (VK k=20, NR+VK, VR+NR,
@@ -229,58 +427,121 @@ def hybrid_batch(Q, np, vecs, radius: float, n: int, seed: int):
     return out
 
 
-def drive_main_path(args, dev):
-    """The port's main path through the entry points a user calls:
-    ``MQRLD(table).prepare()`` on a table of 12-centre Gaussian blobs
-    (``args.rows`` x ``args.dim``, as benchmarks/bench_engine.py draws
-    them at d=32) plus a uniform ``price`` column, then ``session()
-    .plan(batch).execute()`` on the hybrid batch, once to warm and once
-    timed. Returns (platform, batch, rows, stats, (prepare s, radius,
-    warm s, timed s))."""
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def build_platform(args, dev, rows: int, **prepare_kw):
+    """``MQRLD(table).prepare(**prepare_kw)`` on a table of 12-centre
+    Gaussian blobs (``rows`` x ``args.dim``, as benchmarks/bench_engine.py
+    draws them at d=32) plus a uniform ``price`` column, and a V.R radius
+    from the data: the median 100th-nearest-neighbour distance of 64
+    sampled rows (a fixed radius selects nothing at 512-d). Returns
+    (platform, radius, prepare s)."""
     import numpy as np
     import torch
-    from repro_torch.core import query as Q
     from repro_torch.core.lake import MMOTable
     from repro_torch.core.platform import MQRLD
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     rng = np.random.default_rng(args.seed)
     centers = rng.normal(size=(12, args.dim)).astype(np.float32) * 6
-    cat = rng.integers(0, 12, args.rows)
-    vec = (centers[cat] + rng.normal(size=(args.rows, args.dim))
+    cat = rng.integers(0, 12, rows)
+    vec = (centers[cat] + rng.normal(size=(rows, args.dim))
            ).astype(np.float32)
-    price = rng.uniform(0, 100, args.rows).astype(np.float32)
+    price = rng.uniform(0, 100, rows).astype(np.float32)
     table = MMOTable("smoke").add_vector("v", vec).add_numeric("price",
                                                                price)
     p = MQRLD(table, seed=args.seed,
               device=None if dev.type == "cuda" else dev)
     t0 = time.time()
-    p.prepare(min_leaf=64, max_leaf=1024)
-    sync()
+    p.prepare(**prepare_kw)
+    _sync(torch, dev)
     t_prep = time.time() - t0
-    # V.R radius from the data: the median 100th-nearest-neighbour
-    # distance of 64 sampled rows (a fixed radius selects nothing at 512-d)
     xs = torch.as_tensor(p.table.vector["v"], device=dev)
-    samp = xs[torch.as_tensor(rng.choice(args.rows, 64, replace=False),
+    samp = xs[torch.as_tensor(rng.choice(rows, 64, replace=False),
                               device=dev)]
     d100 = torch.cdist(samp, xs).kthvalue(101, dim=1).values
     radius = float(f"{float(d100.median()):.4g}")
-    del xs
-    batch = hybrid_batch(Q, np, p.table.vector["v"], radius, args.batch,
-                         args.seed + 1)
-    sess = p.session()
+    return p, radius, t_prep
+
+
+def run_batch(args, dev, sess, batch):
+    """One warm and one timed execution of ``batch`` on ``sess``: (rows,
+    stats, warm s, timed s)."""
+    import torch
     t0 = time.time()
     sess.plan(batch).execute()
-    sync()
+    _sync(torch, dev)
     t_warm = time.time() - t0
     t0 = time.time()
     res, stats = sess.plan(batch).execute()
-    sync()
-    t_exec = time.time() - t0
+    _sync(torch, dev)
+    return res, stats, t_warm, time.time() - t0
+
+
+def drive_main_path(args, dev):
+    """The port's fp32 main path through the entry points a user calls:
+    ``build_platform`` at ``args.rows`` rows, then ``session().plan(batch)
+    .execute()`` on the hybrid batch, once to warm and once timed.
+    Returns (platform, batch, rows, stats, (prepare s, radius, warm s,
+    timed s))."""
+    import numpy as np
+    from repro_torch.core import query as Q
+
+    p, radius, t_prep = build_platform(args, dev, args.rows, min_leaf=64,
+                                       max_leaf=1024)
+    batch = hybrid_batch(Q, np, p.table.vector["v"], radius, args.batch,
+                         args.seed + 1)
+    res, stats, t_warm, t_exec = run_batch(args, dev, p.session(), batch)
     return p, batch, res, stats, (t_prep, radius, t_warm, t_exec)
+
+
+def large_k_batch(Q, np, vecs, seed: int):
+    """16 top-level V.K queries, half at k = 300 and half at k = 1000."""
+    rng = np.random.default_rng(seed)
+    return [Q.VK.of("v", vecs[i], 300 if j % 2 == 0 else 1000)
+            for j, i in enumerate(rng.integers(0, len(vecs), 16))]
+
+
+def oracle_mismatches(p, batch, res):
+    """(indices of queries whose rows differ from ``p.oracle``, truths)."""
+    import numpy as np
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        truths = list(ex.map(p.oracle, batch))
+    return [i for i, (r, t) in enumerate(zip(res, truths))
+            if not np.array_equal(r, t)], truths
+
+
+def _counters(kmods):
+    """The launch counts of every kernel wrapper, by kernel name."""
+    pw, ft, qk, lf = kmods
+    return {"pairwise_sq_l2": pw.launches, "topk_l2": ft.topk_l2_launches,
+            "topk_l2_masked": ft.topk_l2_masked_launches,
+            "quant_lb2": qk.launches, "lpgf_force": lf.launches}
+
+
+def _reset(kmods):
+    pw, ft, qk, lf = kmods
+    pw.launches = ft.topk_l2_launches = ft.topk_l2_masked_launches = 0
+    qk.launches = lf.launches = 0
+
+
+def log_kernel(label: str, ok: bool, row: dict) -> None:
+    lib = row["library_ms"]
+    log(f"kernel {label}: ok={ok} {row['shape']} ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
+        f"({row['library']}) "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"max_abs_err={row['max_abs_err']:.3g}"
+        + (f" violations of lb2 <= exact d2: {row['violations']}; "
+           f"kernel alone {row['kernel_ms']:.4f} ms, query quantization "
+           f"in the wrapper {row['query_quantize_ms']:.4f} ms"
+           if "violations" in row else ""))
+    if "lpgf_chunk" in row:
+        log(f"kernel {label} at LPGF's chunk: "
+            + json.dumps(row["lpgf_chunk"]))
 
 
 def main() -> int:
@@ -289,6 +550,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--small-rows", type=int, default=4096)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -300,7 +562,11 @@ def main() -> int:
         return fail("no CUDA device: the port's kernels run on the card")
     sys.path.insert(0, SRC)
     from repro_torch.core import engine, lpgf
-    from repro_torch.kernels import build, fused_topk, pairwise_l2, ref
+    from repro_torch.core import query as Q
+    from repro_torch.kernels import (build, fused_topk, lpgf_force,
+                                     pairwise_l2, quant_lb2, ref)
+    from repro_torch.utils.quant import plan_tiles
+    kmods = (pairwise_l2, fused_topk, quant_lb2, lpgf_force)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -325,7 +591,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     # the engine scans k plus its re-rank margin
-    k_scan = min(20 + engine._RERANK_EXTRA, fused_topk.MAX_K)
+    k_scan = 20 + engine._RERANK_EXTRA
     kernels = []
     for label, fn in (
             ("pairwise_sq_l2", lambda: check_pairwise(
@@ -334,32 +600,36 @@ def main() -> int:
             ("topk_l2", lambda: check_topk_l2(
                 torch, fused_topk, ref, dev, gen, args.rows, args.dim)),
             ("topk_l2_masked", lambda: check_topk_masked(
-                torch, fused_topk, ref, dev, gen, args.dim, k_scan))):
+                torch, fused_topk, ref, dev, gen, args.dim, k_scan)),
+            ("quant_lb2 int8", lambda: check_quant_lb2(
+                torch, quant_lb2, ref, build, plan_tiles, dev, gen,
+                args.dim, "int8")),
+            ("quant_lb2 bf16", lambda: check_quant_lb2(
+                torch, quant_lb2, ref, build, plan_tiles, dev, gen,
+                args.dim, "bf16")),
+            ("lpgf_force", lambda: check_lpgf_force(
+                torch, lpgf_force, ref, dev, gen, args.dim))):
         ok, row = fn()
         torch.cuda.synchronize()
-        log(f"kernel {label}: ok={ok} {row['shape']} ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"max_abs_err={row['max_abs_err']:.3g}")
-        if "lpgf_chunk" in row:
-            log(f"kernel {label} at LPGF's chunk: "
-                + json.dumps(row["lpgf_chunk"]))
+        log_kernel(label, ok, row)
         if not ok:
             return fail(f"kernel {label} disagrees with its plain version")
-        kernels.append(row)
+        # quant_lb2's row is taken again at the widest round of its path
+        if not label.startswith("quant_lb2"):
+            kernels.append(row)
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ main path
+    # ---------------------------------------------------- fp32 path
     torch.cuda.reset_peak_memory_stats()
-    pairwise_l2.launches = 0
-    fused_topk.topk_l2_launches = 0
-    fused_topk.topk_l2_masked_launches = 0
+    _reset(kmods)
     p, batch, res, stats, times = drive_main_path(args, dev)
     t_prep, radius, t_warm, t_exec = times
-    launches = {"pairwise_sq_l2": pairwise_l2.launches,
-                "topk_l2": fused_topk.topk_l2_launches,
-                "topk_l2_masked": fused_topk.topk_l2_masked_launches}
+    big = large_k_batch(Q, np, p.table.vector["v"], args.seed + 2)
+    t0 = time.time()
+    big_res, big_stats = p.session().plan(big).execute()
+    torch.cuda.synchronize()
+    t_big = time.time() - t0
+    fp32_launches = _counters(kmods)
     log(f"prepare: {t_prep:.1f} s {p.report}")
     log(f"radius: {radius}  warm batch: {t_warm:.2f} s  timed batch: "
         f"{t_exec:.3f} s  qps: {args.batch / t_exec:.1f}")
@@ -372,20 +642,19 @@ def main() -> int:
     log("timed batch by stage (host clock, s): " + json.dumps(
         {**stages, "other": t_exec - sum(stages.values()),
          "total": t_exec}))
-    log(f"peak device memory on the main path: "
+    log(f"peak device memory on the fp32 path: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("launches on the main path: " + json.dumps(launches))
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
-    if min(launches.values()) <= 0:
-        return fail(f"a kernel of the main path never launched: {launches}")
+    log(f"k = 300 / 1000 batch (16 V.K, first run): {t_big:.3f} s, "
+        f"knn_exact_fallbacks {big_stats.knn_exact_fallbacks}")
+    log("launches on the fp32 path: " + json.dumps(fp32_launches))
+    path_launches = {n: fp32_launches[n] for n in
+                     ("pairwise_sq_l2", "topk_l2", "topk_l2_masked")}
+    if min(path_launches.values()) <= 0:
+        return fail(f"a kernel of the fp32 path never launched: "
+                    f"{fp32_launches}")
 
-    # ------------------------------------------------------- results
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-        truths = list(ex.map(p.oracle, batch))
-    bad = [i for i, (r, t) in enumerate(zip(res, truths))
-           if not np.array_equal(r, t)]
+    bad, truths = oracle_mismatches(p, batch, res)
     sizes = [len(r) for r in res]
     log(f"oracle: {time.time() - t0:.1f} s, mismatches {len(bad)} of "
         f"{len(batch)}; rows per query min {min(sizes)} max {max(sizes)}")
@@ -395,6 +664,12 @@ def main() -> int:
                     f"{res[i][:10]} want {truths[i][:10]}")
     if any(len(res[i]) != 20 for i in range(0, len(batch), 4)):
         return fail("a top-level V.K query returned fewer than k rows")
+    bad_big, big_truths = oracle_mismatches(p, big, big_res)
+    log(f"k = 300 / 1000 batch: mismatches {len(bad_big)} of {len(big)}")
+    if bad_big or any(len(r) != q.k for r, q in zip(big_res, big)):
+        i = bad_big[0] if bad_big else 0
+        return fail(f"large-k query {i} (k={big[i].k}) differs from the "
+                    f"oracle")
     # why the engine re-ranks its candidates exactly: on how many
     # top-level V.K queries does the fp32 expansion order (plain version,
     # full table) differ from the oracle's exact order?
@@ -412,6 +687,93 @@ def main() -> int:
         f"{stats.knn_exact_fallbacks})")
     del xs
 
+    # ----------------------------------------- mixed-precision path
+    _reset(kmods)
+    mp_rows = {}
+    # the (G, C) of every quant_lb2 launch on the path
+    shapes = []
+    launch = quant_lb2.quant_lb2_cuda
+
+    def record(q, codes, *rest, precision):
+        shapes.append((precision, codes.shape[0], codes.shape[1]))
+        return launch(q, codes, *rest, precision=precision)
+    quant_lb2.quant_lb2_cuda = record
+    for prec in ("int8", "bf16"):
+        sess = p.session(precision=prec)
+        t0 = time.time()
+        eng = sess.engine()
+        torch.cuda.synchronize()
+        t_eng = time.time() - t0
+        got, st, tw, te = run_batch(args, dev, sess, batch)
+        mp_rows[prec] = got
+        bad = [i for i, (a, b, t) in enumerate(zip(got, res, truths))
+               if not (np.array_equal(a, t) and np.array_equal(a, b))]
+        ratio = st.mp_rescued / max(1, st.mp_scanned)
+        proven = st.knn_jobs - st.knn_exact_fallbacks
+        log(f"{prec}: engine build {t_eng:.1f} s, warm batch {tw:.2f} s, "
+            f"timed batch {te:.3f} s, qps {args.batch / te:.1f}; "
+            f"mp_scanned {st.mp_scanned} mp_rescued {st.mp_rescued} "
+            f"rescue ratio {ratio:.4f}; V.K jobs {st.knn_jobs}, proven "
+            f"without widening {proven}, knn_exact_fallbacks "
+            f"{st.knn_exact_fallbacks}; plane device bytes "
+            f"{eng.plane_bytes()}; rows equal to the oracle and to fp32: "
+            f"{len(batch) - len(bad)} of {len(batch)}")
+        if bad:
+            return fail(f"{prec}: query {bad[0]} differs from the oracle "
+                        f"or the fp32 rows")
+        if st.mp_scanned <= 0:
+            return fail(f"{prec}: the session scanned nothing in reduced "
+                        f"precision")
+        if proven <= 0:
+            return fail(f"{prec}: no V.K job's re-rank was proven on the "
+                        f"reduced-precision scan; every one widened")
+    mp_launches = _counters(kmods)
+    quant_lb2.quant_lb2_cuda = launch
+    log("launches on the mixed-precision path: " + json.dumps(mp_launches))
+    log("quant_lb2 launches on the path, (precision, G, C): "
+        + json.dumps(shapes))
+    if mp_launches["quant_lb2"] <= 0:
+        return fail(f"quant_lb2 never launched on the mixed-precision "
+                    f"path: {mp_launches}")
+    del p, batch, res, truths, mp_rows
+    torch.cuda.empty_cache()
+    # quant_lb2 again at the widest round each precision gave it
+    for prec in ("int8", "bf16"):
+        _, g, c = max((s for s in shapes if s[0] == prec),
+                      key=lambda s: s[1] * s[2])
+        ok, row = check_quant_lb2(torch, quant_lb2, ref, build, plan_tiles,
+                                  dev, gen, args.dim, prec, g, c)
+        torch.cuda.synchronize()
+        log_kernel(f"quant_lb2 {prec} at the path's widest round", ok, row)
+        if not ok:
+            return fail(f"kernel quant_lb2 {prec} disagrees with its plain "
+                        f"version at ({g}, {c}, {args.dim})")
+        if prec == "int8":   # the JSON row is the int8 scan's
+            kernels.insert(3, row)
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------- small-table path
+    _reset(kmods)
+    sp, s_radius, s_prep = build_platform(args, dev, args.small_rows)
+    sbatch = hybrid_batch(Q, np, sp.table.vector["v"], s_radius, 64,
+                          args.seed + 3)
+    sres, sst, s_warm, s_exec = run_batch(args, dev, sp.session(), sbatch)
+    small_launches = _counters(kmods)
+    bad, _ = oracle_mismatches(sp, sbatch, sres)
+    log(f"small table: prepare {s_prep:.2f} s {sp.report}; radius "
+        f"{s_radius}; warm batch {s_warm:.2f} s, timed batch {s_exec:.3f} "
+        f"s; mismatches {len(bad)} of {len(sbatch)}")
+    log("launches on the small-table path: " + json.dumps(small_launches))
+    if bad:
+        return fail(f"small table: query {bad[0]} differs from the oracle")
+    if small_launches["lpgf_force"] <= 0:
+        return fail(f"lpgf_force never launched on the small-table path: "
+                    f"{small_launches}")
+
+    launches = {**path_launches, "quant_lb2": mp_launches["quant_lb2"],
+                "lpgf_force": small_launches["lpgf_force"]}
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
     log(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

@@ -15,13 +15,17 @@ from typing import Optional, Tuple
 from repro_torch.core.lake import _next_pow2
 
 
+_SCAN_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+
+
 def prec_scale(precision: str) -> float:
-    """Relative per-operation cost of the scan precision against fp32.
-    This slice runs fp32 only."""
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision {precision!r}: only fp32 is ported so far")
-    return 1.0
+    """Relative cost of the scan precision against fp32: fp32 -> 1.0,
+    bf16 -> 0.5, int8 -> 0.25. The card's scan kernels are bound by the
+    bytes of the candidate rows they read, so the scale is the element
+    width's (the reference takes the same ratios from its peak rates)."""
+    if precision not in _SCAN_BYTES:
+        raise ValueError(f"unknown scan precision {precision!r}")
+    return _SCAN_BYTES[precision] / _SCAN_BYTES["fp32"]
 
 
 def knn_kind(device_loop: bool) -> str:

@@ -1,5 +1,5 @@
-"""Batched hybrid-query engine on one device — port of the single-device,
-fp32 part of ``repro/core/engine.py``.
+"""Batched hybrid-query engine on one device — port of the single-device
+part of ``repro/core/engine.py``.
 
 The engine holds the cluster-tree leaves as padded bucket tiles plus
 per-tile ball/box metadata on ``device``, plans a batch of heterogeneous
@@ -22,16 +22,26 @@ that reads the (G,) active mask once per round where the reference runs
 a ``lax.while_loop``; same static round budget, same retirement rounds,
 same stats).
 
+Mixed-precision tile scan (``precision``: "fp32" | "bf16" | "int8"):
+both beam loops can scan int8 or bf16 tile planes (``utils.quant
+.plan_tiles``, built once per layout) through the ``quant_lb2`` kernel,
+widen the result into a lower bound on the true distance, refute
+candidates whose bound strictly exceeds the running kth, and rescore the
+rest in fp32 (``ops.topk_l2_masked_mp``). Rows are the fp32 path's;
+``EngineStats.mp_scanned``/``mp_rescued`` count the work. The V.R path
+stays fp32, as in the reference.
+
 Certified exact re-rank (a port decision the reference does not make):
 the fused kernels compute squared distances by the quadratic expansion
 |q|^2 + |p|^2 - 2 q.p in fp32, whose error is at most
 E = 4 d u (|q|^2 + max|p|^2) with u = 2^-24. At d=512 and |q|^2 ~ 2e4
 that bound (~5) exceeds the gaps between consecutive neighbours' squared
 distances, so expansion order and the oracle's exact order may disagree.
-The scan therefore keeps up to ``_RERANK_EXTRA`` more candidates than
-the stopping rank (which stays k, so rounds, buckets and rows scanned are
+The scan therefore keeps ``_RERANK_EXTRA`` more candidates than the
+stopping rank (which stays k, so rounds, buckets and rows scanned are
 unchanged), and each job's candidates are re-ranked on the host by the
-oracle's own formula ``sum((x - q)**2)``. ``_rerank_certified`` then
+oracle's own formula ``sum((x - q)**2)``, exactly equal distances by row
+id as the oracle orders them. ``_rerank_certified`` then
 proves the result: the k-th exact distance among the candidates must lie
 strictly below a lower bound, net of every fp32 error, on each row left
 out (rows the kernel ranked past the candidates, rows it may have skipped
@@ -40,7 +50,10 @@ proof take ``_widen``: one pairwise pass of their queries over the whole
 column keeps every row that could still rank within k, and those rows
 are re-ranked exactly (``EngineStats.knn_exact_fallbacks`` counts the
 jobs). Where the expansion order is already exact the certified rows
-are the reference's.
+are the reference's. On the mixed-precision scan the rows left out also
+include the candidates the rescue refuted against an fp32 expansion kth;
+the proof holds the k-th exact distance below the least of their bounds
+too.
 """
 from __future__ import annotations
 
@@ -58,8 +71,9 @@ from repro_torch import resolve_device
 from repro_torch.core import cost as costm
 from repro_torch.core import query as Q
 from repro_torch.core.lake import _next_pow2
-from repro_torch.kernels import fused_topk, ops
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import stable_topk
+from repro_torch.utils import quant
 
 # candidates kept past the stopping rank for the re-rank: a margin for
 # speed only, since a job whose margin is too thin to certify takes
@@ -160,10 +174,16 @@ class EngineStats:
     knn_buckets: int = 0         # bucket tiles scanned across beam rounds
     rows_scanned: int = 0        # valid rows fed to the top-k kernel
     knn_rounds: int = 0
+    knn_jobs: int = 0            # V.K jobs re-ranked (proven or widened)
     knn_exact_fallbacks: int = 0  # V.K jobs whose re-rank took _widen
     vr_tiles_scanned: int = 0    # tiles gathered by the V.R tile planner
     vr_tiles_pruned: int = 0     # tiles dropped by the V.R triangle bound
     vr_dense_fallbacks: int = 0  # V.R groups that took the dense column path
+    # mixed-precision scan counters (precision != "fp32"): candidates
+    # scanned in reduced precision vs candidates rescored in fp32 —
+    # rescued/scanned is the rescue ratio explain() reports
+    mp_scanned: int = 0
+    mp_rescued: int = 0
     time_s: float = 0.0
     # (archetype, converged width in tiles) per executed KNN group — the
     # feedback signal Session records into QBS for query-aware seeding
@@ -181,12 +201,21 @@ def _gather_tiles(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 1, sel[:, :, None].expand(-1, -1, t.shape[2]))
 
 
-def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows, *,
-               w0: int, w1: int, k: int):
+def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows,
+               planes=None, lb_all=None, kth0_all=None, *, w0: int, w1: int,
+               k: int, k_stop: int, precision: str = "fp32"):
     """One beam round for the ``act`` query subset: scan each query's
     [w0, w1) best-lower-bound tiles with the fused distance+top-k kernel.
     Returns (sq_dists (G, k), physical rows (G, k), valid rows per
-    query)."""
+    query, fp32-rescued candidates per query, least refuted bounds per
+    query (G, 2) by source, as ``ops.topk_l2_masked_mp`` returns them);
+    the last two are 0 and +inf on the fp32 path.
+
+    Mixed precision: ``planes`` is the layout's ``TilePlanes`` on the
+    device, ``lb_all`` the per-query sorted ball bounds and ``kth0_all``
+    (optional, (G_full,)) the carry's ``k_stop``-th squared distance; the
+    round scans the narrow codes and rescores the surviving frontier in
+    fp32, refuting at rank ``k_stop``."""
     qa = qs[act]
     sel = order[act][:, w0:w1]                            # (G, w)
     g, w = sel.shape
@@ -194,11 +223,22 @@ def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows, *,
     valid = cand >= 0
     if masks_tiles is not None:
         valid = valid & _gather_tiles(masks_tiles[act], sel).reshape(g, -1)
-    pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
-    d2, idx = ops.topk_l2_masked(qa, pts, valid, k)
+    if precision != "fp32":
+        cap = bucket_rows.shape[1]
+        lb_col = lb_all[act][:, w0:w1]
+        lb2 = (lb_col * lb_col).repeat_interleave(cap, dim=1)
+        kth0 = None if kth0_all is None else kth0_all[act]
+        d2, idx, resc, refuted = ops.topk_l2_masked_mp(
+            qa, sel, valid, data_tiles, *planes, k, lb2=lb2, kth0=kth0,
+            precision=precision, k_rescue=k_stop)
+    else:
+        pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
+        d2, idx = ops.topk_l2_masked(qa, pts, valid, k)
+        resc = torch.zeros(g, dtype=torch.int64, device=qs.device)
+        refuted = torch.full((g, 2), _INF, device=qs.device)
     rows = torch.gather(cand, 1, idx.clamp_min(0))
     rows = torch.where(idx >= 0, rows, torch.full_like(rows, -1))
-    return d2, rows, valid.sum(1)
+    return d2, rows, valid.sum(1), resc, refuted
 
 
 def _tile_masks(masks, bucket_rows):
@@ -250,10 +290,12 @@ def _knn_prologue_fast(qs, centroid, radius, masks_tiles=None):
 
 def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
                 masks: Optional[torch.Tensor] = None, beam: int = 8,
-                k_stop: Optional[int] = None,
+                k_stop: Optional[int] = None, planes=None,
+                precision: str = "fp32",
                 stats: Optional[EngineStats] = None,
                 conv_out: Optional[list] = None,
-                next_lb_out: Optional[list] = None
+                next_lb_out: Optional[list] = None,
+                refuted_out: Optional[list] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact batched (optionally row-masked) KNN, host doubling loop.
 
@@ -264,7 +306,10 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
     bound — the scalar executor's stopping rule; the beam doubles and
     finished queries leave the batch. ``conv_out`` receives each query's
     converged beam width (the QBS convergence signal), ``next_lb_out``
-    the least lower bound among its unscanned tiles (+inf: none left)."""
+    the least lower bound among its unscanned tiles (+inf: none left),
+    ``refuted_out`` the least squared bounds (G, 2) among the candidates
+    the mixed-precision rescue refuted, by source as
+    ``ops.topk_l2_masked_mp`` splits them (+inf: none; always on fp32)."""
     t0 = time.time()
     k_stop = k if k_stop is None else k_stop
     dev = data_tiles.device
@@ -281,22 +326,36 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
     best_r = np.full((g, k), -1, np.int64)
     conv = np.zeros(g, np.int64)
     next_lb = np.full(g, np.inf, np.float32)
+    refuted = np.full((g, 2), np.inf, np.float32)
     active = np.arange(g)
     w0, w = 0, max(1, min(beam, l))
+    first = True
     while len(active):
         na = len(active)
         gp = _next_pow2(na)
         padded = np.zeros(gp, np.int64)
         padded[:na] = active
-        d2, rows, nvalid = _knn_round(
+        kth0_all = None
+        if precision != "fp32" and not first:
+            # the carry's k_stop-th squared distance refutes from the
+            # rescue's first iteration
+            kth0_all = torch.as_tensor(best_d2[:, k_stop - 1], device=dev)
+        d2, rows, nvalid, resc, rlb = _knn_round(
             torch.as_tensor(padded, device=dev), qs, order, masks_tiles,
-            data_tiles, geom.bucket_rows, w0=w0, w1=w, k=k)
+            data_tiles, geom.bucket_rows, planes, lb_dev, kth0_all, w0=w0,
+            w1=w, k=k, k_stop=k_stop, precision=precision)
+        first = False
         d2 = d2[:na].cpu().numpy()
         rows = rows[:na].cpu().numpy()
+        refuted[active] = np.minimum(refuted[active], rlb[:na].cpu().numpy())
         if stats is not None:
             stats.knn_rounds += 1
             stats.knn_buckets += na * (w - w0)
-            stats.rows_scanned += int(nvalid[:na].sum())
+            nv = int(nvalid[:na].sum())
+            stats.rows_scanned += nv
+            if precision != "fp32":
+                stats.mp_scanned += nv
+                stats.mp_rescued += int(resc[:na].sum())
         # host merge with the carry: carried entries come from earlier
         # (lower-lb) buckets, so a stable sort keeps the visit-order
         # tie-break
@@ -320,12 +379,15 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
         conv_out.append(conv)
     if next_lb_out is not None:
         next_lb_out.append(next_lb)
+    if refuted_out is not None:
+        refuted_out.append(refuted)
     return np.sqrt(best_d2), best_r
 
 
 def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
-                     lb_sorted, masks_tiles, data_tiles, bucket_rows, *,
-                     w1: int, w: int, budget: int, k: int, k_stop: int):
+                     lb_sorted, masks_tiles, data_tiles, bucket_rows,
+                     planes=None, *, w1: int, w: int, budget: int, k: int,
+                     k_stop: int, precision: str = "fp32"):
     """The straggler beam loop. ``idx`` selects the straggler subset
     (padded to a power of two; ``active0`` marks the real rows) out of
     the full-batch arrays; the first round's (d2, rows) seed the top-k
@@ -334,8 +396,8 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
     whose +inf lower bound kills them. The reference runs this as one
     ``lax.while_loop``; here the host reads the (G,) active mask once
     per round to evaluate the same condition. Returns (best_d2,
-    best_rows, [rounds, buckets_scanned, rows_scanned], per-query
-    retirement round)."""
+    best_rows, [rounds, buckets_scanned, rows_scanned, rescued],
+    per-query retirement round, per-query least refuted bounds (G, 2))."""
     l = order.shape[1]
     cap = bucket_rows.shape[1]
     qs = qs_full[idx]
@@ -352,6 +414,8 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
     rr = torch.zeros(g, dtype=torch.int64, device=dev)
     nbuck = torch.zeros((), dtype=torch.int64, device=dev)
     nrows = torch.zeros((), dtype=torch.int64, device=dev)
+    nresc = torch.zeros((), dtype=torch.int64, device=dev)
+    refuted = torch.full((g, 2), _INF, device=dev)
     r = 0
     while r < budget and bool(active.any()):
         start = r * w
@@ -367,8 +431,18 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
             valid = valid & _gather_tiles(masks_tiles, sel).reshape(g, -1)
         # per-candidate squared tile bounds: the kernel's chunk early-out
         lb2 = (lb_col * lb_col).repeat_interleave(cap, dim=1)
-        pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
-        d2, ix = ops.topk_l2_masked(qs, pts, valid, k, lb2=lb2)
+        if precision != "fp32":
+            # the carry's k_stop-th squared distance refutes quantized
+            # candidates before any fp32 rescore
+            d2, ix, resc, rlb = ops.topk_l2_masked_mp(
+                qs, sel, valid, data_tiles, *planes, k, lb2=lb2,
+                kth0=bd[:, k_stop - 1], precision=precision,
+                k_rescue=k_stop)
+            nresc = nresc + resc.sum()
+            refuted = torch.minimum(refuted, rlb)
+        else:
+            pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
+            d2, ix = ops.topk_l2_masked(qs, pts, valid, k, lb2=lb2)
         rows = torch.gather(cand, 1, ix.clamp_min(0))
         rows = torch.where(ix >= 0, rows, torch.full_like(rows, -1))
         # merge with the carry: carry first and a stable top-k, so earlier
@@ -385,11 +459,12 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
         bd, br, active = md, mr, active2
         r += 1
     rr = torch.where(active, r, rr)  # budget-exhausted: scanned everything
-    return bd, br, (r, int(nbuck), int(nrows)), rr
+    return bd, br, (r, int(nbuck), int(nrows), int(nresc)), rr, refuted
 
 
 def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
-               *, w1: int, k: int, k_stop: int):
+               planes=None, *, w1: int, k: int, k_stop: int,
+               precision: str = "fp32"):
     """Prologue + first beam round over the full batch + the stopping
     rule: a query stays active iff its ``k_stop``-th distance exceeds the
     next unscanned lower bound."""
@@ -398,22 +473,26 @@ def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
         else _knn_prologue
     order, lb_sorted = prologue(qs, centroid, radius, masks_tiles)
     l = lb_sorted.shape[1]
-    d2, rows, nvalid = _knn_round(
+    d2, rows, nvalid, resc, refuted = _knn_round(
         torch.arange(g, device=qs.device), qs, order, masks_tiles,
-        data_tiles, bucket_rows, w0=0, w1=w1, k=k)
+        data_tiles, bucket_rows, planes, lb_sorted, None, w0=0, w1=w1, k=k,
+        k_stop=k_stop, precision=precision)
     kth = torch.sqrt(d2[:, k_stop - 1])
     nxt = lb_sorted[:, w1] if w1 < l else \
         torch.full((g,), _INF, device=qs.device)
-    return order, lb_sorted, d2, rows, kth > nxt, int(nvalid.sum())
+    return (order, lb_sorted, d2, rows, kth > nxt, int(nvalid.sum()),
+            int(resc.sum()), refuted)
 
 
 def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
                        masks: Optional[torch.Tensor] = None, beam: int = 8,
                        w1: Optional[int] = None, ws: Optional[int] = None,
-                       k_stop: Optional[int] = None,
+                       k_stop: Optional[int] = None, planes=None,
+                       precision: str = "fp32",
                        stats: Optional[EngineStats] = None,
                        conv_out: Optional[list] = None,
-                       next_lb_out: Optional[list] = None
+                       next_lb_out: Optional[list] = None,
+                       refuted_out: Optional[list] = None
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact batched (optionally row-masked) KNN with the beam loop on
     the device: same contract and rows as ``batched_knn``.
@@ -426,7 +505,8 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
     converged widths: w1 for queries the first round finished, w1 + r*ws
     for a straggler retired in loop round r (capped at the tile count);
     ``next_lb_out`` the least lower bound among tiles that may hold rows
-    the scan left out (+inf: none)."""
+    the scan left out (+inf: none), ``refuted_out`` as in
+    ``batched_knn``."""
     t0 = time.time()
     k_stop = k if k_stop is None else k_stop
     dev = data_tiles.device
@@ -437,13 +517,18 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
     g = int(qs.shape[0])
     l = geom.n_leaves
     w1 = max(1, min(w1 if w1 else max(1, beam // 2), l))
-    order, lb_sorted, d2, rows, active, nvalid = _knn_start(
+    order, lb_sorted, d2, rows, active, nvalid, resc, refuted = _knn_start(
         qs, masks_tiles, geom.centroid, geom.radius, data_tiles,
-        geom.bucket_rows, w1=w1, k=k, k_stop=k_stop)
+        geom.bucket_rows, planes, w1=w1, k=k, k_stop=k_stop,
+        precision=precision)
     if stats is not None:
         stats.knn_rounds += 1
         stats.knn_buckets += g * w1
         stats.rows_scanned += nvalid
+        if precision != "fp32":
+            stats.mp_scanned += nvalid
+            stats.mp_rescued += resc
+    refuted = refuted.cpu().numpy()
     conv = np.full(g, w1, np.int64)
     act = np.nonzero(active.cpu().numpy())[0]
     d2f = d2.cpu().numpy()
@@ -457,10 +542,13 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
         active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
         w = max(1, ws if ws else beam)
         budget = -(-(l - w1) // w)
-        bd, br, (rounds, nbuck, nrows), retire_round = _knn_device_loop(
-            idx, active0, qs, d2, rows, order, lb_sorted, masks_tiles,
-            data_tiles, geom.bucket_rows, w1=w1, w=w, budget=budget, k=k,
-            k_stop=k_stop)
+        bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
+            _knn_device_loop(
+                idx, active0, qs, d2, rows, order, lb_sorted, masks_tiles,
+                data_tiles, geom.bucket_rows, planes, w1=w1, w=w,
+                budget=budget, k=k, k_stop=k_stop, precision=precision)
+        refuted = refuted.copy()
+        refuted[act] = np.minimum(refuted[act], rlb[:na].cpu().numpy())
         d2f = d2f.copy()
         rowsf = rowsf.copy()
         d2f[act] = bd[:na].cpu().numpy()
@@ -471,6 +559,9 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
             stats.knn_rounds += rounds
             stats.knn_buckets += nbuck
             stats.rows_scanned += nrows
+            if precision != "fp32":
+                stats.mp_scanned += nrows
+                stats.mp_rescued += nresc
     if stats is not None:
         stats.time_s += time.time() - t0
     if conv_out is not None:
@@ -486,32 +577,44 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
             torch.searchsorted(lbs, torch.as_tensor(thr, device=dev)[:, None]),
             torch.as_tensor(conv, device=dev)[:, None])
         next_lb_out.append(torch.gather(lbs, 1, pos)[:, 0].cpu().numpy())
+    if refuted_out is not None:
+        refuted_out.append(refuted)
     return np.sqrt(d2f), rowsf.astype(np.int64)
 
 
 def _rerank_certified(t_k: float, m: float, next_lb: float, qq: float,
                       dim: int, pmax2: float, cmax2: float,
-                      rmax: float) -> bool:
+                      rmax: float, refuted_q: float = _INF,
+                      refuted_b: float = _INF) -> bool:
     """Whether a job's re-ranked candidates hold the oracle's top-k.
 
     ``t_k`` is the k-th exact squared distance among the candidates (+inf
     with fewer than k), ``m`` the expansion's squared distance in the last
     candidate slot (+inf if empty), ``next_lb`` the least bound of the
     tiles that may hold rows the scan left out (unscanned, or skipped by
-    the kernel's lb2 early-out). A row left out was either ranked past the
-    last slot by the kernel (expansion >= m) or lies behind such a bound.
-    The bound on its distance takes off the expansion's error
-    (``e_row``); for a tile bound b, the centroid distance's error
-    (``e_cen``, which moves b by at most e_cen / b) and the rounding of b
-    and of the tile radius; and the oracle's own rounding comes off the
-    result. Ties fail the proof."""
+    the kernel's lb2 early-out), ``refuted_q`` and ``refuted_b`` the
+    least squared bounds among the candidates the mixed-precision rescue
+    refuted (+inf: none), split by source. A row left out was ranked past
+    the last slot by the kernel (expansion >= m), lies behind such a tile
+    bound, or was refuted. The bound on its distance takes off the
+    expansion's error (``e_row``); for a tile bound b, the centroid
+    distance's error (``e_cen``, which moves b by at most e_cen / b) and
+    the rounding of b and of the tile radius; and the oracle's own
+    rounding comes off the result. A refuted candidate's bound is the
+    quantized scan's (``refuted_q``), already a lower bound on its exact
+    squared distance but for the rounding of its final square, or its
+    tile's ball bound where that was larger (``refuted_b``), which takes
+    the tile bound's corrections. Ties fail the proof."""
     e_row = 4 * dim * _U32 * (qq + pmax2)
     e_cen = 4 * dim * _U32 * (qq + cmax2)
-    b = next_lb
-    if 0.0 < b < _INF:
-        b = max(0.0, b - e_cen / b - (dim + 8) * _U32 * (b + 2 * rmax))
+
+    def floor(b: float) -> float:   # a tile bound net of its errors
+        if 0.0 < b < _INF:
+            b = max(0.0, b - e_cen / b - (dim + 8) * _U32 * (b + 2 * rmax))
+        return max(b, 0.0) ** 2
     # m came back as an fp32 sqrt, squared
-    lo = min(m * (1 - 4 * _U32) - e_row, max(b, 0.0) ** 2)
+    lo = min(m * (1 - 4 * _U32) - e_row, floor(next_lb),
+             refuted_q * (1 - 2 * _U32), floor(math.sqrt(refuted_b)))
     if math.isinf(t_k):
         return math.isinf(lo)
     return t_k < lo * (1 - (dim + 2) * _U32)
@@ -653,16 +756,34 @@ class EnginePlan:
     job_specs: Tuple[Tuple[str, int, bool], ...]  # (attr, k, masked)/job
     groups: Tuple[KnnGroupSpec, ...]
     seeds: Optional[Dict[str, int]] = None        # archetype -> width
+    precision: str = "fp32"   # scan precision the plan was keyed for;
+    #                           must match the executing engine
 
 
 class HybridEngine:
-    """Batched executor over one prepared table, on one device, in fp32.
+    """Batched executor over one prepared table, on one device.
     ``HybridEngine(tree, table, meta, device=...)`` over numpy state
-    (``ClusterTree``, the permuted ``MMOTable``, ``LeafMeta``)."""
+    (``ClusterTree``, the permuted ``MMOTable``, ``LeafMeta``).
+    ``precision`` selects the KNN scan ("fp32", "bf16" or "int8"; rows
+    are the same); persisted planes (``quant_cache``) come with the
+    persistence slice, so it must be None."""
 
     def __init__(self, tree, table, meta, *, beam: int = 16,
                  tile: int = 128, device_loop: bool = True,
-                 device_tile: Optional[int] = None, device=None):
+                 device_tile: Optional[int] = None, device=None,
+                 precision: str = "fp32", quant_cache=None):
+        if precision not in quant.PRECISIONS:
+            raise ValueError(f"precision must be one of {quant.PRECISIONS},"
+                             f" got {precision!r}")
+        if quant_cache is not None:
+            raise NotImplementedError(
+                "quant_cache: persisted tile planes come with the port of "
+                "core/persist.py; pass None to quantize at build")
+        # mixed-precision tile scan: both beam-loop layouts get planes
+        # built here; the V.R predicate path stays fp32
+        self.precision = precision
+        self.vec_planes: Dict[str, quant.TilePlanes] = {}
+        self.vec_planes_dev: Dict[str, quant.TilePlanes] = {}
         self.device = dev = resolve_device(device)
         self.device_loop = device_loop
         self.device_tile = device_tile or max(32, tile // 2)
@@ -698,6 +819,8 @@ class HybridEngine:
             self.vec_tile_pp[a] = torch.as_tensor(pp, device=dev)
             self.vec_max2[a] = float(pp.max(initial=0)) * (
                 1 + (tiles.shape[-1] + 2) * _U32)
+            if precision != "fp32":
+                self.vec_planes[a] = self._make_planes(tiles, rows_np >= 0)
             del tiles, pp
         self.num = {a: torch.as_tensor(np.asarray(c, np.float32), device=dev)
                     for a, c in table.numeric.items()}
@@ -709,9 +832,14 @@ class HybridEngine:
         rows_dev, cap_dev, _ = bucket_tiles(starts, ends, self.device_tile)
         br_dev = torch.as_tensor(rows_dev, dtype=torch.int64, device=dev)
         self.bucket_rows_dev = br_dev
-        self.vec_tiles_dev = {a: torch.as_tensor(tile_data(c, rows_dev),
-                                                 device=dev)
-                              for a, c in table.vector.items()}
+        self.vec_tiles_dev = {}
+        for a, c in table.vector.items():
+            tiles_d = tile_data(c, rows_dev)
+            self.vec_tiles_dev[a] = torch.as_tensor(tiles_d, device=dev)
+            if precision != "fp32":
+                self.vec_planes_dev[a] = self._make_planes(tiles_d,
+                                                           rows_dev >= 0)
+            del tiles_d
         self.geom_dev = {a: _tile_geometry(c, rows_dev, br_dev, cap_dev)
                          for a, c in table.vector.items()}
         self.num_lo, self.num_hi = {}, {}
@@ -723,6 +851,20 @@ class HybridEngine:
             self.num_hi[a] = torch.as_tensor(
                 np.where(valid, cv, -np.inf).max(axis=1),
                 dtype=torch.float32, device=dev)
+
+    def _make_planes(self, tiles_np: np.ndarray,
+                     valid: np.ndarray) -> quant.TilePlanes:
+        """Quantize one tile layout on the host (the reference's numpy,
+        so the planes are its bit for bit) and move it to the device."""
+        planes = quant.plan_tiles(tiles_np, valid, self.precision)
+        return quant.TilePlanes(*(x.to(self.device) for x in planes))
+
+    def plane_bytes(self) -> int:
+        """Device bytes held by the quantized planes of both layouts."""
+        return sum(x.numel() * x.element_size()
+                   for planes in (*self.vec_planes.values(),
+                                  *self.vec_planes_dev.values())
+                   for x in planes)
 
     # ------------------------------------------------------------ stage 1+2
     def _predicate_masks(self, queries: Sequence[Q.Query],
@@ -896,21 +1038,23 @@ class HybridEngine:
 
     def _rerank(self, attr: str, geom: LeafGeometry, qv: np.ndarray,
                 dist: np.ndarray, rows: np.ndarray, next_lb: float,
-                k: int) -> Tuple[np.ndarray, bool, float]:
-        """The scan's candidates re-ranked by the oracle's own formula
-        (the stable sort keeps the scan's visit order among exactly equal
-        distances). Returns (top-k rows, whether ``_rerank_certified``
-        proves them complete, the k-th exact squared distance)."""
+                k: int, refuted: Tuple[float, float] = (_INF, _INF)
+                ) -> Tuple[np.ndarray, bool, float]:
+        """The scan's candidates re-ranked by the oracle's own formula and
+        its tie law (exactly equal distances order by row id). Returns
+        (top-k rows, whether ``_rerank_certified`` proves them complete,
+        the k-th exact squared distance)."""
         x = self.vec_np[attr]
         cand = rows[rows >= 0]
         d2 = np.sum((x[cand] - qv[None, :]) ** 2, axis=1)
-        order = np.argsort(d2, kind="stable")
+        order = np.lexsort((cand, d2))
         t_k = float(d2[order[k - 1]]) if len(cand) >= k else _INF
         q64 = qv.astype(np.float64)
         ok = _rerank_certified(t_k, float(dist[-1]) ** 2, float(next_lb),
                                float(q64 @ q64), len(qv),
                                self.vec_max2[attr], geom.cen_max2,
-                               geom.rad_max)
+                               geom.rad_max, float(refuted[0]),
+                               float(refuted[1]))
         return cand[order[:k]], ok, t_k
 
     def _widen(self, attr: str, qs: torch.Tensor, qv: np.ndarray,
@@ -939,7 +1083,7 @@ class HybridEngine:
         for j, (p, i, _) in enumerate(fails):
             cand = at[at[:, 0] == j, 1]
             d2 = np.sum((x[cand] - qv[p][None, :]) ** 2, axis=1)
-            out[i] = cand[np.argsort(d2, kind="stable")[:jobs[i][0].k]]
+            out[i] = cand[np.lexsort((cand, d2))[:jobs[i][0].k]]
 
     def _run_jobs(self, jobs, stats: EngineStats, device_loop: bool,
                   groups: Optional[Sequence[KnnGroupSpec]] = None,
@@ -963,6 +1107,7 @@ class HybridEngine:
             seed = seeds.get(grp.archetype) if seeds else None
             conv: list = []
             next_lb: list = []
+            refuted: list = []
             qv = np.stack([jobs[i][0].vec() for i in idxs])
             qs = torch.as_tensor(qv, device=self.device)
             masks = None
@@ -978,16 +1123,19 @@ class HybridEngine:
             geom = self.geom_dev[attr] if device_loop else self.geom[attr]
             tiles = self.vec_tiles_dev[attr] if device_loop \
                 else self.vec_tiles[attr]
+            planes = None
+            if self.precision != "fp32":
+                planes = (self.vec_planes_dev if device_loop
+                          else self.vec_planes)[attr]
             l = geom.n_leaves
-            # the kernels rank at most fused_topk.MAX_K; a larger k keeps
-            # no margin (and raises on the card)
-            k_scan = max(kmax, min(kmax + _RERANK_EXTRA, fused_topk.MAX_K))
+            k_scan = kmax + _RERANK_EXTRA
             if device_loop:
                 ws = max(self.beam, _next_pow2(seed)) if seed else None
                 dist, rows = batched_knn_device(
                     geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
-                    ws=ws, k_stop=kmax, stats=stats, conv_out=conv,
-                    next_lb_out=next_lb)
+                    ws=ws, k_stop=kmax, planes=planes,
+                    precision=self.precision, stats=stats, conv_out=conv,
+                    next_lb_out=next_lb, refuted_out=refuted)
                 w_base = max(1, min(max(1, self.beam // 2), l))
             else:
                 beam_eff = max(self.beam,
@@ -995,8 +1143,9 @@ class HybridEngine:
                     if seed else self.beam
                 dist, rows = batched_knn(
                     geom, tiles, qs, k_scan, masks=masks, beam=beam_eff,
-                    k_stop=kmax, stats=stats, conv_out=conv,
-                    next_lb_out=next_lb)
+                    k_stop=kmax, planes=planes, precision=self.precision,
+                    stats=stats, conv_out=conv, next_lb_out=next_lb,
+                    refuted_out=refuted)
                 w_base = max(1, min(beam_eff, l))
             signal = np.maximum(conv[0] - w_base, 0)
             width = int(np.ceil(np.quantile(signal, 0.9))) \
@@ -1005,14 +1154,15 @@ class HybridEngine:
             feats = costm.knn_plan_features(
                 device_loop=device_loop, g=len(idxs), k=kmax,
                 beam=self.beam, tiles=l, cap=geom.cap, dim=qv.shape[1],
-                precision="fp32", seed=seed)
+                precision=self.precision, seed=seed)
             stats.stage_samples.append(
                 (costm.knn_kind(device_loop), feats, time.time() - t_g0))
             fails = []
+            stats.knn_jobs += len(idxs)
             for pos, i in enumerate(idxs):
                 out[i], proven, t_k = self._rerank(
                     attr, geom, qv[pos], dist[pos], rows[pos],
-                    next_lb[0][pos], jobs[i][0].k)
+                    next_lb[0][pos], jobs[i][0].k, refuted[0][pos])
                 if not proven:
                     fails.append((pos, i, t_k))
             if fails:
@@ -1042,6 +1192,12 @@ class HybridEngine:
         layout, grouping and beam seeds; the job layout is cross-checked
         against this batch's walk."""
         if plan is not None:
+            if plan.precision != self.precision:
+                raise ValueError(
+                    f"EnginePlan was keyed for precision="
+                    f"{plan.precision!r} but this engine runs "
+                    f"precision={self.precision!r} "
+                    f"(stale or mis-keyed plan cache)")
             device_loop = plan.device_loop
         elif device_loop is None:
             device_loop = self.device_loop

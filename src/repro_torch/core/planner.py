@@ -1,17 +1,22 @@
 """MOAPI v2 query planner: ``Session.plan(queries) -> ExecutablePlan``.
-Port of ``repro/core/planner.py`` for one device in fp32.
+Port of ``repro/core/planner.py`` for one device.
 
 Per batch: ``Q.normalize`` -> ``Q.signature`` -> a ``LogicalPlan``
 (per-query fragment, V.K job layout, KNN grouping), cached per (batch
-signatures, loop kind, platform build id) -> an ``ExecutablePlan`` bound
-to this batch's constants, which runs through ``HybridEngine`` with beam
-seeds read from the QBS convergence rings and records its widths, stage
-costs and workload back.
+signatures, loop kind, scan precision, platform build id) -> an
+``ExecutablePlan`` bound to this batch's constants, which runs through
+``HybridEngine`` with beam seeds read from the QBS convergence rings and
+records its widths, stage costs and workload back.
+
+The session's ``precision`` ("fp32", "bf16", "int8"; resolved by the
+platform: explicit > ``MQRLD_PRECISION`` > ``default_precision``) picks
+the KNN scan; the session counts the mixed-precision work over its
+lifetime and ``explain()`` reports it.
 
 Not in this slice: the calibrated cost model (no model is attached, so
 the session's loop applies, as on an uncalibrated reference platform),
-sharded topologies, mixed precision, the async executor, and the scalar
-fallback for queries the engine cannot plan (``execute`` raises
+sharded topologies, the async executor, and the scalar fallback for
+queries the engine cannot plan (``execute`` raises
 ``NotImplementedError`` for those).
 """
 from __future__ import annotations
@@ -139,7 +144,8 @@ class ExecutablePlan:
         if lp.engine_idx:
             eng_plan = EnginePlan(
                 device_loop=lp.device_loop, job_specs=lp.job_specs,
-                groups=lp.groups, seeds=self._seeds())
+                groups=lp.groups, seeds=self._seeds(),
+                precision=self.session.precision)
             eng = self.session.engine()
             rows, stats = eng.execute_batch(
                 [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
@@ -149,6 +155,8 @@ class ExecutablePlan:
                 p.qbs.record_convergence(arch, width)
             for kind, feats, secs in stats.stage_samples:
                 p.qbs.record_cost(kind, feats, secs)
+            self.session.mp_scanned += stats.mp_scanned
+            self.session.mp_rescued += stats.mp_rescued
         else:
             stats = EngineStats()
         stats.queries = len(self.norm)
@@ -201,11 +209,20 @@ class ExecutablePlan:
                                    "tiles_total": total, "route": route})
             frags.append({"query": frag.signature, "path": frag.path,
                           "knn": knn, "vr": vr})
+        rescue = {
+            "scanned": sess.mp_scanned,
+            "rescued": sess.mp_rescued,
+            "ratio": (sess.mp_rescued / sess.mp_scanned
+                      if sess.mp_scanned else 0.0),
+        }
         return {
             "cache": "hit" if self.cache_hit else "miss",
             "device_loop": lp.device_loop,
             "device": str(sess.platform.device),
-            "precision": "fp32",
+            "precision": sess.precision,
+            # fp32-rescue pressure of the mixed-precision scan, summed
+            # over every batch this session executed (all zero on fp32)
+            "rescue": rescue,
             "build_id": sess.platform.build_id,
             "n_queries": len(self.norm),
             "n_engine": len(lp.engine_idx),
@@ -221,22 +238,31 @@ class ExecutablePlan:
 
 class Session:
     """One planning/execution context over a prepared ``MQRLD`` platform:
-    the plan cache (keyed on batch signatures + loop kind + platform
-    build id) and the engine configuration."""
+    the plan cache (keyed on batch signatures + loop kind + precision +
+    platform build id) and the engine configuration."""
 
     def __init__(self, platform, *, device_loop: bool = True,
-                 beam: int = 16, tile: int = 128):
+                 beam: int = 16, tile: int = 128,
+                 precision: Optional[str] = None):
         self.platform = platform
         self.device_loop = device_loop
         self.beam = beam
         self.tile = tile
+        # resolved here (explicit > MQRLD_PRECISION > platform default)
+        # so plan keys and the executing engine never disagree
+        self.precision = platform._resolve_precision(precision)
+        # session-lifetime mixed-precision counters (explain()'s rescue
+        # block): rescued/scanned over every batch this session ran
+        self.mp_scanned = 0
+        self.mp_rescued = 0
         self._cache: Dict[Tuple, LogicalPlan] = {}
         self._cache_build = platform.build_id
         self.cache_hits = 0
         self.cache_misses = 0
 
     def engine(self):
-        return self.platform.engine(beam=self.beam, tile=self.tile)
+        return self.platform.engine(beam=self.beam, tile=self.tile,
+                                    precision=self.precision)
 
     def plan(self, queries: Sequence[Q.Query], *,
              device_loop: Optional[bool] = None) -> ExecutablePlan:
@@ -248,7 +274,7 @@ class Session:
         if self._cache_build != self.platform.build_id:
             self._cache = {}
             self._cache_build = self.platform.build_id
-        key = (tuple(Q.signature(q) for q in norm), dl,
+        key = (tuple(Q.signature(q) for q in norm), dl, self.precision,
                self.platform.build_id)
         logical = self._cache.get(key)
         hit = logical is not None
@@ -264,3 +290,7 @@ class Session:
                 device_loop: Optional[bool] = None
                 ) -> Tuple[List[np.ndarray], EngineStats]:
         return self.plan(queries, device_loop=device_loop).execute()
+
+    def explain(self, queries: Sequence[Q.Query], *,
+                device_loop: Optional[bool] = None) -> dict:
+        return self.plan(queries, device_loop=device_loop).explain()

@@ -12,12 +12,18 @@ a batch of rich hybrid queries through the device-resident
 arrays (for example the JAX reference's), so both packages can serve one
 identical index.
 
+The KNN scan precision ("fp32", "bf16", "int8") is chosen per engine
+and session: an explicit ``precision`` argument, else the
+``MQRLD_PRECISION`` environment variable, else ``default_precision``.
+Every precision returns the same rows.
+
 Not in this slice: the scalar executor (``execute``), append/fold and
-the delta region, index generations, persistence, calibration,
-sharding and mixed precision.
+the delta region, index generations, persistence, calibration and
+sharding.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -31,6 +37,7 @@ from repro_torch.core.lpgf import lpgf
 from repro_torch.core.qbs import QBSTable
 from repro_torch.core.transform import (HyperspaceTransform, init_transform,
                                         perturb)
+from repro_torch.utils.quant import PRECISIONS
 
 
 @dataclass
@@ -134,6 +141,10 @@ class MQRLD:
         self.enhanced: Optional[np.ndarray] = None
         self.layout: Optional[Dict] = None
         self.seed = seed
+        # mixed-precision serving default: engine()/session() calls that
+        # do not pass ``precision`` use it, after the MQRLD_PRECISION
+        # environment override
+        self.default_precision: str = "fp32"
         self.build_id = 0  # bumped by every installed state; keys caches
         self._oracle_cache: Dict = {}
         self._engines: Dict = {}
@@ -176,35 +187,52 @@ class MQRLD:
         self.build_id += 1
 
     # ------------------------------------------------------- batched engine
+    def _resolve_precision(self, precision: Optional[str]) -> str:
+        """Scan precision: explicit argument > MQRLD_PRECISION > the
+        platform's ``default_precision``. Explicit wins over the
+        environment, so a caller that pins fp32 stays fp32."""
+        p = precision or os.environ.get("MQRLD_PRECISION") \
+            or self.default_precision
+        if p not in PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {PRECISIONS}, got {p!r}")
+        return p
+
     def engine(self, *, beam: int = 16, tile: int = 128,
-               device_loop: Optional[bool] = None):
+               device_loop: Optional[bool] = None,
+               precision: Optional[str] = None):
         """The device-resident batched executor (built lazily, one per
-        (beam, tile), invalidated by ``prepare``). ``device_loop`` sets
-        the engine's default beam loop only when passed explicitly."""
+        (beam, tile, precision), invalidated by ``prepare``).
+        ``device_loop`` sets the engine's default beam loop only when
+        passed explicitly; ``precision`` as in ``_resolve_precision``."""
         if self.tree is None:
             raise RuntimeError("call prepare() first")
         from repro_torch.core.engine import HybridEngine
-        key = (beam, tile)
+        prec = self._resolve_precision(precision)
+        key = (beam, tile, prec)
         eng = self._engines.get(key)
         if eng is None:
             eng = self._engines[key] = HybridEngine(
                 self.tree, self.table, self.meta, beam=beam, tile=tile,
                 device_loop=True if device_loop is None else device_loop,
-                device=self.device)
+                device=self.device, precision=prec)
         elif device_loop is not None:
             eng.device_loop = device_loop
         return eng
 
     def session(self, *, device_loop: bool = True, beam: int = 16,
-                tile: int = 128):
+                tile: int = 128, precision: Optional[str] = None):
         """The MOAPI v2 entry point: a ``Session`` over this platform
-        (cached per configuration). ``session().plan(queries)`` gives an
-        ``ExecutablePlan`` with ``execute()`` / ``explain()``."""
+        (cached per configuration, precision included).
+        ``session().plan(queries)`` gives an ``ExecutablePlan`` with
+        ``execute()`` / ``explain()``."""
         from repro_torch.core.planner import Session
-        key = (device_loop, beam, tile)
+        prec = self._resolve_precision(precision)
+        key = (device_loop, beam, tile, prec)
         if key not in self._sessions:
             self._sessions[key] = Session(self, device_loop=device_loop,
-                                          beam=beam, tile=tile)
+                                          beam=beam, tile=tile,
+                                          precision=prec)
         return self._sessions[key]
 
     def execute_batch(self, queries: Sequence[Q.Query], *,

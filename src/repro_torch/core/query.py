@@ -20,7 +20,9 @@ them here (``normalize``: flatten VK-free nested And / nested Or, dedupe
 parts where idempotence holds, annotate V.K postfilter), derives a stable
 ``signature`` (the *archetype*: shape + types + attrs + k, constants
 elided) used as the plan-cache key, and compiles an ``ExecutablePlan``.
-``execute_bruteforce`` below is the exact oracle used by tests/benchmarks;
+``execute_bruteforce`` below is the exact oracle used by tests/benchmarks
+(its V.K rows are ordered by exact distance, exactly equal distances by
+row id);
 the scalar learned-index walk lives in ``MQRLD.execute``
 (core/platform.py), the batched device path in core/engine.py.
 
@@ -252,8 +254,12 @@ def _knn_rows(table: MMOTable, q: VK, candidates: np.ndarray) -> np.ndarray:
         return cand_idx
     d2 = np.sum((x[cand_idx] - q.vec()[None, :]) ** 2, axis=1)
     k = min(q.k, len(cand_idx))
-    sel = np.argpartition(d2, k - 1)[:k]
-    sel = sel[np.argsort(d2[sel], kind="stable")]
+    # exactly equal distances order by row id (the reference leaves them
+    # in argpartition's order, which is arbitrary): every row within the
+    # k-th distance, then the first k by (distance, row)
+    kth = d2[np.argpartition(d2, k - 1)[k - 1]]
+    sel = np.nonzero(d2 <= kth)[0]
+    sel = sel[np.lexsort((cand_idx[sel], d2[sel]))[:k]]
     return cand_idx[sel]
 
 

@@ -14,10 +14,17 @@
 // (fp32 bits of its clamped non-negative distance << 32) | index, whose
 // integer order is the (distance, index) order, so "ties keep the lower
 // index" is plain integer order. A chunk of keys merges into the sorted
-// running buffer (K <= 256 keys in shared memory) by rank: each key's
-// output slot is its rank in its own list plus its rank in the other,
-// and slots >= K fall off. A chunk with no key below the running kth
-// skips the merge.
+// running buffer of K keys by rank: each key's output slot is its rank in
+// its own list plus its rank in the other, and slots >= K fall off. A
+// chunk with no key below the running kth skips the merge.
+//
+// Any K: the running buffer and its merge target (2K keys per query) live
+// in dynamic shared memory, opted in above 48 KB, while they fit beside
+// the chunk keys; above that K they live in a global-memory scratch that
+// the wrapper allocates (*_scratch_bytes says how much, 0 when shared
+// memory holds them). The code is the same either way: B and T are
+// generic pointers, and __syncthreads orders global writes within the
+// block as it does shared ones.
 //
 // Bounds on this card:
 //   * topk_l2_masked reads G*C*D*4 bytes of candidates for G*C*D*2
@@ -39,7 +46,6 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr u64 kInfHi = 0x7f800000ull;
-constexpr int kMaxK = 256;
 
 __device__ __forceinline__ u64 pack_key(float d, unsigned idx) {
   d = (d > 0.f) ? d : 0.f;  // clamp, and -0.0 -> +0.0
@@ -119,15 +125,18 @@ __global__ void __launch_bounds__(kMaskedThreads)
 topk_l2_masked_kernel(const float* __restrict__ q, const float* __restrict__ p,
                       const uint8_t* __restrict__ valid,
                       const float* __restrict__ lb2, float* __restrict__ outd,
-                      long long* __restrict__ outi, int C, int D, int K) {
+                      long long* __restrict__ outi, u64* scratch, int C,
+                      int D, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* S = reinterpret_cast<u64*>(smem);  // kChunk keys
-  u64* B = S + kChunk;                    // K running keys
-  u64* T = B + K;                         // K merge output
-  float* qs = reinterpret_cast<float*>(T + K);
+  float* qs = reinterpret_cast<float*>(S + kChunk);
+  const int g = blockIdx.x;
+  // K running keys + K merge output: shared memory after q, or scratch
+  u64* B = scratch ? scratch + (size_t)g * 2 * K
+                   : reinterpret_cast<u64*>(qs + ((D + 1) & ~1));
+  u64* T = B + K;
   __shared__ float qq_s;
 
-  const int g = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -205,12 +214,14 @@ constexpr int BK = 32;   // D slice per stage
 
 __global__ void __launch_bounds__(256)
 topk_l2_kernel(const float* __restrict__ q, const float* __restrict__ p,
-               float* __restrict__ outd, long long* __restrict__ outi, int M,
-               int N, int D, int K) {
+               float* __restrict__ outd, long long* __restrict__ outi,
+               u64* scratch, int M, int N, int D, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* B = reinterpret_cast<u64*>(smem);  // QB * K
-  u64* T = B + QB * K;                    // QB * K
-  u64* S = T + QB * K;                    // QB * PC
+  u64* S = reinterpret_cast<u64*>(smem);  // QB * PC
+  // QB * K running keys + QB * K merge output: shared memory after the
+  // chunk keys, or this block's slice of the scratch
+  u64* B = scratch ? scratch + (size_t)blockIdx.x * 2 * QB * K : S + QB * PC;
+  u64* T = B + QB * K;
   __shared__ float Qs[QB][BK + 1];
   __shared__ float Ps[PC][BK + 1];
   __shared__ float qqs[QB];
@@ -295,36 +306,80 @@ topk_l2_kernel(const float* __restrict__ q, const float* __restrict__ p,
               l16, 16);
 }
 
-}  // namespace
-
-extern "C" int fused_topk_max_k() { return kMaxK; }
-
-// q (G, D), p (G, C, D), valid (G, C) uint8, lb2 (G, C) or NULL; outd (G, K)
-// fp32, outi (G, K) int64; 1 <= K <= min(C, 256). Returns cudaGetLastError().
-extern "C" int topk_l2_masked_launch(const float* q, const float* p,
-                                     const uint8_t* valid, const float* lb2,
-                                     float* outd, long long* outi, int G,
-                                     int C, int D, int K, void* stream) {
-  const size_t smem = (size_t)(kChunk + 2 * K) * sizeof(u64) +
-                      (size_t)D * sizeof(float);
-  cudaFuncSetAttribute(topk_l2_masked_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  topk_l2_masked_kernel<<<G, kMaskedThreads, smem, (cudaStream_t)stream>>>(
-      q, p, valid, lb2, outd, outi, C, D, K);
-  return (int)cudaGetLastError();
+// Dynamic shared memory the kernel may take beside its static arrays.
+int dyn_smem_limit(const void* kernel) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, kernel);
+  return optin - (int)attr.sharedSizeBytes;
 }
 
-// q (M, D), p (N, D); outd (M, K) fp32, outi (M, K) int64;
-// 1 <= K <= min(N, 256). Returns cudaGetLastError().
+size_t masked_base_smem(int D) {
+  return (size_t)kChunk * sizeof(u64) + (size_t)((D + 1) & ~1) * sizeof(float);
+}
+
+size_t masked_buffer_bytes(int K) { return (size_t)2 * K * sizeof(u64); }
+
+size_t shared_base_smem() { return (size_t)QB * PC * sizeof(u64); }
+
+size_t shared_buffer_bytes(int K) { return (size_t)2 * QB * K * sizeof(u64); }
+
+int launch_error(cudaError_t set) {
+  const cudaError_t err = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : set);
+}
+
+}  // namespace
+
+// Bytes of global scratch topk_l2_masked_launch needs for G queries of
+// width D at this K: 0 while the running buffers fit in shared memory.
+extern "C" long long topk_l2_masked_scratch_bytes(int G, int D, int K) {
+  const size_t smem = masked_base_smem(D) + masked_buffer_bytes(K);
+  if (smem <= (size_t)dyn_smem_limit((const void*)topk_l2_masked_kernel))
+    return 0;
+  return (long long)G * (long long)masked_buffer_bytes(K);
+}
+
+// q (G, D), p (G, C, D), valid (G, C) uint8, lb2 (G, C) or NULL; outd (G, K)
+// fp32, outi (G, K) int64; 1 <= K <= C; scratch: NULL, or
+// topk_l2_masked_scratch_bytes(G, D, K) bytes. Returns cudaGetLastError().
+extern "C" int topk_l2_masked_launch(const float* q, const float* p,
+                                     const uint8_t* valid, const float* lb2,
+                                     float* outd, long long* outi,
+                                     void* scratch, int G, int C, int D,
+                                     int K, void* stream) {
+  const size_t smem =
+      masked_base_smem(D) + (scratch ? 0 : masked_buffer_bytes(K));
+  const cudaError_t set = cudaFuncSetAttribute(
+      topk_l2_masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  topk_l2_masked_kernel<<<G, kMaskedThreads, smem, (cudaStream_t)stream>>>(
+      q, p, valid, lb2, outd, outi, (u64*)scratch, C, D, K);
+  return launch_error(set);
+}
+
+// Bytes of global scratch topk_l2_launch needs for M queries at this K: 0
+// while the running buffers fit in shared memory.
+extern "C" long long topk_l2_scratch_bytes(int M, int K) {
+  const size_t smem = shared_base_smem() + shared_buffer_bytes(K);
+  if (smem <= (size_t)dyn_smem_limit((const void*)topk_l2_kernel)) return 0;
+  return (long long)((M + QB - 1) / QB) * (long long)shared_buffer_bytes(K);
+}
+
+// q (M, D), p (N, D); outd (M, K) fp32, outi (M, K) int64; 1 <= K <= N;
+// scratch: NULL, or topk_l2_scratch_bytes(M, K) bytes. Returns
+// cudaGetLastError().
 extern "C" int topk_l2_launch(const float* q, const float* p, float* outd,
-                              long long* outi, int M, int N, int D, int K,
-                              void* stream) {
-  const size_t smem = (size_t)(2 * QB * K + QB * PC) * sizeof(u64);
-  cudaFuncSetAttribute(topk_l2_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+                              long long* outi, void* scratch, int M, int N,
+                              int D, int K, void* stream) {
+  const size_t smem =
+      shared_base_smem() + (scratch ? 0 : shared_buffer_bytes(K));
+  const cudaError_t set = cudaFuncSetAttribute(
+      topk_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   topk_l2_kernel<<<(M + QB - 1) / QB, 256, smem, (cudaStream_t)stream>>>(
-      q, p, outd, outi, M, N, D, K);
-  return (int)cudaGetLastError();
+      q, p, outd, outi, (u64*)scratch, M, N, D, K);
+  return launch_error(set);
 }

@@ -17,28 +17,40 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("pairwise_l2", "fused_topk")
+SOURCES = ("pairwise_l2", "fused_topk", "quant_lb2", "lpgf_force")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points per library: name -> argtypes (pointers and the stream
-# are c_void_p; a bare int would cut a 64-bit pointer)
-SIGNATURES: Dict[str, Dict[str, List]] = {
+_F = ctypes.c_float
+_L = ctypes.c_longlong
+# C entry points per library: name -> (argtypes, restype). Pointers and
+# the stream are c_void_p (a bare int would cut a 64-bit pointer); a
+# launch returns cudaGetLastError() as an int.
+SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "pairwise_l2": {
-        "pairwise_sq_l2_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "pairwise_sq_l2_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     },
     "fused_topk": {
-        "topk_l2_masked_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P],
-        "topk_l2_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "fused_topk_max_k": [],
+        "topk_l2_masked_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _P], _I),
+        "topk_l2_masked_scratch_bytes": ([_I, _I, _I], _L),
+        "topk_l2_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "topk_l2_scratch_bytes": ([_I, _I], _L),
+    },
+    "quant_lb2": {
+        "quant_lb2_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _P], _I),
+    },
+    "lpgf_force": {
+        "lpgf_force_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _F, _P], _I),
+        "lpgf_force_max_d": ([], _I),
     },
 }
 
@@ -90,10 +102,10 @@ def _finish(name: str, so: str, job) -> None:
 
 def _load(name: str, so: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
-    for fn, argtypes in SIGNATURES[name].items():
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
     _libs[name] = lib
     return lib
 

@@ -15,11 +15,12 @@ topk_l2_masked_pallas`` (body ``_masked_kernel``) and ``topk_l2_pallas``
   bound by fp32 operations; a block of 16 queries shares each staged
   point chunk so the set is read M/16 times, not M times.
 
-Both keep a sorted running buffer of packed (distance, index) keys in
-shared memory, so ties keep the lower index (the ``lax.top_k`` law the
-engine's "carry first" merge relies on). K is at most ``MAX_K`` = 256
-(``kMaxK`` in the source, which ``fused_topk_max_k()`` reports); larger k
-raises. A CPU tensor takes the plain version in ``ref``.
+Both keep a sorted running buffer of packed (distance, index) keys, so
+ties keep the lower index (the ``lax.top_k`` law the engine's "carry
+first" merge relies on), at any k: the buffer lives in shared memory
+while it fits there, and above that in a global scratch this wrapper
+allocates (the library's ``*_scratch_bytes`` says how much). A CPU tensor
+takes the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -30,17 +31,20 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.pairwise_l2 import _check, _cuda_device
 
-MAX_K = 256   # kMaxK in csrc/fused_topk.cu
-
 topk_l2_launches = 0
 topk_l2_masked_launches = 0
 
 
-def _need_k(lib, k: int) -> None:
-    max_k = lib.fused_topk_max_k()
-    if not 1 <= k <= max_k:
-        raise ValueError(f"fused top-k kernels support 1 <= k <= {max_k}, "
-                         f"got k={k}")
+def _need_k(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"fused top-k kernels need k >= 1, got k={k}")
+
+
+def _scratch(nbytes: int, dev):
+    """The running buffers' global scratch: None while they fit in
+    shared memory (the library reports 0 bytes)."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev) \
+        if nbytes else None
 
 
 def topk_l2_masked_cuda(q: torch.Tensor, p: torch.Tensor,
@@ -64,17 +68,19 @@ def topk_l2_masked_cuda(q: torch.Tensor, p: torch.Tensor,
         _check("lb2", lb2, 2, dev)
         if lb2.shape != (g, c):
             raise ValueError(f"lb2 {tuple(lb2.shape)} != {(g, c)}")
+    _need_k(k)
     lib = build.library("fused_topk")
-    _need_k(lib, k)
     kk = max(1, min(k, c))
     outd = torch.empty((g, kk), dtype=torch.float32, device=dev)
     outi = torch.empty((g, kk), dtype=torch.int64, device=dev)
     if g and c:
+        scratch = _scratch(lib.topk_l2_masked_scratch_bytes(g, d, kk), dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(lib.topk_l2_masked_launch(
             q.data_ptr(), p.data_ptr(), valid.data_ptr(),
             None if lb2 is None else lb2.data_ptr(), outd.data_ptr(),
-            outi.data_ptr(), g, c, d, kk, stream), "topk_l2_masked")
+            outi.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            g, c, d, kk, stream), "topk_l2_masked")
         topk_l2_masked_launches += 1
     else:
         outd.fill_(float("inf"))
@@ -96,17 +102,19 @@ def topk_l2_cuda(q: torch.Tensor, p: torch.Tensor, k: int):
     n = p.shape[0]
     if p.shape[1] != d:
         raise ValueError(f"q and p widths differ: {d} vs {p.shape[1]}")
+    _need_k(k)
     lib = build.library("fused_topk")
-    _need_k(lib, k)
     if k > n:
         raise ValueError(f"topk_l2: k={k} exceeds the {n} points")
     outd = torch.empty((m, k), dtype=torch.float32, device=dev)
     outi = torch.empty((m, k), dtype=torch.int64, device=dev)
     if m:
+        scratch = _scratch(lib.topk_l2_scratch_bytes(m, k), dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(lib.topk_l2_launch(
             q.data_ptr(), p.data_ptr(), outd.data_ptr(), outi.data_ptr(),
-            m, n, d, k, stream), "topk_l2")
+            None if scratch is None else scratch.data_ptr(), m, n, d, k,
+            stream), "topk_l2")
         topk_l2_launches += 1
     return outd, outi
 

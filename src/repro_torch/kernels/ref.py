@@ -76,19 +76,63 @@ def topk_l2_masked(q: torch.Tensor, p: torch.Tensor, valid: torch.Tensor,
     return dd, idx
 
 
+def quant_lb2(q: torch.Tensor, codes: torch.Tensor, cscale: torch.Tensor,
+              cppq: torch.Tensor, ceps: torch.Tensor, valid: torch.Tensor, *,
+              precision: str) -> torch.Tensor:
+    """Widened squared LOWER bounds from a reduced-precision scan
+    (semantics of ``repro.kernels.ref.quant_lb2``).
+
+    Contract (what the mixed-precision path's exactness rests on): for
+    every valid candidate,  lb2[g, c] <= ||q_g - p_c||^2  — the bound may
+    be arbitrarily loose (that only costs rescue work), never violated.
+    Invalid candidates get +inf.
+
+    q: (G, D) fp32 raw queries. codes: (G, C, D) int8 codes or bf16
+    values; cscale/cppq/ceps (G, C) fp32: tile scale, EXACT squared norm
+    of the dequantized candidate, and per-row L2 quantization error
+    bound. Dequantize both sides, take the quadratic-expansion distance
+    d̂ between the dequantized vectors, then by the triangle inequality
+    ||q - p|| >= d̂ - eps_q - eps_p, minus an fp slack for the fp32
+    rounding of the expansion itself. The operations run in the
+    reference's order, so int8 bounds (whose cross term is an exact
+    integer sum) agree with it bit for bit."""
+    from repro_torch.utils.quant import (SLACK_ABS, SLACK_MAG, SLACK_REL,
+                                         quantize_query, sqrt_rn)
+    qcast, qscale, qqq, qeps = quantize_query(q, precision)
+    cf = codes.float()
+    qf = qcast.float()
+    cross = torch.einsum("gd,gcd->gc", qf, cf)
+    if precision == "int8":
+        d2h = qqq[:, None] + cppq - (2.0 * qscale[:, None] * cscale) * cross
+    else:
+        d2h = qqq[:, None] + cppq - 2.0 * cross
+    d2h = torch.clamp_min(d2h, 0.0)
+    dhat = sqrt_rn(d2h)
+    mag = torch.clamp_min(qqq[:, None] + cppq, 0.0)
+    slack = SLACK_ABS + SLACK_REL * dhat + SLACK_MAG * sqrt_rn(mag)
+    lbr = torch.clamp_min(dhat - (qeps[:, None] + ceps) - slack, 0.0)
+    return torch.where(valid != 0, lbr * lbr,
+                       torch.full_like(lbr, float("inf")))
+
+
 def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
-               c: float = 1.1):
+               c: float = 1.1, row_block: int = 256):
     """LPGF resultant force per point (paper Fig 13), exact all-pairs:
     returns (raw resultant force (N, D), total weight (N,)). Semantics of
-    ``repro.kernels.ref.lpgf_force``."""
+    ``repro.kernels.lpgf_force.lpgf_force_pallas``, the kernel the
+    reference runs: self pairs are excluded by index. (The reference's
+    ``ref.lpgf_force`` adds max(d2) + 1 to the diagonal instead, which
+    differs only when that still lies within the radius.) The force sum
+    runs over ``row_block`` rows at a time to bound the (rows, N, D)
+    difference tensor."""
+    from repro_torch.utils.quant import sqrt_rn
     x = points.float()
     n = x.shape[0]
     d2 = pairwise_sq_l2(x, x)
-    big = torch.max(d2) + 1.0
-    d2_off = d2 + big * torch.eye(n, dtype=torch.float32, device=x.device)
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    d2_off = torch.where(eye, torch.full_like(d2, float("inf")), d2)
     d1sq = torch.min(d2_off, dim=1).values
-    diff = x[None, :, :] - x[:, None, :]
-    thresh_near = g_mean * torch.sqrt(d1sq)
+    thresh_near = g_mean * sqrt_rn(d1sq)
     in_r = d2_off <= radius * radius
     near = d2_off <= thresh_near[:, None]
     far = (~near) & in_r
@@ -97,4 +141,8 @@ def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
                         zero)
     w_near = torch.where(near & in_r, torch.full_like(d2_off, 1.0 / c), zero)
     w = w_far + w_near
-    return torch.einsum("ij,ijd->id", w, diff), torch.sum(w, dim=1)
+    f = torch.cat([
+        torch.einsum("ij,ijd->id", w[i:i + row_block],
+                     x[None, :, :] - x[i:i + row_block, None, :])
+        for i in range(0, n, row_block)]) if n else torch.zeros_like(x)
+    return f, torch.sum(w, dim=1)

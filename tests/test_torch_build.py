@@ -20,6 +20,7 @@ from repro.core.index import build_index as jbuild_index
 from repro.core.lake import MMOTable as JTable
 from repro.core.lpgf import lpgf as jlpgf
 from repro.core.lpgf import mean_nn_distance as jmean_nn
+from repro.core.platform import MQRLD as JMQRLD
 from repro.core.transform import init_transform as jinit_transform
 from repro_torch.core import lpgf as tlpgf_mod
 from repro_torch.core import query as TQ
@@ -123,6 +124,36 @@ def test_lpgf_tile_row_chunks_match_reference(monkeypatch, chunk):
     j = jlpgf(x, iters=1, block=256, seed=1)
     t = tlpgf(x, iters=1, block=256, seed=1, device="cpu")
     np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
+
+
+def test_small_table_prepare_goes_through_lpgf_force(monkeypatch):
+    """prepare() on a table of at most 4096 rows moves its points with
+    ``ops.lpgf_force`` (on the card, the force kernel): the moved
+    features equal the reference's, and queries return the oracle's rows
+    and the reference's. Grid points without the transform keep every
+    ring decision exact on both sides."""
+    x = _grid_points(1500, 6, 7)
+    calls = []
+    real = tlpgf_mod.ops.lpgf_force
+    monkeypatch.setattr(tlpgf_mod.ops, "lpgf_force",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    kw = dict(use_transform=False, lpgf_iters=1, min_leaf=32, max_leaf=256)
+    p = JMQRLD(JTable("s").add_vector("v", x), seed=0)
+    p.prepare(**kw)
+    pt = MQRLD(TTable("s").add_vector("v", x), seed=0, device="cpu")
+    pt.prepare(**kw)
+    assert calls == [x.shape]
+
+    def raw(m):
+        return m.enhanced[np.argsort(m.table.row_ids)]
+    np.testing.assert_allclose(raw(pt), raw(p), rtol=RTOL, atol=ATOL)
+    for i in (0, 700, 1499):
+        tq, jq = TQ.VK.of("v", x[i], 15), JQ.VK.of("v", x[i], 15)
+        (g,), _ = pt.session().plan([tq]).execute()
+        (w,), _ = p.session().plan([jq]).execute()
+        np.testing.assert_array_equal(g, pt.oracle(tq))
+        np.testing.assert_array_equal(np.sort(pt.table.row_ids[g]),
+                                      np.sort(p.table.row_ids[w]))
 
 
 def test_dpc_labels_identical(blobs):

@@ -8,7 +8,14 @@ the reference package, so it runs on the machine with the card:
 Tolerance: ids exact; squared distances rtol=1e-5, atol=1e-5 at these
 small widths (fp32 summation order differs between the kernel and the
 library GEMM), and exactly equal on integer-grid inputs, where every sum
-is exact in fp32.
+is exact in fp32. ``quant_lb2``: int8 bounds bit-equal to the plain
+version (the cross term is an exact integer sum and the epilogue rounds
+in the same order); bf16 bounds within 1e-3 * sqrt(|q|^2 + |p|^2) of the
+plain version's (sum order of the cross term, a quarter of the slack
+that covers it); for both, +inf exactly where invalid and no bound above
+the exact squared distance. ``lpgf_force``: quarter-integer points make
+every distance exact, so both sides take the same ring decisions; F
+within 1e-5 of its largest entry and W rtol 1e-5 (sum order).
 """
 import numpy as np
 import pytest
@@ -17,8 +24,10 @@ import torch
 from repro_torch.core import query as Q
 from repro_torch.core.lake import MMOTable
 from repro_torch.core.platform import MQRLD
-from repro_torch.kernels import fused_topk, pairwise_l2
+from repro_torch.kernels import build, fused_topk, lpgf_force, pairwise_l2
+from repro_torch.kernels import quant_lb2
 from repro_torch.kernels import ref as tref
+from repro_torch.utils.quant import plan_tiles
 
 RTOL = ATOL = 1e-5
 
@@ -59,6 +68,16 @@ def _masked_case(kind, seed=0):
         valid = valid[:, :c]
     elif kind == "k256":
         k = 256
+    elif kind == "k300":
+        k = 300
+    elif kind == "k1000":
+        c, k = 1500, 1000
+        p = _np((g, c, d), seed + 1)
+        valid = rng.random((g, c)) < 0.8
+    elif kind == "k20000":   # past the k whose buffers fit in shared memory
+        g, c, d, k = 2, 24000, 8, 20000
+        q, p = _np((g, d), seed), _np((g, c, d), seed + 1)
+        valid = rng.random((g, c)) < 0.9
     return q, p, valid, k
 
 
@@ -82,10 +101,17 @@ def test_pairwise_kernel_matches_plain(cuda, m, n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["plain", "all_masked", "k_gt_c", "ties",
-                                  "ragged", "k256"])
+                                  "ragged", "k256", "k300", "k1000",
+                                  "k20000"])
 @pytest.mark.parametrize("with_lb2", [False, True])
 def test_topk_masked_kernel_matches_plain(cuda, kind, with_lb2):
+    """Every k, with the running buffers in shared memory and, at
+    k = 20000, in the global scratch the kernel takes above the k that
+    fits."""
     q, p, v, k = _masked_case(kind)
+    if kind == "k20000":
+        assert build.library("fused_topk").topk_l2_masked_scratch_bytes(
+            q.shape[0], q.shape[1], k) > 0
     q, p, v = (torch.from_numpy(x).to(cuda) for x in (q, p, v))
     if kind == "ties":
         lb2 = ((p - q[:, None, :]) ** 2).sum(-1)    # the tightest bound
@@ -108,31 +134,103 @@ def test_topk_masked_kernel_matches_plain(cuda, kind, with_lb2):
 
 
 @pytest.mark.cuda
-def test_topk_masked_rejects_large_k(cuda):
-    q = torch.zeros((1, 4), device=cuda)
-    p = torch.zeros((1, 300, 4), device=cuda)
-    v = torch.ones((1, 300), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="k <= 256"):
-        fused_topk.topk_l2_masked_cuda(q, p, v, 257)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 2, 17, 256])
+@pytest.mark.parametrize("k", [1, 2, 17, 256, 300, 1000])
 def test_topk_l2_kernel_matches_plain(cuda, k):
+    """k = 1000 keeps the running buffers in the global scratch."""
     rng = np.random.default_rng(0)
     p = torch.from_numpy(
         rng.integers(-3, 4, (5000, 24)).astype(np.float32)).to(cuda)
     q = p[torch.arange(0, 5000, 50, device=cuda)].contiguous()
+    assert (build.library("fused_topk").topk_l2_scratch_bytes(100, k)
+            > 0) == (k == 1000)
     gd, gi = fused_topk.topk_l2_cuda(q, p, k)
     wd, wi = tref.topk_l2(q, p, k)
     assert torch.equal(gi, wi)
     assert torch.equal(gd, wd)
 
 
+def _quant_case(kind, precision, cuda, seed=0):
+    """(q, codes, cscale, cppq, ceps, valid, exact d2) on the card for
+    one edge case of the mixed-precision scan, at a round's shape."""
+    rng = np.random.default_rng(seed)
+    g, t, cap, d = 8, 24, 64, 512
+    if kind == "ragged_d":
+        d = 37
+    tiles = (rng.normal(size=(t, cap, d)) * 4).astype(np.float32)
+    tvalid = np.ones((t, cap), bool)
+    tvalid[-1, 40:] = False
+    if kind == "constant":
+        tiles[3] = 0.0           # the int8 scale floors
+        tiles[4] = 2.5           # every row equal
+    if kind == "duplicates":
+        tiles[1] = tiles[0]
+    q = (rng.normal(size=(g, d)) * 4).astype(np.float32)
+    q[1] = tiles[2, 5]          # a query on a candidate: distance 0
+    sel = np.stack([rng.permutation(t)[:16] for _ in range(g)])
+    c = 16 * cap
+    valid = (rng.random((g, c)) < 0.8) & tvalid[sel].reshape(g, c)
+    if kind == "all_masked":
+        valid[0] = False
+        valid[5, 100:] = False
+    pl = plan_tiles(tiles, tvalid, precision)
+    codes = pl.data[sel].reshape(g, c, d)
+    cs = pl.scale[sel].repeat_interleave(cap, 1)
+    cp = pl.ppq[sel].reshape(g, c)
+    ce = pl.eps[sel].repeat_interleave(cap, 1)
+    pts = tiles[sel].reshape(g, c, d).astype(np.float64)
+    exact = ((pts - q[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    to = (lambda x: torch.as_tensor(x).to(cuda).contiguous())
+    return (to(q), to(codes), to(cs), to(cp), to(ce), to(valid),
+            torch.as_tensor(exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "all_masked", "constant",
+                                  "duplicates", "ragged_d"])
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+def test_quant_lb2_kernel_matches_plain(cuda, kind, precision):
+    q, codes, cs, cp, ce, v, exact = _quant_case(kind, precision, cuda)
+    got = quant_lb2.quant_lb2_cuda(q, codes, cs, cp, ce, v,
+                                   precision=precision)
+    want = tref.quant_lb2(q, codes, cs, cp, ce, v, precision=precision)
+    assert torch.equal(torch.isinf(got), ~v)
+    if precision == "int8":
+        assert torch.equal(got, want)
+    else:
+        mag = ((q * q).sum(1)[:, None] + cp).clamp_min(0)
+        err = (got - want).abs()[v]
+        assert bool((err <= 1e-3 * mag.sqrt()[v]).all())
+    gv = got.cpu().double()[v.cpu()]
+    assert bool((gv <= exact[v.cpu()]).all())   # the contract
+    assert quant_lb2.launches > 0
+
+
+def _grid_points(n, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-12, 13, (n, d)) * 0.25).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,r_mult", [(300, 40, 7.5), (1000, 512, 7.5),
+                                        (1000, 37, 1.5), (4096, 64, 7.5)])
+def test_lpgf_force_kernel_matches_plain(cuda, n, d, r_mult):
+    x = torch.from_numpy(_grid_points(n, d, n + d)).to(cuda)
+    x[7] = x[3]                          # a duplicate point
+    d2 = tref.pairwise_sq_l2(x, x)
+    d2.fill_diagonal_(float("inf"))
+    g = float(d2.min(1).values.sqrt().mean())
+    gf, gw = lpgf_force.lpgf_force_cuda(x, r_mult * g, g)
+    wf, ww = tref.lpgf_force(x, r_mult * g, g)
+    scale = float(wf.abs().max()) + 1e-6
+    assert float((gf - wf).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-5)
+    assert lpgf_force.launches > 0
+
+
 @pytest.fixture(scope="module")
 def card_platform():
     """A small platform prepared on the card (N above LPGF's 4096-point
-    force-kernel branch, whose kernel is not ported yet)."""
+    force-kernel branch: the tiled path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,10 +246,9 @@ def card_platform():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [20, 250, 256])
+@pytest.mark.parametrize("k", [20, 300, 1000])
 def test_engine_rows_equal_oracle_on_card(card_platform, k):
-    """Up to the kernels' k limit, both beam loops on the card return the
-    oracle's rows."""
+    """At any k, both beam loops on the card return the oracle's rows."""
     p = card_platform
     tab = p.table.vector["v"]
     qs = [Q.VK.of("v", tab[i], k) for i in (0, 1234, 4321)]
@@ -160,3 +257,42 @@ def test_engine_rows_equal_oracle_on_card(card_platform, k):
         got, _ = p.session().plan(qs, device_loop=device_loop).execute()
         for q, g in zip(qs, got):
             np.testing.assert_array_equal(g, p.oracle(q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+def test_mp_engine_rows_equal_oracle_on_card(card_platform, precision):
+    """The mixed-precision scan on the card, both loops: the oracle's
+    rows, the fp32 session's rows, and reduced-precision work counted."""
+    p = card_platform
+    tab = p.table.vector["v"]
+    qs = [Q.VK.of("v", tab[i], 20) for i in (0, 1234, 4321)]
+    qs.append(Q.And.of(Q.NR("price", 25, 75), Q.VK.of("v", tab[7], 20)))
+    qs.append(Q.And.of(Q.VR.of("v", tab[9], 6.0), Q.VK.of("v", tab[9], 9)))
+    for device_loop in (True, False):
+        want, _ = p.session(precision="fp32").plan(
+            qs, device_loop=device_loop).execute()
+        got, st = p.session(precision=precision).plan(
+            qs, device_loop=device_loop).execute()
+        for q, g, w in zip(qs, got, want):
+            np.testing.assert_array_equal(g, p.oracle(q))
+            np.testing.assert_array_equal(g, w)
+        assert 0 < st.mp_rescued <= st.mp_scanned
+
+
+@pytest.mark.cuda
+def test_small_table_prepare_goes_through_lpgf_force(cuda):
+    """A table of at most 4096 rows takes LPGF's force kernel in
+    prepare(); its queries still return the oracle's rows."""
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(8, 32)).astype(np.float32) * 6
+    vec = (centers[rng.integers(0, 8, 3000)]
+           + rng.normal(size=(3000, 32))).astype(np.float32)
+    before = lpgf_force.launches
+    p = MQRLD(MMOTable("s").add_vector("v", vec), seed=0)
+    p.prepare(min_leaf=32, max_leaf=256)
+    assert lpgf_force.launches > before
+    qs = [Q.VK.of("v", p.table.vector["v"][i], 10) for i in (0, 99, 2999)]
+    got, _ = p.session().plan(qs).execute()
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(g, p.oracle(q))

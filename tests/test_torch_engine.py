@@ -162,8 +162,8 @@ def test_whole_slice_matches_reference_and_oracle(pair):
 @pytest.mark.parametrize("k", [250, 256])
 @pytest.mark.parametrize("device_loop", [True, False])
 def test_large_k_rows_equal_oracle(pair, k, device_loop):
-    """k up to the kernels' limit of 256: the scan's re-rank margin
-    shrinks to fit under it, and the rows are still the oracle's."""
+    """Large k keeps the scan's full re-rank margin (k + 8 candidates),
+    and the rows are the oracle's."""
     _, pt, _ = pair
     tab = pt.table.vector["v"]
     qs = [TQ.VK.of("v", tab[i], k) for i in (0, 700, 1900)]
@@ -172,6 +172,24 @@ def test_large_k_rows_equal_oracle(pair, k, device_loop):
     for q, g in zip(qs, got):
         assert len(g) == k
         np.testing.assert_array_equal(g, pt.oracle(q))
+
+
+@pytest.mark.parametrize("device_loop", [True, False])
+def test_k300_rows_equal_reference_engine(pair, device_loop):
+    """A V.K above the kernels' old limit of 256 (no limit now): the port's
+    engine returns the reference engine's rows, and the oracle's."""
+    p, pt, _ = pair
+    tab = p.table.vector["v"]
+    jq = [JQ.VK.of("v", tab[i], 300) for i in (3, 1500)]
+    jq.append(JQ.And.of(JQ.NR("price", 25, 75), JQ.VK.of("v", tab[9], 300)))
+    tq = [TQ.VK.of("v", tab[i], 300) for i in (3, 1500)]
+    tq.append(TQ.And.of(TQ.NR("price", 25, 75), TQ.VK.of("v", tab[9], 300)))
+    want, _ = p.session().plan(jq, device_loop=device_loop).execute()
+    got, _ = pt.session().plan(tq, device_loop=device_loop).execute()
+    for q, a, b in zip(tq, want, got):
+        assert len(b) == 300
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(b, pt.oracle(q))
 
 
 @pytest.mark.parametrize("device_loop", [True, False])
@@ -193,7 +211,7 @@ def test_expansion_misorder_takes_exact_pass(pair, device_loop):
     got, st = pt.session().plan(qs, device_loop=device_loop).execute()
     for q, g in zip(qs, got):
         np.testing.assert_array_equal(g, pt.oracle(q))
-    assert st.knn_exact_fallbacks == len(qs)
+    assert st.knn_exact_fallbacks == st.knn_jobs == len(qs)
     _, order = tref.stable_topk(tref.pairwise_sq_l2(
         torch.from_numpy(vec[idx]), torch.from_numpy(vec)), 20)
     assert any(not np.array_equal(o, pt.oracle(q))
@@ -203,21 +221,36 @@ def test_expansion_misorder_takes_exact_pass(pair, device_loop):
 @pytest.mark.parametrize("case,want", [
     ("wide_margin", True), ("thin_expansion_margin", False),
     ("expansion_margin_just_enough", True), ("tile_bound_near", False),
-    ("fewer_than_k_all_scanned", True), ("fewer_than_k_tiles_left", False)])
+    ("fewer_than_k_all_scanned", True), ("fewer_than_k_tiles_left", False),
+    ("refuted_bound_far", True), ("refuted_bound_near", False),
+    ("refuted_quant_bound_near", True),
+    ("refuted_quant_bound_within_rounding", False)])
 def test_rerank_certificate(case, want):
     """The proof's cases at d=512 with |q|^2, max|p|^2 and max|c|^2 all
     2e4 (expansion error bound about 4.9): a candidate set is complete
     only when the k-th exact distance (800 here) clears the rows the
-    kernel ranked past the last slot (m - 4.9) and the tiles that may
-    hold left-out rows (a bound of 28.3 reaches only 28.1^2 = 791)."""
-    t_k, m, nxt = {"wide_margin": (800.0, 830.0, 160.0),
-                   "thin_expansion_margin": (800.0, 803.0, np.inf),
-                   "expansion_margin_just_enough": (800.0, 806.0, np.inf),
-                   "tile_bound_near": (800.0, 830.0, 28.3),
-                   "fewer_than_k_all_scanned": (np.inf, np.inf, np.inf),
-                   "fewer_than_k_tiles_left": (np.inf, np.inf, 50.0)}[case]
+    kernel ranked past the last slot (m - 4.9), the tiles that may hold
+    left-out rows (a bound of 28.3 reaches only 28.1^2 = 791) and the
+    candidates the mixed-precision rescue refuted. A refuted bound that
+    came from a tile's ball takes the tile bound's corrections (801 is
+    not enough); one from the quantized scan is already a lower bound on
+    the exact distance and takes off only roundings (801 is enough,
+    800.01 is not)."""
+    t_k, m, nxt, refuted_q, refuted_b = {
+        "wide_margin": (800.0, 830.0, 160.0, np.inf, np.inf),
+        "thin_expansion_margin": (800.0, 803.0, np.inf, np.inf, np.inf),
+        "expansion_margin_just_enough": (800.0, 806.0, np.inf, np.inf,
+                                         np.inf),
+        "tile_bound_near": (800.0, 830.0, 28.3, np.inf, np.inf),
+        "fewer_than_k_all_scanned": (np.inf,) * 5,
+        "fewer_than_k_tiles_left": (np.inf, np.inf, 50.0, np.inf, np.inf),
+        "refuted_bound_far": (800.0, 830.0, 160.0, 900.0, 900.0),
+        "refuted_bound_near": (800.0, 830.0, 160.0, 900.0, 801.0),
+        "refuted_quant_bound_near": (800.0, 830.0, 160.0, 801.0, 900.0),
+        "refuted_quant_bound_within_rounding": (800.0, 830.0, 160.0,
+                                                800.01, np.inf)}[case]
     assert teng._rerank_certified(t_k, m, nxt, 2e4, 512, 2e4, 2e4,
-                                  30.0) is want
+                                  30.0, refuted_q, refuted_b) is want
 
 
 def test_unplannable_query_raises_not_implemented(pair):

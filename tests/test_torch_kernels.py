@@ -8,9 +8,6 @@ Tolerance: ids exact. Squared distances rtol=1e-5, atol=1e-5, because
 the fp32 quadratic expansion is summed in another order by XLA than by
 torch's CPU GEMM.
 """
-import os
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,9 +15,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.fused_topk import topk_l2_masked_pallas, topk_l2_pallas
+from repro.kernels.lpgf_force import lpgf_force_pallas
 from repro.kernels.pairwise_l2 import pairwise_sq_l2_pallas
-from repro_torch.kernels import fused_topk, ops, pairwise_l2
+from repro_torch.kernels import fused_topk, lpgf_force, ops, pairwise_l2
+from repro_torch.kernels import quant_lb2
 from repro_torch.kernels import ref as tref
+from repro_torch.utils.quant import plan_tiles
 
 torch.set_num_threads(1)
 
@@ -96,7 +96,8 @@ def test_topk_masked_lb2_never_changes_ids(lb):
 
 
 @pytest.mark.parametrize("m,n,d,k", [(20, 100, 8, 5), (7, 500, 16, 1),
-                                     (50, 33, 4, 33), (9, 64, 3, 2)])
+                                     (50, 33, 4, 33), (9, 64, 3, 2),
+                                     (6, 400, 5, 300)])
 def test_topk_l2_plain_matches_pallas(m, n, d, k):
     q, p = _np((m, d), m), _np((n, d), n)
     if d == 3:   # integer grid: exact distances with ties
@@ -129,6 +130,25 @@ def test_pairwise_plain_matches_pallas_and_ref(m, n, d):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("n,d", [(90, 11), (200, 5), (33, 2)])
+@pytest.mark.parametrize("r,g", [(2.5, 0.7), (10.0, 1.5)])
+def test_lpgf_force_plain_matches_pallas(n, d, r, g):
+    """The plain version against the TPU kernel in interpret mode, over
+    tests/test_kernels.py's sweep: both exclude self pairs by index, so F
+    and W agree within the fp32 sum order (F relative to its largest
+    entry). At r = 10 the radius covers max(d2) + 1, where the
+    reference's plain version would count each point's own pair in W."""
+    x = _np((n, d), n * d)
+    wf, ww = lpgf_force_pallas(jnp.asarray(x), r, g, bm=32, bn=32,
+                               interpret=True)
+    gf, gw = ops.lpgf_force(torch.from_numpy(x), r, g)
+    scale = float(np.abs(np.asarray(wf)).max()) + 1e-6
+    np.testing.assert_allclose(gf.numpy() / scale, np.asarray(wf) / scale,
+                               atol=2e-5)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(ww), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_lpgf_force_plain_matches_ref():
     x = _np((60, 6), 5)
     wf, ww = jref.lpgf_force(jnp.asarray(x), 3.0, 1.5)
@@ -152,44 +172,69 @@ def test_wrappers_take_plain_version_on_cpu():
     result is the plain version's."""
     q, p, v, k = _masked_case("plain")
     before = (pairwise_l2.launches, fused_topk.topk_l2_launches,
-              fused_topk.topk_l2_masked_launches)
+              fused_topk.topk_l2_masked_launches, quant_lb2.launches,
+              lpgf_force.launches)
     qt, pt = torch.from_numpy(q), torch.from_numpy(p)
     pairwise_l2.pairwise_sq_l2(qt, pt[0])
     fused_topk.topk_l2(qt, pt[0], 3)
     fused_topk.topk_l2_masked(qt, pt, torch.from_numpy(v), k)
+    codes, cs, cp, ce, vt = _quant_args(q.shape[1])
+    quant_lb2.quant_lb2(qt, codes, cs, cp, ce, vt, precision="int8")
+    lpgf_force.lpgf_force(pt[0], 2.0, 1.0)
     assert (pairwise_l2.launches, fused_topk.topk_l2_launches,
-            fused_topk.topk_l2_masked_launches) == before
+            fused_topk.topk_l2_masked_launches, quant_lb2.launches,
+            lpgf_force.launches) == before
 
 
-def test_lpgf_force_on_cuda_is_an_honest_gap():
-    """The lpgf_force kernel is queued; a CUDA tensor raises, naming it,
-    and never falls back to the plain version."""
+def _quant_args(d, g=6, seed=0):
+    """(codes, cscale, cppq, ceps, valid) for g queries over two tiles."""
+    rng = np.random.default_rng(seed)
+    planes = plan_tiles(_np((2, 16, d), seed), np.ones((2, 16), bool),
+                        "int8")
+    return (planes.data.reshape(1, 32, d).expand(g, -1, -1).contiguous(),
+            planes.scale.repeat_interleave(16)[None].expand(g, -1)
+            .contiguous(),
+            planes.ppq.reshape(1, 32).expand(g, -1).contiguous(),
+            planes.eps.repeat_interleave(16)[None].expand(g, -1)
+            .contiguous(),
+            torch.from_numpy(rng.random((g, 32)) < 0.7))
+
+
+def test_lpgf_force_on_cuda_reaches_the_kernel(monkeypatch):
+    """``ops.lpgf_force`` hands a CUDA tensor to the CUDA wrapper (faked
+    here, as there is no card) and never to the plain version."""
     class _CudaTensor:
         device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="lpgf_force_pallas"):
-        ops.lpgf_force(_CudaTensor(), 1.0, 1.0)
+
+        def float(self):
+            return self
+
+        def contiguous(self):
+            return self
+    seen = []
+    monkeypatch.setattr(lpgf_force, "lpgf_force_cuda",
+                        lambda x, r, g, c=1.1: seen.append((x, r, g, c)))
+    monkeypatch.setattr(tref, "lpgf_force", lambda *a, **k: pytest.fail(
+        "the plain version ran for a CUDA tensor"))
+    t = _CudaTensor()
+    ops.lpgf_force(t, 3.0, 1.5)
+    assert seen == [(t, 3.0, 1.5, 1.1)]
 
 
 @pytest.mark.parametrize("wrapper", ["pairwise_sq_l2_cuda", "topk_l2_cuda",
-                                     "topk_l2_masked_cuda"])
+                                     "topk_l2_masked_cuda", "quant_lb2_cuda",
+                                     "lpgf_force_cuda"])
 def test_cuda_wrappers_reject_cpu_tensors(wrapper):
     """A kernel wrapper called by name with CPU tensors raises before any
     build or launch, rather than hand host pointers to the card."""
     q, p, v, k = _masked_case("plain")
     qt, pt, vt = torch.from_numpy(q), torch.from_numpy(p), torch.from_numpy(v)
-    args = {"pairwise_sq_l2_cuda": (pairwise_l2, (qt, pt[0])),
-            "topk_l2_cuda": (fused_topk, (qt, pt[0], 3)),
-            "topk_l2_masked_cuda": (fused_topk, (qt, pt, vt, k))}
-    mod, a = args[wrapper]
+    args = {"pairwise_sq_l2_cuda": (pairwise_l2, (qt, pt[0]), {}),
+            "topk_l2_cuda": (fused_topk, (qt, pt[0], 3), {}),
+            "topk_l2_masked_cuda": (fused_topk, (qt, pt, vt, k), {}),
+            "quant_lb2_cuda": (quant_lb2, (qt, *_quant_args(q.shape[1])),
+                               {"precision": "int8"}),
+            "lpgf_force_cuda": (lpgf_force, (pt[0], 2.0, 1.0), {})}
+    mod, a, kw = args[wrapper]
     with pytest.raises(ValueError, match="CUDA kernels take CUDA tensors"):
-        getattr(mod, wrapper)(*a)
-
-
-def test_max_k_matches_kernel_source():
-    """The engine sizes its scan by ``fused_topk.MAX_K``; it must be the
-    kernel's own limit."""
-    src = os.path.join(os.path.dirname(fused_topk.__file__), "..", "csrc",
-                       "fused_topk.cu")
-    with open(src) as f:
-        m = re.search(r"constexpr int kMaxK = (\d+);", f.read())
-    assert m and int(m.group(1)) == fused_topk.MAX_K == 256
+        getattr(mod, wrapper)(*a, **kw)
