@@ -8,11 +8,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. build: every kernel compiled from ``src/repro_torch/csrc`` with nvcc
    (one process per source, all started together);
-2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card at the shapes its path gives it — ids exactly equal, squared
-   distances within the fp32 dot-product error bound, ``quant_lb2``'s
-   bounds never above the exact distance — and timed beside its plain
-   version, a PyTorch library yardstick and its roofline bound;
+2. kernels: each CUDA kernel of the retrieval paths against its plain
+   PyTorch version on the card at the shapes its path gives it — ids
+   exactly equal, squared distances within the fp32 dot-product error
+   bound, ``quant_lb2``'s bounds never above the exact distance — and
+   timed beside its plain version, a PyTorch library yardstick and its
+   roofline bound;
 3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
    then timed) and one batch of V.K queries at k = 300 and 1000, every
@@ -25,18 +26,34 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (G, C) each precision launched it with on this path;
 5. small-table path: ``prepare()`` with its defaults on a 4,096-row
    table (LPGF's force kernel), then a 64-query batch, every row equal to
-   the oracle's.
+   the oracle's;
+6. embedding path: ``EmbeddingServer(mqrld-embedder-100m)`` at full size
+   on 64 token rows of 128, (64, 768) and finite, and 4 rows again on the
+   CPU with the same weights (``drive_embedding_path`` states the
+   tolerance);
+7. generation path: ``ServeEngine(llama3-8b)`` at full width and 32
+   layers on prompts of 2048, 2048, 1000 and 1000 tokens, 16 new tokens
+   each: the flash kernel held to its plain version on every layer of
+   every real prefill, the prefill against the dense forward, batched
+   against per-request generation; init, prefill and decode times and
+   the peak device memory (``drive_generation_path``);
+8. ``flash_attention`` against its plain version at the prefill's shape
+   (recorded by the hook of phase 7) and at ``FLASH_CASES``, timed beside
+   its plain version, ``scaled_dot_product_attention`` and its bound.
 
 Each path's kernels must have launched in that path's run (counts set to
-0 just before it, read just after). The last lines are the kernels JSON,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+0 just before it, read just after); the embedding path runs none. The
+last lines are the kernels JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -217,7 +234,11 @@ def check_topk_masked(torch, ft, ref, dev, gen, dim: int, k: int):
     scale = (q * q).sum(1)[:, None] + (p * p).sum(2).max()
     err = (gd - wd).abs()
     ok &= bool((err <= 4 * dim * U32 * scale + 1e-6).all())
-    ms = time_ms(torch, lambda: ft.topk_l2_masked_cuda(q, p, va, k), 10)
+    # 5 rounds of 10 launches, the median in the row: single samples of
+    # this shape once spread by 2x between calls on an H100
+    rounds = sorted(time_ms(torch, lambda: ft.topk_l2_masked_cuda(
+        q, p, va, k), 10) for _ in range(5))
+    ms = rounds[2]
     plain = time_ms(torch, lambda: ref.topk_l2_masked(q, p, va, k), 10)
     lib = time_ms(torch, lambda: torch.topk(torch.cdist(
         q[:, None, :], p)[:, 0], k, largest=False), 10)
@@ -230,7 +251,7 @@ def check_topk_masked(torch, ft, ref, dev, gen, dim: int, k: int):
         replaces="src/repro/kernels/fused_topk.py:169",
         max_abs_err=float(err.max()), ms=ms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=lib, shape=f"({g}, {c}, {dim}), k={k}",
-        library="torch.cdist + torch.topk")
+        library="torch.cdist + torch.topk", rounds_ms=rounds)
 
 
 def _row_chunks(g: int, c: int, dim: int, elems: int = 2 ** 27):
@@ -410,6 +431,117 @@ def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
         f"{dim})", library="torch.cdist (phase 1 only)")
 
 
+# (B, S, H, hd), type, causal, window: flash_attention's further cases
+FLASH_CASES = (((1, 512, 4, 64), "float32", True, 0),
+               ((1, 512, 4, 64), "float32", True, 128),
+               ((1, 512, 4, 64), "float32", False, 0),
+               ((1, 1000, 16, 64), "bfloat16", True, 0))
+
+
+def _attn_pairs(s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask leaves open: the function's work."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _score_err(torch, q, k, v, want, causal: bool, window: int):
+    """First-order bound on the output error that the fp32 rounding of the
+    scores causes, on both sides (kernel and plain version): a score s_j
+    summed from hd products errs by at most (hd + 2) u sum_d |q_d k_jd| /
+    sqrt(hd), which moves the output by sum_j w_j ds_j (v_j - out), so
+    |d out| <= 2 (hd + 2) u sum_j w_j m_j (|v_j| + |out|), m_j the
+    magnitude sum. Where the scores reach hundreds (a real prefill's), it
+    exceeds the output's own bf16 rounding whenever two keys share the
+    weight."""
+    b, s, h, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    out = torch.empty_like(want)
+    for i in range(b):     # one batch row at a time: (H, S, S) temporaries
+        qf, kf = q[i].float(), k[i].float()
+        w = torch.softmax(torch.where(mask, torch.einsum(
+            "qhd,khd->hqk", qf, kf) * scale, -1e30), dim=-1)
+        w *= torch.einsum("qhd,khd->hqk", qf.abs(), kf.abs()) * scale
+        out[i] = torch.einsum("hqk,khd->qhd", w, v[i].float().abs()) \
+            + w.sum(-1).T[:, :, None] * want[i].abs()
+        del w
+    return 2.0 * (hd + 2) * U32 * out
+
+
+def flash_check(torch, ref, q, k, v, got, causal: bool, window: int,
+                score_err: bool = False):
+    """``got`` (the kernel's output) against the plain version. fp32:
+    |a - b| <= 2e-5 + 2e-5 |b|. bf16: |a - b| <= 2^-8 |b| + 2^-16 max|v|,
+    b the plain version's fp32 result on the widened inputs (one rounding
+    to bf16 plus summation noise near zero); with ``score_err`` the
+    scores' own fp32 rounding (``_score_err``) is added. Returns (ok, max
+    |a - b|, entries over the bf16 tolerance without the scores' term)."""
+    if q.dtype == torch.float32:
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        err = (got - want).abs()
+        over = int((err > 2e-5 + 2e-5 * want.abs()).sum())
+        return over == 0, float(err.max()), over
+    want = ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    err = (got.float() - want).abs()
+    tol = 2.0 ** -8 * want.abs() + 2.0 ** -16 * float(v.float().abs().max())
+    over = int((err > tol).sum())
+    if score_err and over:
+        tol += _score_err(torch, q, k, v, want, causal, window)
+    return bool((err <= tol).all()), float(err.max()), over
+
+
+def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
+                window: int):
+    """``flash_attention`` at ``shape`` on Gaussian inputs against its
+    plain version (``flash_check``), timed beside the plain version and,
+    where it computes the same function (no window),
+    ``scaled_dot_product_attention``."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    ok, err, _ = flash_check(torch, ref, q, k, v, got, causal, window)
+    del got
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    ms = time_ms(torch, kernel, 10)
+    plain = time_ms(torch, lambda: ref.flash_attention(
+        q, k, v, causal=causal, window=window), 3)
+    lib = None
+    if not window:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(torch, lambda: torch.nn.functional.
+                      scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal), 10)
+    b, s, h, hd = shape
+    # the pairs the mask leaves open, two products of hd each (scores and
+    # weights times V), at the peak for the inputs' type; q, k, v read and
+    # the output written once
+    bms, by = bound_ms(4.0 * hd * b * h * _attn_pairs(s, causal, window),
+                       4.0 * b * s * h * hd * q.element_size(),
+                       PEAK_OPS["bf16" if dt == torch.bfloat16 else "fp32"])
+    mask = ("causal" if causal else "non-causal") + (
+        f", window {window}" if window else "")
+    return ok, dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:70",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib, shape=f"{shape} {dtype} {mask}",
+        library="scaled_dot_product_attention" if lib is not None
+        else "none (no window in one call)")
+
+
 # -------------------------------------------------------------- main path
 def hybrid_batch(Q, np, vecs, radius: float, n: int, seed: int):
     """The four paper archetypes round-robin (VK k=20, NR+VK, VR+NR,
@@ -515,16 +647,276 @@ def oracle_mismatches(p, batch, res):
 
 def _counters(kmods):
     """The launch counts of every kernel wrapper, by kernel name."""
-    pw, ft, qk, lf = kmods
+    pw, ft, qk, lf, fa = kmods
     return {"pairwise_sq_l2": pw.launches, "topk_l2": ft.topk_l2_launches,
             "topk_l2_masked": ft.topk_l2_masked_launches,
-            "quant_lb2": qk.launches, "lpgf_force": lf.launches}
+            "quant_lb2": qk.launches, "lpgf_force": lf.launches,
+            "flash_attention": fa.launches}
 
 
 def _reset(kmods):
-    pw, ft, qk, lf = kmods
+    pw, ft, qk, lf, fa = kmods
     pw.launches = ft.topk_l2_launches = ft.topk_l2_masked_launches = 0
-    qk.launches = lf.launches = 0
+    qk.launches = lf.launches = fa.launches = 0
+
+
+# ------------------------------------------------------------ model paths
+def _rel(torch, a, b) -> float:
+    """||a - b|| / ||b|| over all rows (Frobenius)."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def drive_embedding_path(args, dev):
+    """``EmbeddingServer(mqrld-embedder-100m)`` at full size (12 layers,
+    768 wide, 12 heads padded to 16) over 64 token rows of length 128
+    drawn from ``--seed``; then 4 of those rows again with the same
+    weights on the CPU, in bf16 (the served type) and in fp32, and on the
+    card in fp32. Tolerance: the card's embeddings differ from the CPU's,
+    in bf16 and in fp32, by no more (relative L2 over the 4 rows) than the
+    CPU's own bf16 embeddings differ from its fp32 ones: random weights
+    drawn by the reference's law make the attention nearly one-hot (score
+    spreads in the tens), so a rounding anywhere can move a pooled
+    embedding by whole percents. Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.serve.engine import EmbeddingServer
+
+    cfg = get_config("mqrld-embedder-100m")
+    resident = _resident_gib(torch, dev)
+    rng = np.random.default_rng(args.seed + 4)
+    toks = rng.integers(0, cfg.vocab_size, (64, 128)).astype(np.int32)
+    t0 = time.time()
+    srv = EmbeddingServer(cfg, device=None if dev.type == "cuda" else dev,
+                          seed=args.seed)
+    _sync(torch, dev)
+    t_init = time.time() - t0
+    t0 = time.time()
+    srv.embed(toks)
+    t_first = time.time() - t0
+    t0 = time.time()
+    emb = srv.embed(toks)
+    t_embed = time.time() - t0
+    tree = params_to_numpy(cfg, srv.params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    few = toks[:4]
+    cpu16 = EmbeddingServer(cfg, params_from_numpy(cfg, tree, "cpu"),
+                            device="cpu").embed(few)
+    cpu32 = EmbeddingServer(cfg32, params_from_numpy(cfg32, tree, "cpu"),
+                            device="cpu").embed(few)
+    card32 = EmbeddingServer(cfg32, params_from_numpy(cfg32, tree, dev),
+                             device=dev).embed(few)
+    gap = _rel(torch, cpu16, cpu32)
+    r16, r32 = _rel(torch, emb[:4], cpu16), _rel(torch, card32, cpu32)
+    shape_ok = emb.shape == (64, cfg.d_model) and bool(np.isfinite(emb).all())
+    ok = shape_ok and r16 <= gap and r32 <= gap
+    return ok, dict(
+        resident_gib_before=resident,
+        shape=list(emb.shape), finite=shape_ok, init_s=t_init,
+        first_embed_s=t_first, embed_s=t_embed,
+        rows_per_s=len(toks) / t_embed, rel_card_cpu_bf16=r16,
+        rel_card_cpu_fp32=r32, rel_cpu_bf16_fp32=gap,
+        scale=float(np.abs(cpu32).max()))
+
+
+def _resident_gib(torch, dev) -> float:
+    """Device memory still allocated (tensors alive) before a path."""
+    return torch.cuda.memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+
+
+def _trace(torch, fn, steps: int):
+    """``fn`` under ``torch.profiler`` (CPU and CUDA activity): the host
+    wall time and the summed device time of its kernels, per step, the
+    device's busy share of the wall time, and the six kernels with the
+    most device time. The tracer slows the host side, so the busy share
+    here is a lower bound; set it against the untraced times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    # the kernels themselves (device events), not the operators that
+    # launched them, so no time is counted twice
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    return dict(
+        wall_ms_per_step=wall * 1e3 / steps,
+        device_ms_per_step=dev_us / 1e3 / steps if events else None,
+        device_busy_share=dev_us / 1e6 / wall if events else None,
+        top=[(e.key[:60], e.self_device_time_total / 1e3 / steps,
+              e.count / steps) for e in top])
+
+
+def _first_divergence(a, b):
+    import numpy as np
+    d = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(d[0]) if len(d) else None
+
+
+def drive_generation_path(args, dev, fa, ref):
+    """``ServeEngine(llama3-8b, max_len=2080, batch_size=4)`` at full width
+    and depth, random weights from ``--seed``, on 4 requests with prompts
+    of 2048, 2048, 1000 and 1000 tokens and max_new = 16.
+
+    Run 1 holds the flash kernel, on every layer of each real prefill, to
+    its plain version (a hook on ``flash_attention_cuda``; tolerance
+    ``flash_check`` with the scores' term) and records every step's
+    logits. Run 2 is timed (host clock, each batch's prefill and decode
+    ending in a synchronize), with the peak device memory. Then each
+    request alone (check 3: the batched tokens equal them, or the step
+    where they part has a top-2 margin below twice the logit difference
+    there), and the 1000-token bucket's prefill against
+    ``Model.forward(mode="train")`` (check 2: the greedy token equal
+    wherever the dense top-2 margin exceeds 4x the largest logit
+    difference). Returns (ok, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = get_config("llama3-8b")
+    vocab, max_new = cfg.vocab_size, 16
+    info = {"resident_gib_before": _resident_gib(torch, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=2080, batch_size=4, seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    info["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(args.seed + 5)
+    lens = (2048, 2048, 1000, 1000)
+    reqs = [GenRequest(rng.integers(0, vocab, n).astype(np.int32), max_new)
+            for n in lens]
+    buckets = [[i for i, n in enumerate(lens) if n == m]
+               for m in sorted(set(lens))]       # generate's batch order
+
+    # run 1: the kernel on every layer's (q, k, v); every step's logits
+    checks, logits = [], []
+    launch, greedy = fa.flash_attention_cuda, eng._greedy
+
+    def checked(q, k, v, *, causal=True, window=0):
+        out = launch(q, k, v, causal=causal, window=window)
+        ok, err, over = flash_check(torch, ref, q, k, v, out, causal,
+                                    window, score_err=True)
+        checks.append((tuple(q.shape), str(q.dtype), ok, err, over))
+        return out
+    fa.flash_attention_cuda = checked
+    eng._greedy = lambda lg: logits.append(lg.float().cpu()) or greedy(lg)
+    try:
+        first = eng.generate(reqs)
+    finally:
+        fa.flash_attention_cuda, eng._greedy = launch, greedy
+    info["flash_checked_launches"] = len(checks)
+    info["flash_failed"] = sum(not c[2] for c in checks)
+    info["flash_max_abs_err"] = max(c[3] for c in checks)
+    info["flash_over_bf16_tol_without_score_term"] = sum(c[4]
+                                                         for c in checks)
+    info["flash_shape"] = max(checks, key=lambda c: math.prod(c[0]))[:2]
+    step = {}                                 # (request, t) -> logits row
+    for bi, rows in enumerate(buckets):
+        for t in range(max_new):
+            for j, i in enumerate(rows):
+                step[i, t] = logits[bi * max_new + t][j, :vocab]
+
+    # run 2: timed
+    torch.cuda.reset_peak_memory_stats()
+    timed = eng.generate(reqs)
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    info["buckets"] = [dict(
+        prompt=lens[rows[0]], batch=len(rows),
+        prefill_s=timed[rows[0]].prefill_s,
+        decode_ms_per_token=timed[rows[0]].decode_s / (max_new - 1) * 1e3)
+        for rows in buckets]
+    info["timed_tokens_equal_run1"] = all(
+        np.array_equal(a.tokens, b.tokens) for a, b in zip(first, timed))
+
+    # check 3: batched against each request alone
+    ok3, info["per_request"] = True, []
+    for i, r in enumerate(reqs):
+        logits.clear()
+        eng._greedy = lambda lg: logits.append(lg.float().cpu()) \
+            or greedy(lg)
+        try:
+            solo = eng.generate([r])[0]
+        finally:
+            eng._greedy = greedy
+        t = _first_divergence(first[i].tokens, solo.tokens)
+        entry = {"request": i, "diverges_at": t}
+        if t is not None:
+            ls = logits[t][0, :vocab]
+            top = torch.topk(ls, 2).values
+            entry["margin"] = float(top[0] - top[1])
+            entry["logit_diff"] = float((step[i, t] - ls).abs().max())
+            if not entry["margin"] < 2 * entry["logit_diff"]:
+                ok3 = False
+        info["per_request"].append(entry)
+
+    # check 2: prefill (flash) against the dense forward, 1000-token bucket
+    toks = np.stack([reqs[i].prompt for i in buckets[0]])
+    lp, cache = eng.model.prefill(eng.params, {"tokens": toks}, eng.max_len)
+    ld, _ = eng.model.forward(eng.params, {"tokens": toks}, mode="train",
+                              last_only=True)
+    # how far rounding alone moves these logits: the same dense forward of
+    # the first row alone (other GEMM shapes), and of both rows with the
+    # first layer's norm scale times 1 + 2^-12 (an eighth of a bf16 unit:
+    # a few of the layer's bf16 inputs move by one unit)
+    la, _ = eng.model.forward(eng.params, {"tokens": toks[:1]},
+                              mode="train", last_only=True)
+    norm1 = eng.params.blocks[0].norm1
+    norm1.mul_(1 + 2.0 ** -12)
+    try:
+        lx, _ = eng.model.forward(eng.params, {"tokens": toks},
+                                  mode="train", last_only=True)
+    finally:
+        norm1.div_(1 + 2.0 ** -12)
+    lp, ld = lp[:, -1, :vocab].float(), ld[:, -1, :vocab].float()
+    diff = float((lp - ld).abs().max())
+    top = torch.topk(ld, 2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]).tolist()
+    same = (lp.argmax(-1) == ld.argmax(-1)).tolist()
+    ok2 = all(s or m <= 4 * diff for s, m in zip(same, margin))
+    info["prefill_vs_dense"] = dict(
+        max_logit_diff=diff, top2_margin=margin, greedy_equal=same,
+        dense_alone_vs_batched_max_logit_diff=float(
+            (la[0, -1, :vocab].float() - ld[0]).abs().max()),
+        dense_perturbed_max_logit_diff=float(
+            (lx[:, -1, :vocab].float() - ld).abs().max()),
+        logit_std=float(ld.std()))
+
+    # where the time goes: one prefill of the 2 x 2048 bucket and four
+    # decode steps on the 1000-token cache, traced
+    cur = eng._greedy(lp)[:, None]
+
+    def decode4():
+        nonlocal cache, cur
+        for _ in range(4):
+            lg, cache = eng.model.decode(eng.params, cache, cur)
+            cur = eng._greedy(lg[:, -1])[:, None]
+    info["decode_trace"] = _trace(torch, decode4, 4)
+    del cache
+    big = np.stack([reqs[i].prompt for i in buckets[1]])
+    info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
+        eng.params, {"tokens": big}, eng.max_len), 1)
+    tokens_ok = all(r.tokens.shape == (max_new,) for r in first)
+    ok = info["flash_failed"] == 0 and ok2 and ok3 and tokens_ok
+    del eng
+    return ok, info
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -539,6 +931,10 @@ def log_kernel(label: str, ok: bool, row: dict) -> None:
            f"kernel alone {row['kernel_ms']:.4f} ms, query quantization "
            f"in the wrapper {row['query_quantize_ms']:.4f} ms"
            if "violations" in row else ""))
+    if "rounds_ms" in row:
+        log(f"kernel {label}: 5 rounds of 10 launches, min "
+            f"{row['rounds_ms'][0]:.4f} ms, median {row['ms']:.4f} ms: "
+            + json.dumps(row["rounds_ms"]))
     if "lpgf_chunk" in row:
         log(f"kernel {label} at LPGF's chunk: "
             + json.dumps(row["lpgf_chunk"]))
@@ -563,10 +959,10 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.core import engine, lpgf
     from repro_torch.core import query as Q
-    from repro_torch.kernels import (build, fused_topk, lpgf_force,
-                                     pairwise_l2, quant_lb2, ref)
+    from repro_torch.kernels import (build, flash_attention, fused_topk,
+                                     lpgf_force, pairwise_l2, quant_lb2, ref)
     from repro_torch.utils.quant import plan_tiles
-    kmods = (pairwise_l2, fused_topk, quant_lb2, lpgf_force)
+    kmods = (pairwise_l2, fused_topk, quant_lb2, lpgf_force, flash_attention)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -735,7 +1131,8 @@ def main() -> int:
     if mp_launches["quant_lb2"] <= 0:
         return fail(f"quant_lb2 never launched on the mixed-precision "
                     f"path: {mp_launches}")
-    del p, batch, res, truths, mp_rows
+    del p, batch, res, truths, mp_rows, sess, eng
+    gc.collect()            # the platform's reference cycles hold GiBs
     torch.cuda.empty_cache()
     # quant_lb2 again at the widest round each precision gave it
     for prec in ("int8", "bf16"):
@@ -770,8 +1167,64 @@ def main() -> int:
         return fail(f"lpgf_force never launched on the small-table path: "
                     f"{small_launches}")
 
+    del sp, sbatch, sres
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ embedding path
+    _reset(kmods)
+    ok, emb = drive_embedding_path(args, dev)
+    emb_launches = _counters(kmods)
+    torch.cuda.empty_cache()
+    log("embedding path (mqrld-embedder-100m, 64 x 128 tokens): "
+        + json.dumps(emb))
+    log("launches on the embedding path (dense attention, no TPU kernel): "
+        + json.dumps(emb_launches))
+    if not ok:
+        return fail(f"embedding path: {emb}")
+
+    # ----------------------------------------------- generation path
+    _reset(kmods)
+    ok, gen_info = drive_generation_path(args, dev, flash_attention, ref)
+    gen_launches = _counters(kmods)
+    torch.cuda.empty_cache()
+    log("generation path (llama3-8b, 32 layers, prompts 2048, 2048, 1000, "
+        "1000, max_new 16): " + json.dumps(gen_info))
+    for b in gen_info["buckets"]:
+        log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
+            f"{b['prefill_s']:.3f} s, decode {b['decode_ms_per_token']:.2f} "
+            f"ms per token")
+    for name in ("prefill_trace", "decode_trace"):
+        log(f"  {name} (torch.profiler): " + json.dumps(gen_info[name]))
+    log(f"  init {gen_info['init_s']:.1f} s, peak device memory "
+        f"{gen_info['peak_gib']:.2f} GiB (weights "
+        f"{gen_info['weights_gib']:.2f} GiB)")
+    log("launches on the generation path: " + json.dumps(gen_launches))
+    if not ok:
+        return fail(f"generation path: {gen_info}")
+    if gen_launches["flash_attention"] <= 0:
+        return fail(f"flash_attention never launched on the generation "
+                    f"path: {gen_launches}")
+
+    # flash_attention at the prefill's shape, then its further cases
+    shape, dtype = gen_info["flash_shape"]
+    for i, (shp, dt, causal, window) in enumerate(
+            ((shape, dtype.replace("torch.", ""), True, 0),) + FLASH_CASES):
+        ok, row = check_flash(torch, flash_attention, ref, dev, gen, shp, dt,
+                              causal, window)
+        torch.cuda.synchronize()
+        log_kernel("flash_attention" + (" at the prefill's shape" if i == 0
+                                        else ""), ok, row)
+        if not ok:
+            return fail(f"kernel flash_attention disagrees with its plain "
+                        f"version at {row['shape']}")
+        if i == 0:
+            kernels.append(row)
+        torch.cuda.empty_cache()
+
     launches = {**path_launches, "quant_lb2": mp_launches["quant_lb2"],
-                "lpgf_force": small_launches["lpgf_force"]}
+                "lpgf_force": small_launches["lpgf_force"],
+                "flash_attention": gen_launches["flash_attention"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(json.dumps({"kernels": [

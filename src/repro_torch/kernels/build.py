@@ -22,7 +22,8 @@ from typing import Dict, List, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("pairwise_l2", "fused_topk", "quant_lb2", "lpgf_force")
+SOURCES = ("pairwise_l2", "fused_topk", "quant_lb2", "lpgf_force",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "lpgf_force": {
         "lpgf_force_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _F, _P], _I),
         "lpgf_force_max_d": ([], _I),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _F, _L, _L, _L, _L, _L, _L, _L, _L,
+                                    _L, _P], _I),
     },
 }
 

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.fused_topk import topk_l2 as _topk_l2
 from repro_torch.kernels.fused_topk import topk_l2_masked as _topk_l2_masked
 from repro_torch.kernels.lpgf_force import lpgf_force as _lpgf_force
@@ -180,3 +182,11 @@ def lpgf_force(points: torch.Tensor, radius: float, g_mean: float):
     """LPGF force field and total weights: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     return _lpgf_force(points.float().contiguous(), radius, g_mean)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over (B, S, H, hd) with expanded kv heads
+    (semantics: ``ref.flash_attention``): the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    return _flash_attention(q, k, v, causal=causal, window=window)

@@ -10,6 +10,8 @@ through ``stable_topk``, which ranks packed (distance, index) keys.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -146,3 +148,29 @@ def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
                      x[None, :, :] - x[i:i + row_block, None, :])
         for i in range(0, n, row_block)]) if n else torch.zeros_like(x)
     return f, torch.sum(w, dim=1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Attention over (B, S, H, hd) q, k, v with the same H (GQA heads are
+    expanded by the caller), semantics of ``repro.kernels.ref.
+    flash_attention``: fp32 scores divided by sqrt(hd), masked scores set
+    to -1e30 (causal: key <= query; window: key > query - window, by
+    absolute position), an fp32 softmax over the keys, fp32 weights times
+    V, and the output cast to q's dtype. Returns (B, S, H, hd)."""
+    hd = q.shape[-1]
+    s, skv = q.shape[1], k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(hd)
+    qpos = torch.arange(s, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((s, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return out.to(q.dtype)

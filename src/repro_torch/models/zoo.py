@@ -1,0 +1,165 @@
+"""Model API over the ported families (port of ``repro/models/zoo.py``).
+
+``Model = build_model(cfg, device=None)`` exposes, for the dense and
+VLM-backbone families:
+  * ``defs``                        — ParamDef tree (single source of truth)
+  * ``init(seed)``                  — random parameters on the device
+  * ``n_params()``
+  * ``forward(params, batch)``      — logits (train-style dense attention)
+  * ``embedding(params, batch)``    — pooled features for the MQRLD platform
+  * ``prefill(params, batch, len)`` — last-token logits + cache
+  * ``decode(params, cache, tok)``  — one token
+  * ``init_cache(batch, len)``
+``params`` is the ``transformer.Transformer`` module those return or
+``params_from_numpy`` loads. ``device=None`` means the CUDA card and
+raises without one. The MoE, SSM, hybrid and enc-dec families wait for
+their model modules (ROADMAP queue 1 item 1); training (``loss``) for
+queue 1 item 9.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
+from repro_torch.models import spec as S
+from repro_torch.models import transformer
+
+_FAMILY_TODO = {
+    SSM: "xlstm (models/xlstm.py)",
+    HYBRID: "hymba (models/hymba.py)",
+    AUDIO: "enc-dec (models/encdec.py)",
+}
+
+
+def _as_tokens(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           device=device).long()
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def __post_init__(self):
+        cfg = self.cfg
+        todo = _FAMILY_TODO.get(cfg.family)
+        if cfg.is_encdec:
+            todo = _FAMILY_TODO[AUDIO]
+        if todo is not None:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) is not ported yet: ROADMAP "
+                f"queue 1 item 1, {todo}")
+        if cfg.is_moe:
+            raise NotImplementedError(transformer.MOE_TODO)
+        self.defs = transformer.model_defs(cfg)
+
+    def init(self, seed: int = 0) -> transformer.Transformer:
+        flat = S.init_params(
+            self.defs, seed, self.device,
+            lambda d: transformer.serving_dtype(self.cfg, d))
+        return transformer.Transformer(self.cfg, flat)
+
+    def n_params(self) -> int:
+        return S.count_params(self.defs)
+
+    def _inputs(self, batch) -> Dict[str, Any]:
+        patches = batch.get("patches")
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
+        return {"tokens": _as_tokens(batch["tokens"], self.device),
+                "frontend_embeds": patches}
+
+    @torch.no_grad()
+    def forward(self, params, batch, *, mode: str = "train",
+                last_only: bool = False):
+        b = self._inputs(batch)
+        return transformer.forward(self.cfg, params, b["tokens"],
+                                   frontend_embeds=b["frontend_embeds"],
+                                   mode=mode, last_only=last_only)
+
+    @torch.no_grad()
+    def embedding(self, params, batch) -> torch.Tensor:
+        """Mean-pooled final hidden state — the platform's feature vector."""
+        b = self._inputs(batch)
+        return transformer.pooled_embedding(
+            self.cfg, params, b["tokens"],
+            frontend_embeds=b["frontend_embeds"])
+
+    @torch.no_grad()
+    def prefill(self, params, batch, max_len: int):
+        """Consume the prompt; return (last logits, cache)."""
+        b = self._inputs(batch)
+        return transformer.prefill(self.cfg, params, b["tokens"], max_len,
+                                   frontend_embeds=b["frontend_embeds"])
+
+    @torch.no_grad()
+    def decode(self, params, cache, tokens):
+        return transformer.decode_step(self.cfg, params, cache,
+                                       _as_tokens(tokens, self.device))
+
+    def init_cache(self, batch: int, max_len: int) -> transformer.KVCache:
+        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    return Model(cfg=cfg, device=resolve_device(device))
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None
+                      ) -> transformer.Transformer:
+    """Carry a parameter tree in the reference's layout (nested dicts of
+    numpy arrays, blocks stacked (L, ...), as ``Model.init`` returns it in
+    ``repro``) into the port's modules on ``device``, each tensor in its
+    serving type. Reference path ``blocks/attn/wq`` becomes
+    ``blocks.i.attn.wq`` for each layer i (``transformer.port_name``);
+    every path of ``model_defs(cfg)`` must be present, and no other."""
+    dev = resolve_device(device)
+    defs = dict(S.iter_defs(transformer.model_defs(cfg)))
+    flat = {}
+    for path, d in defs.items():
+        try:
+            arr = S.tree_get(tree, path)
+        except (KeyError, TypeError):
+            raise ValueError(f"{cfg.name}: the tree has no {path!r}") \
+                from None
+        arr = np.array(arr, np.float32)
+        if arr.shape != d.shape:
+            raise ValueError(f"{path}: shape {arr.shape} != {d.shape}")
+        flat[path] = torch.from_numpy(arr).to(
+            device=dev, dtype=transformer.serving_dtype(cfg, d))
+    extra = {p for p, _ in _leaves(tree)} - set(defs)
+    if extra:
+        raise ValueError(f"{cfg.name}: paths not in the model: "
+                         f"{sorted(extra)}")
+    return transformer.Transformer(cfg, flat)
+
+
+def params_to_numpy(cfg: ModelConfig, params: transformer.Transformer
+                    ) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: the reference's tree, as
+    fp32 numpy arrays (exact for bf16 parameters), blocks stacked."""
+    state = dict(params.named_parameters())
+    tree: Dict[str, Any] = {}
+    for path, d in S.iter_defs(transformer.model_defs(cfg)):
+        if path.startswith("blocks/"):
+            t = torch.stack([state[transformer.port_name(path, i)]
+                             for i in range(cfg.num_layers)])
+        else:
+            t = state[transformer.port_name(path)]
+        S.tree_set(tree, path, t.detach().float().cpu().numpy())
+    return tree
+
+
+def _leaves(tree, prefix: str = ""):
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            yield from _leaves(val, path)
+        else:
+            yield path, val

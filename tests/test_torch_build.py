@@ -7,6 +7,7 @@ Tolerance: trees, labels, ids and rows exact; floats rtol=1e-5,
 atol=1e-5 (fp32 summation order, XLA vs torch's CPU GEMM).
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -207,3 +208,20 @@ def test_default_device_is_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             MQRLD(tt)
     assert MQRLD(tt, device="cpu").device.type == "cpu"
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """``build.SOURCES`` lists every CUDA source of the package (the six
+    TPU kernels' counterparts, in five files) and ``build.SIGNATURES``
+    binds a launch entry point for each."""
+    from repro_torch.kernels import build
+    on_disk = sorted(f[:-3] for f in os.listdir(build.CSRC)
+                     if f.endswith(".cu"))
+    assert sorted(build.SOURCES) == on_disk == sorted(build.SIGNATURES)
+    assert "flash_attention" in build.SOURCES
+    for name, fns in build.SIGNATURES.items():
+        assert any(fn.endswith("_launch") for fn in fns), name
+        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        for fn in fns:
+            assert re.search(r'extern "C" [\w ]+ ' + fn + r"\(", src), fn

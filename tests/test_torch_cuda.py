@@ -16,6 +16,13 @@ that covers it); for both, +inf exactly where invalid and no bound above
 the exact squared distance. ``lpgf_force``: quarter-integer points make
 every distance exact, so both sides take the same ring decisions; F
 within 1e-5 of its largest entry and W rtol 1e-5 (sum order).
+``flash_attention``: fp32 outputs within 2e-5 (rtol and atol, the
+reference's ``test_flash_sweep`` tolerance: summation order and the
+scale applied to q before the dot instead of to the scores after it);
+bf16 outputs within 2^-8 |b| + 2^-16 max|v| of b, the plain version's
+fp32 result on the same (widened) inputs: one rounding to bf16 plus fp32
+summation noise near zero. ``ServeEngine`` on the card at fp32 returns
+the CPU's tokens for the same weights.
 """
 import numpy as np
 import pytest
@@ -24,8 +31,11 @@ import torch
 from repro_torch.core import query as Q
 from repro_torch.core.lake import MMOTable
 from repro_torch.core.platform import MQRLD
-from repro_torch.kernels import build, fused_topk, lpgf_force, pairwise_l2
-from repro_torch.kernels import quant_lb2
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, flash_attention, fused_topk
+from repro_torch.kernels import lpgf_force, pairwise_l2, quant_lb2
+from repro_torch.models import params_from_numpy, params_to_numpy
+from repro_torch.serve.engine import GenRequest, ServeEngine
 from repro_torch.kernels import ref as tref
 from repro_torch.utils.quant import plan_tiles
 
@@ -296,3 +306,95 @@ def test_small_table_prepare_goes_through_lpgf_force(cuda):
     got, _ = p.session().plan(qs).execute()
     for q, g in zip(qs, got):
         np.testing.assert_array_equal(g, p.oracle(q))
+
+
+def _flash_inputs(b, s, h, hd, dtype, cuda, seed=0, strided=False):
+    rng = np.random.default_rng(seed)
+    shape = (b, s, 2 * h if strided else h, hd)
+    out = []
+    for i in range(3):
+        t = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        t = t.to(cuda).to(dtype)
+        out.append(t[:, :, ::2] if strided else t)   # strided heads
+    return out
+
+
+def assert_flash_close(got, q, k, v, causal, window):
+    """fp32: within 2e-5 of the plain version; bf16: within one rounding
+    to bf16 (2^-8 |b|) plus 2^-16 max|v| of the plain version's fp32
+    result on the widened inputs."""
+    if q.dtype == torch.float32:
+        want = tref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        return
+    want = tref.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal, window=window)
+    tol = 2.0 ** -8 * want.abs() + 2.0 ** -16 * float(v.float().abs().max())
+    err = (got.float() - want).abs()
+    assert got.dtype == q.dtype
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0), (False, 40)])
+def test_flash_kernel_matches_plain(cuda, hd, dtype, causal, window):
+    """Every instantiated head dim and type, each mask, at S = 200 (not a
+    multiple of the 64-row blocks: a ragged tail), with heads strided in
+    memory (a view that skips every other head)."""
+    q, k, v = _flash_inputs(2, 200, 3, hd, dtype, cuda, seed=hd,
+                            strided=True)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    assert_flash_close(got, q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1000])
+def test_flash_kernel_ragged_lengths(cuda, s):
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_inputs(1, s, 4, 64, dtype, cuda, seed=s)
+        got = flash_attention.flash_attention_cuda(q, k, v)
+        assert_flash_close(got, q, k, v, True, 0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bad_inputs(cuda):
+    q, k, v = _flash_inputs(1, 8, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_cuda(q[..., :48], k[..., :48],
+                                             v[..., :48])
+    with pytest.raises(ValueError, match="must match q"):
+        flash_attention.flash_attention_cuda(q, k[:, :4], v[:, :4])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+def test_serve_engine_generates_on_card(cuda):
+    """Reduced llama3-8b at fp32 on the card: the prefill goes through the
+    flash kernel, batched generation over mixed lengths equals
+    per-request generation, and the tokens equal the CPU's for the same
+    weights."""
+    from dataclasses import replace
+    cfg = replace(get_config("llama3-8b").reduced(), dtype="float32")
+    eng = ServeEngine(cfg, device=cuda, max_len=64, batch_size=4, seed=0)
+    cpu = ServeEngine(cfg, params_from_numpy(
+        cfg, params_to_numpy(cfg, eng.params), "cpu"), device="cpu",
+        max_len=64, batch_size=4)
+    rng = np.random.default_rng(7)
+    reqs = [GenRequest(rng.integers(1, 200, size=n).astype(np.int32), 6)
+            for n in (5, 40, 7, 40)]
+    before = flash_attention.launches
+    batched = eng.generate(reqs)
+    assert flash_attention.launches > before
+    on_cpu = cpu.generate(reqs)
+    for i, r in enumerate(reqs):
+        solo = eng.generate([r])[0]
+        np.testing.assert_array_equal(batched[i].tokens, solo.tokens)
+        np.testing.assert_array_equal(batched[i].tokens, on_cpu[i].tokens)
