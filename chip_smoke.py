@@ -7,7 +7,8 @@
 Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. build: every kernel compiled from ``src/repro_torch/csrc`` with nvcc
-   (one process per source, all started together);
+   (one process per source, all started together); ptxas must report no
+   spill in the wgmma flash kernel;
 2. kernels: each CUDA kernel of the retrieval paths against its plain
    PyTorch version on the card at the shapes its path gives it — ids
    exactly equal, squared distances within the fp32 dot-product error
@@ -34,12 +35,21 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 7. generation path: ``ServeEngine(llama3-8b)`` at full width and 32
    layers on prompts of 2048, 2048, 1000 and 1000 tokens, 16 new tokens
    each: the flash kernel held to its plain version on every layer of
-   every real prefill, the prefill against the dense forward, batched
-   against per-request generation; init, prefill and decode times and
-   the peak device memory (``drive_generation_path``);
-8. ``flash_attention`` against its plain version at the prefill's shape
-   (recorded by the hook of phase 7) and at ``FLASH_CASES``, timed beside
-   its plain version, ``scaled_dot_product_attention`` and its bound.
+   every real prefill, each of those launches on the wgmma kernel, the
+   prefill against the dense forward, batched against per-request
+   generation; init, prefill and decode times and the peak device memory
+   (``drive_generation_path``);
+8. fp32 generation path: ``ServeEngine`` on reduced llama3-8b in fp32
+   (the SIMT flash kernel's route: every fp32 input, and bf16 at hd 16
+   and 32; no full-size configuration serves those on the card) on
+   prompts of 1000, 1000, 300 and 40 tokens: every flash launch held to
+   its plain version and on the SIMT kernel, tokens equal to the CPU's;
+9. ``flash_attention`` against its plain version, each kernel at its
+   path's widest shape (the kernels JSON rows), at the prefill's shape
+   on both kernels (the SIMT one launched by name on the same bf16
+   inputs) and in fp32, and at ``FLASH_CASES`` (bf16 at hd 64 and 128
+   on both kernels), timed on the card and on the host beside its plain
+   version, ``scaled_dot_product_attention`` and its bound.
 
 Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding path runs none. The
@@ -51,10 +61,12 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -415,7 +427,9 @@ def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
     n = xt.shape[0]
     ms = time_ms(torch, lambda: lf.lpgf_force_cuda(xt, rt, gt), 5)
     plain = time_ms(torch, lambda: ref.lpgf_force(xt, rt, gt), 2)
-    lib = time_ms(torch, lambda: torch.cdist(
+    # torch.cdist computes phase 1's distances only, not the function:
+    # logged beside the kernel, no library time in the JSON row
+    cdist = time_ms(torch, lambda: torch.cdist(
         xt, xt, compute_mode="use_mm_for_euclid_dist"), 5)
     # the least work of the function: every squared distance once, N^2*D
     # operations with the Gram matrix's symmetry, and w @ x, 2*N^2*D (the
@@ -427,15 +441,34 @@ def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
         source="src/repro_torch/csrc/lpgf_force.cu",
         replaces="src/repro/kernels/lpgf_force.py:84",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib, shape=f"({n}, {dim}); also (1000, "
-        f"{dim})", library="torch.cdist (phase 1 only)")
+        bound_by=by, library_ms=None, shape=f"({n}, {dim}); also (1000, "
+        f"{dim})", library=f"none; torch.cdist, phase 1 only, {cdist:.4f} "
+        f"ms")
 
 
-# (B, S, H, hd), type, causal, window: flash_attention's further cases
-FLASH_CASES = (((1, 512, 4, 64), "float32", True, 0),
-               ((1, 512, 4, 64), "float32", True, 128),
-               ((1, 512, 4, 64), "float32", False, 0),
-               ((1, 1000, 16, 64), "bfloat16", True, 0))
+# (B, S, H, hd), type, causal, window, inputs: flash_attention's further
+# cases. bf16 at hd 64 and 128 takes the wgmma kernel, and those cases are
+# held on the SIMT kernel too (launched by name). Inputs (``_flash_inputs``):
+# "normal" Gaussian; "strided" views whose strides (hd + 4 elements) and
+# bases break TMA's 16-byte rule, so the wgmma route must take its
+# explicit contiguous copy; "cancel" rows whose output is near 0, where
+# one bf16 P would break the tolerance and only the P_hi + P_lo split
+# keeps it.
+FLASH_CASES = (((1, 512, 4, 64), "float32", True, 0, "normal"),
+               ((1, 512, 4, 64), "float32", True, 128, "normal"),
+               ((1, 512, 4, 64), "float32", False, 0, "normal"),
+               ((1, 1000, 16, 64), "bfloat16", True, 0, "normal"),
+               ((2, 1000, 32, 128), "bfloat16", True, 0, "normal"),
+               ((1, 1024, 32, 128), "bfloat16", True, 256, "normal"),
+               ((1, 512, 32, 128), "bfloat16", False, 0, "normal"),
+               ((1, 512, 8, 128), "bfloat16", True, 0, "strided"),
+               ((1, 512, 8, 64), "bfloat16", False, 0, "cancel"),
+               ((1, 512, 8, 128), "bfloat16", False, 0, "cancel"))
+# the JSON row of each route: (name, source)
+FLASH_ROWS = {"wgmma": ("flash_attention_wgmma",
+                        "src/repro_torch/csrc/flash_attention_wgmma.cu"),
+              "simt": ("flash_attention",
+                       "src/repro_torch/csrc/flash_attention.cu")}
 
 
 def _attn_pairs(s: int, causal: bool, window: int) -> int:
@@ -499,22 +532,70 @@ def flash_check(torch, ref, q, k, v, got, causal: bool, window: int,
     return bool((err <= tol).all()), float(err.max()), over
 
 
+def _flash_inputs(torch, shape, dt, dev, gen, inputs: str):
+    """q, k, v of ``shape`` and type ``dt`` on the card (see
+    ``FLASH_CASES``). "cancel" is tests/test_torch_flash.py's split case,
+    each row's c cycling through that test's 64 values: keys 0 and 1
+    share the weight (neither normalised weight representable in bf16),
+    every other key has weight 0, and their values in column 0 (1 and
+    -1.5) nearly cancel. Non-causal only."""
+    b, s, h, hd = shape
+    if inputs == "cancel":
+        c = 1.0 + 2.0 ** -7 * (torch.arange(s, device=dev) % 64 - 32)
+        q = torch.zeros(shape, device=dev)
+        q[..., 0] = c[None, :, None]
+        k = torch.zeros(shape, device=dev)
+        k[:, 0, :, 0] = 3.25 * math.sqrt(hd) / 8
+        k[:, 2:, :, 0] = -1e4
+        v = torch.rand(shape, generator=gen, device=dev) * 3 - 1.5
+        v[:, 0, :, 0], v[:, 1, :, 0] = 1.0, -1.5
+        return tuple(t.to(dt) for t in (q, k, v))
+    pad = 4 if inputs == "strided" else 0
+    return tuple(torch.randn((b, s, h, hd + pad), generator=gen,
+                             device=dev).to(dt)[..., pad:]
+                 for _ in range(3))
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host time of one call of ``fn`` (the wrapper's checks and
+    copies, the tensor maps, the launch), the card idle before each."""
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
 def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
-                window: int):
-    """``flash_attention`` at ``shape`` on Gaussian inputs against its
-    plain version (``flash_check``), timed beside the plain version and,
-    where it computes the same function (no window),
+                window: int, inputs: str = "normal", kernel=None):
+    """``flash_attention`` at ``shape`` against its plain version
+    (``flash_check``), through ``fa.flash_attention_cuda`` (the route
+    ``fa.route`` gives the inputs) or, when ``kernel`` is named, on that
+    kernel (``fa._launch``, to compare the two at one shape); timed on
+    the card and on the host, beside the plain version and, where it
+    computes the same function (no window),
     ``scaled_dot_product_attention``."""
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-               for _ in range(3))
-    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    b, s, h, hd = shape
+    q, k, v = _flash_inputs(torch, shape, dt, dev, gen, inputs)
+    route = kernel or fa.route(dt, hd)
+    if kernel is None:
+        def call():
+            return fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+    else:
+        def call():
+            return fa._launch(q, k, v, causal, window, kernel)
+    before = fa.launches_by_route[route]
+    got = call()
+    routed = fa.launches_by_route[route] == before + 1
     ok, err, _ = flash_check(torch, ref, q, k, v, got, causal, window)
     del got
-
-    def kernel():
-        return fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    ms = time_ms(torch, kernel, 10)
+    ms = time_ms(torch, call, 10)
+    host = host_ms(torch, call, 10)
     plain = time_ms(torch, lambda: ref.flash_attention(
         q, k, v, causal=causal, window=window), 3)
     lib = None
@@ -523,21 +604,25 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
         lib = time_ms(torch, lambda: torch.nn.functional.
                       scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=causal), 10)
-    b, s, h, hd = shape
     # the pairs the mask leaves open, two products of hd each (scores and
     # weights times V), at the peak for the inputs' type; q, k, v read and
-    # the output written once
-    bms, by = bound_ms(4.0 * hd * b * h * _attn_pairs(s, causal, window),
-                       4.0 * b * s * h * hd * q.element_size(),
+    # the output written once. The wgmma kernel does 1.5x these
+    # operations (P.V twice, for P's two bf16 halves); the bound counts
+    # the function's.
+    ops = 4.0 * hd * b * h * _attn_pairs(s, causal, window)
+    bms, by = bound_ms(ops, 4.0 * b * s * h * hd * q.element_size(),
                        PEAK_OPS["bf16" if dt == torch.bfloat16 else "fp32"])
     mask = ("causal" if causal else "non-causal") + (
-        f", window {window}" if window else "")
-    return ok, dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        f", window {window}" if window else "") + {
+        "normal": "", "strided": ", strided (hd + 4), copied",
+        "cancel": ", values that cancel"}[inputs]
+    name, source = FLASH_ROWS[route]
+    return ok and routed, dict(
+        name=name, route="cuda", source=source,
         replaces="src/repro/kernels/flash_attention.py:70",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib, shape=f"{shape} {dtype} {mask}",
+        library_ms=lib, shape=f"{shape} {dtype} {mask}, {route} kernel",
+        tflops=ops / ms / 1e9, host_ms=host,
         library="scaled_dot_product_attention" if lib is not None
         else "none (no window in one call)")
 
@@ -646,18 +731,21 @@ def oracle_mismatches(p, batch, res):
 
 
 def _counters(kmods):
-    """The launch counts of every kernel wrapper, by kernel name."""
+    """The launch counts of every kernel wrapper, by kernel name (the two
+    flash kernels by route: ``flash_attention`` is the SIMT one)."""
     pw, ft, qk, lf, fa = kmods
     return {"pairwise_sq_l2": pw.launches, "topk_l2": ft.topk_l2_launches,
             "topk_l2_masked": ft.topk_l2_masked_launches,
             "quant_lb2": qk.launches, "lpgf_force": lf.launches,
-            "flash_attention": fa.launches}
+            "flash_attention_wgmma": fa.launches_by_route["wgmma"],
+            "flash_attention": fa.launches_by_route["simt"]}
 
 
 def _reset(kmods):
     pw, ft, qk, lf, fa = kmods
     pw.launches = ft.topk_l2_launches = ft.topk_l2_masked_launches = 0
-    qk.launches = lf.launches = fa.launches = 0
+    qk.launches = lf.launches = 0
+    fa.reset_launches()
 
 
 # ------------------------------------------------------------ model paths
@@ -759,6 +847,30 @@ def _trace(torch, fn, steps: int):
               e.count / steps) for e in top])
 
 
+@contextlib.contextmanager
+def held_flash(torch, fa, ref, route: str, score_err: bool):
+    """Inside the block every call of ``fa.flash_attention_cuda`` is held
+    to the plain version (``flash_check``) and must launch the ``route``
+    kernel. Yields the list it fills, one (shape, type, ok, max |error|,
+    entries over the tolerance without the scores' term, routed) per
+    call."""
+    checks, launch = [], fa.flash_attention_cuda
+
+    def checked(q, k, v, *, causal=True, window=0):
+        before = fa.launches_by_route[route]
+        out = launch(q, k, v, causal=causal, window=window)
+        routed = fa.launches_by_route[route] == before + 1
+        ok, err, over = flash_check(torch, ref, q, k, v, out, causal,
+                                    window, score_err=score_err)
+        checks.append((tuple(q.shape), str(q.dtype), ok, err, over, routed))
+        return out
+    fa.flash_attention_cuda = checked
+    try:
+        yield checks
+    finally:
+        fa.flash_attention_cuda = launch
+
+
 def _first_divergence(a, b):
     import numpy as np
     d = np.flatnonzero(np.asarray(a) != np.asarray(b))
@@ -772,7 +884,8 @@ def drive_generation_path(args, dev, fa, ref):
 
     Run 1 holds the flash kernel, on every layer of each real prefill, to
     its plain version (a hook on ``flash_attention_cuda``; tolerance
-    ``flash_check`` with the scores' term) and records every step's
+    ``flash_check`` with the scores' term), requires each of those 64
+    launches to have taken the wgmma kernel, and records every step's
     logits. Run 2 is timed (host clock, each batch's prefill and decode
     ending in a synchronize), with the peak device memory. Then each
     request alone (check 3: the batched tokens equal them, or the step
@@ -806,23 +919,17 @@ def drive_generation_path(args, dev, fa, ref):
     buckets = [[i for i, n in enumerate(lens) if n == m]
                for m in sorted(set(lens))]       # generate's batch order
 
-    # run 1: the kernel on every layer's (q, k, v); every step's logits
-    checks, logits = [], []
-    launch, greedy = fa.flash_attention_cuda, eng._greedy
-
-    def checked(q, k, v, *, causal=True, window=0):
-        out = launch(q, k, v, causal=causal, window=window)
-        ok, err, over = flash_check(torch, ref, q, k, v, out, causal,
-                                    window, score_err=True)
-        checks.append((tuple(q.shape), str(q.dtype), ok, err, over))
-        return out
-    fa.flash_attention_cuda = checked
+    # run 1: the kernel on every layer's (q, k, v), each launch on the
+    # wgmma route; every step's logits
+    logits, greedy = [], eng._greedy
     eng._greedy = lambda lg: logits.append(lg.float().cpu()) or greedy(lg)
     try:
-        first = eng.generate(reqs)
+        with held_flash(torch, fa, ref, "wgmma", True) as checks:
+            first = eng.generate(reqs)
     finally:
-        fa.flash_attention_cuda, eng._greedy = launch, greedy
+        eng._greedy = greedy
     info["flash_checked_launches"] = len(checks)
+    info["flash_wgmma_launches"] = sum(c[5] for c in checks)
     info["flash_failed"] = sum(not c[2] for c in checks)
     info["flash_max_abs_err"] = max(c[3] for c in checks)
     info["flash_over_bf16_tol_without_score_term"] = sum(c[4]
@@ -914,9 +1021,54 @@ def drive_generation_path(args, dev, fa, ref):
     info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
         eng.params, {"tokens": big}, eng.max_len), 1)
     tokens_ok = all(r.tokens.shape == (max_new,) for r in first)
-    ok = info["flash_failed"] == 0 and ok2 and ok3 and tokens_ok
+    # every layer of both real prefills, each through the wgmma kernel
+    routed = info["flash_wgmma_launches"] == len(checks) == \
+        len(buckets) * cfg.num_layers
+    ok = info["flash_failed"] == 0 and routed and ok2 and ok3 and tokens_ok
     del eng
     return ok, info
+
+
+def drive_fp32_generation_path(args, dev, fa, ref):
+    """The SIMT flash kernel's serving path: ``ServeEngine`` on reduced
+    llama3-8b in fp32 (every fp32 input takes the SIMT route), 4 requests
+    with prompts of 1000, 1000, 300 and 40 tokens and 6 new tokens each.
+    Every flash launch is held to the plain version (``flash_check``, fp32
+    tolerance) and must take the SIMT kernel, and the tokens must equal
+    those of the same weights on the CPU (fp32 on both sides; the reduced
+    model is not chaotic). Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              dtype="float32")
+    eng = ServeEngine(cfg, device=dev, max_len=1024, batch_size=4,
+                      seed=args.seed)
+    cpu = ServeEngine(cfg, params_from_numpy(
+        cfg, params_to_numpy(cfg, eng.params), "cpu"), device="cpu",
+        max_len=1024, batch_size=4)
+    rng = np.random.default_rng(args.seed + 7)
+    reqs = [GenRequest(rng.integers(1, cfg.vocab_size, size=n)
+                       .astype(np.int32), 6) for n in (1000, 1000, 300, 40)]
+    with held_flash(torch, fa, ref, "simt", False) as checks:
+        card = eng.generate(reqs)
+    host = cpu.generate(reqs)
+    equal = [bool(np.array_equal(a.tokens, b.tokens))
+             for a, b in zip(card, host)]
+    ok = bool(checks) and all(c[2] and c[5] for c in checks) and all(equal)
+    return ok, dict(
+        num_layers=cfg.num_layers, head_dim=cfg.head_dim,
+        flash_checked_launches=len(checks),
+        flash_simt_launches=sum(c[5] for c in checks),
+        flash_failed=sum(not c[2] for c in checks),
+        flash_max_abs_err=max((c[3] for c in checks), default=None),
+        flash_shape=max(checks, key=lambda c: math.prod(c[0]))[:2]
+        if checks else None, tokens_equal_cpu=equal)
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -925,7 +1077,10 @@ def log_kernel(label: str, ok: bool, row: dict) -> None:
         f"plain_ms={row['plain_ms']:.4f} "
         f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
         f"({row['library']}) "
-        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        + (f"{row['tflops']:.1f} TFLOP/s of the function's operations, "
+           f"host {row['host_ms']:.4f} ms per call "
+           if "tflops" in row else "")
+        + f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
         f"max_abs_err={row['max_abs_err']:.3g}"
         + (f" violations of lb2 <= exact d2: {row['violations']}; "
            f"kernel alone {row['kernel_ms']:.4f} ms, query quantization "
@@ -980,8 +1135,16 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 log(f"  {name}: {line.strip()}")
+    # the wgmma kernel is built for both head dims with no spill
+    spills = [int(n) for n in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)",
+        logs["flash_attention_wgmma"])]
+    log(f"flash_attention_wgmma: ptxas spill bytes {spills} (stores and "
+        f"loads, hd 64 and 128)")
+    if len(spills) != 4 or any(spills):
+        return fail(f"flash_attention_wgmma: ptxas reports spills {spills}")
 
     # -------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
@@ -1202,29 +1365,62 @@ def main() -> int:
     log("launches on the generation path: " + json.dumps(gen_launches))
     if not ok:
         return fail(f"generation path: {gen_info}")
-    if gen_launches["flash_attention"] <= 0:
-        return fail(f"flash_attention never launched on the generation "
-                    f"path: {gen_launches}")
+    if gen_launches["flash_attention_wgmma"] <= 0 or \
+            gen_launches["flash_attention"] != 0:
+        return fail(f"the generation path's flash launches did not all take "
+                    f"the wgmma kernel: {gen_launches}")
 
-    # flash_attention at the prefill's shape, then its further cases
+    # ------------------------------------------ fp32 generation path
+    _reset(kmods)
+    ok, f32_info = drive_fp32_generation_path(args, dev, flash_attention,
+                                              ref)
+    f32_launches = _counters(kmods)
+    torch.cuda.empty_cache()
+    log("fp32 generation path (reduced llama3-8b, prompts 1000, 1000, 300, "
+        "40): " + json.dumps(f32_info))
+    log("launches on the fp32 generation path: " + json.dumps(f32_launches))
+    if not ok:
+        return fail(f"fp32 generation path: {f32_info}")
+    if f32_launches["flash_attention"] <= 0 or \
+            f32_launches["flash_attention_wgmma"] != 0:
+        return fail(f"the fp32 generation path's flash launches did not all "
+                    f"take the SIMT kernel: {f32_launches}")
+
+    # flash_attention at each path's widest shape on the kernel of its
+    # route: the two kernels' rows. Then at the prefill's shape the SIMT
+    # kernel on the same bf16 inputs (launched by name) and in fp32, and
+    # the further cases; bf16 at hd 64 and 128 on both kernels
     shape, dtype = gen_info["flash_shape"]
-    for i, (shp, dt, causal, window) in enumerate(
-            ((shape, dtype.replace("torch.", ""), True, 0),) + FLASH_CASES):
+    f32_shape = f32_info["flash_shape"][0]
+    dtype = dtype.replace("torch.", "")
+    cases = [(shape, dtype, True, 0, "normal", None),
+             (f32_shape, "float32", True, 0, "normal", None),
+             (shape, dtype, True, 0, "normal", "simt"),
+             (shape, "float32", True, 0, "normal", None)]
+    for shp, dt, causal, window, inputs in FLASH_CASES:
+        cases.append((shp, dt, causal, window, inputs, None))
+        if flash_attention.route(getattr(torch, dt), shp[3]) == "wgmma":
+            cases.append((shp, dt, causal, window, inputs, "simt"))
+    labels = (" on the generation path's shape",
+              " on the fp32 generation path's shape",
+              " at the prefill's shape", " at the prefill's shape")
+    for i, (shp, dt, causal, window, inputs, kern) in enumerate(cases):
         ok, row = check_flash(torch, flash_attention, ref, dev, gen, shp, dt,
-                              causal, window)
+                              causal, window, inputs, kern)
         torch.cuda.synchronize()
-        log_kernel("flash_attention" + (" at the prefill's shape" if i == 0
-                                        else ""), ok, row)
+        log_kernel(row["name"] + (labels[i] if i < len(labels) else ""),
+                   ok, row)
         if not ok:
-            return fail(f"kernel flash_attention disagrees with its plain "
+            return fail(f"kernel {row['name']} disagrees with its plain "
                         f"version at {row['shape']}")
-        if i == 0:
+        if i < 2:       # each kernel's row, at its own path's shape
             kernels.append(row)
         torch.cuda.empty_cache()
 
     launches = {**path_launches, "quant_lb2": mp_launches["quant_lb2"],
                 "lpgf_force": small_launches["lpgf_force"],
-                "flash_attention": gen_launches["flash_attention"]}
+                "flash_attention_wgmma": gen_launches["flash_attention_wgmma"],
+                "flash_attention": f32_launches["flash_attention"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(json.dumps({"kernels": [

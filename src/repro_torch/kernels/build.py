@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("pairwise_l2", "fused_topk", "quant_lb2", "lpgf_force",
-           "flash_attention")
+           "flash_attention", "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _F, _L, _L, _L, _L, _L, _L, _L, _L,
                                     _L, _P], _I),
+    },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma_launch": ([_P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _F, _L, _L, _L, _L, _L,
+                                          _L, _L, _L, _L, _P], _I),
     },
 }
 
@@ -118,19 +123,21 @@ def _load(name: str, so: str) -> ctypes.CDLL:
 
 def build_all() -> Dict[str, str]:
     """Build every kernel library, one nvcc per source, all started
-    together, and load them. Returns {name: compiler output} (ptxas
-    register/shared-memory report; empty for a library already built)."""
+    together, and load them. Returns {name: compiler output} (the ptxas
+    report of registers, shared memory and spills, kept beside each
+    library when it was built)."""
     with _lock:
         jobs = [_start(n) for n in SOURCES if n not in _libs]
-        logs = {}
         for name, so, job in jobs:
             _finish(name, so, job)
             _load(name, so)
-            logs[name] = ""
-            if job is not None:
-                with open(f"{so}.log") as f:
-                    logs[name] = f.read()
-        return logs
+    logs = {}
+    for name in SOURCES:
+        logs[name] = ""
+        if os.path.exists(f"{_target(name)}.log"):
+            with open(f"{_target(name)}.log") as f:
+                logs[name] = f.read()
+    return logs
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -212,13 +212,17 @@ def test_default_device_is_the_card():
 
 def test_every_kernel_source_is_built_and_bound():
     """``build.SOURCES`` lists every CUDA source of the package (the six
-    TPU kernels' counterparts, in five files) and ``build.SIGNATURES``
-    binds a launch entry point for each."""
+    TPU kernels' counterparts in five files, and the wgmma flash kernel
+    beside the SIMT one) and ``build.SIGNATURES`` binds a launch entry
+    point for each."""
     from repro_torch.kernels import build
     on_disk = sorted(f[:-3] for f in os.listdir(build.CSRC)
                      if f.endswith(".cu"))
     assert sorted(build.SOURCES) == on_disk == sorted(build.SIGNATURES)
     assert "flash_attention" in build.SOURCES
+    assert "flash_attention_wgmma" in build.SOURCES
+    assert "flash_attention_wgmma_launch" in \
+        build.SIGNATURES["flash_attention_wgmma"]
     for name, fns in build.SIGNATURES.items():
         assert any(fn.endswith("_launch") for fn in fns), name
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:

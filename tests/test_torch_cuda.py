@@ -16,7 +16,8 @@ that covers it); for both, +inf exactly where invalid and no bound above
 the exact squared distance. ``lpgf_force``: quarter-integer points make
 every distance exact, so both sides take the same ring decisions; F
 within 1e-5 of its largest entry and W rtol 1e-5 (sum order).
-``flash_attention``: fp32 outputs within 2e-5 (rtol and atol, the
+``flash_attention`` (both routes, the SIMT kernel and the wgmma one):
+fp32 outputs within 2e-5 (rtol and atol, the
 reference's ``test_flash_sweep`` tolerance: summation order and the
 scale applied to q before the dot instead of to the scores after it);
 bf16 outputs within 2^-8 |b| + 2^-16 max|v| of b, the plain version's
@@ -335,32 +336,98 @@ def assert_flash_close(got, q, k, v, causal, window):
     assert bool((err <= tol).all()), float((err - tol).max())
 
 
+# (route, type, head dims): each kernel at every head dim it takes
+FLASH_ROUTES = [("simt", torch.float32, (16, 32, 64, 128)),
+                ("simt", torch.bfloat16, (16, 32)),
+                ("wgmma", torch.bfloat16, (64, 128))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,dtype,hd", [
+    (r, dt, hd) for r, dt, hds in FLASH_ROUTES for hd in hds])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
                                            (False, 0), (False, 40)])
-def test_flash_kernel_matches_plain(cuda, hd, dtype, causal, window):
-    """Every instantiated head dim and type, each mask, at S = 200 (not a
-    multiple of the 64-row blocks: a ragged tail), with heads strided in
-    memory (a view that skips every other head)."""
+def test_flash_kernel_matches_plain(cuda, route, dtype, hd, causal, window):
+    """Each route at every head dim and type it takes, each mask, at
+    S = 200 (not a multiple of the 64- or 128-row blocks: a ragged tail),
+    with heads strided in memory (a view that skips every other head)."""
+    assert flash_attention.route(dtype, hd) == route
     q, k, v = _flash_inputs(2, 200, 3, hd, dtype, cuda, seed=hd,
                             strided=True)
     before = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
                                                window=window)
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_route[route] == by_route[route] + 1
     assert got.shape == q.shape and got.is_contiguous()
     assert_flash_close(got, q, k, v, causal, window)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype,hd", [
+    ("simt", torch.float32, 64), ("simt", torch.bfloat16, 32),
+    ("wgmma", torch.bfloat16, 64), ("wgmma", torch.bfloat16, 128)])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 1000])
-def test_flash_kernel_ragged_lengths(cuda, s):
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _flash_inputs(1, s, 4, 64, dtype, cuda, seed=s)
-        got = flash_attention.flash_attention_cuda(q, k, v)
+def test_flash_kernel_ragged_lengths(cuda, route, dtype, hd, s):
+    assert flash_attention.route(dtype, hd) == route
+    for causal, window in ((True, 0), (True, 100), (False, 0)):
+        q, k, v = _flash_inputs(1, s, 4, hd, dtype, cuda, seed=s)
+        got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                   window=window)
+        assert_flash_close(got, q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+def test_flash_routes_agree_at_the_prefill_width(cuda):
+    """bf16 at hd 128, S = 300: the SIMT kernel, launched by name, and
+    the wgmma kernel both hold the plain version's tolerance; a strided
+    view whose strides are 4- but not 8-element aligned takes the
+    explicit copy on the wgmma route."""
+    q, k, v = _flash_inputs(1, 300, 4, 128, torch.bfloat16, cuda, seed=5)
+    for kernel in ("simt", "wgmma"):
+        got = flash_attention._launch(q, k, v, True, 0, kernel)
         assert_flash_close(got, q, k, v, True, 0)
+    wide = [torch.zeros((1, 300, 4, 132), dtype=torch.bfloat16,
+                        device=cuda) for _ in range(3)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., 4:].copy_(t)
+    views = [w[..., 4:] for w in wide]     # strides 132: 4-, not 8-aligned
+    got = flash_attention.flash_attention_cuda(*views)
+    assert_flash_close(got, q, k, v, True, 0)
+
+
+def _cancel_inputs(hd, cuda, s=64, h=2):
+    """tests/test_torch_flash.py's split case: keys 0 and 1 share the
+    weight (p = 1 and p = exp(-c 3.25 / 8), c near 1: neither normalised
+    weight representable in bf16), every other key has weight 0, and
+    their values in column 0 (1 and -1.5) nearly cancel."""
+    c = 1.0 + 2.0 ** -7 * np.arange(-s // 2, s // 2)
+    q = np.zeros((1, s, h, hd), np.float32)
+    q[0, :, :, 0] = c[:, None]
+    k = np.zeros((1, s, h, hd), np.float32)
+    k[0, 0, :, 0] = 3.25 * np.sqrt(hd) / 8
+    k[0, 2:, :, 0] = -1e4
+    v = np.random.default_rng(hd).uniform(-1.5, 1.5, (1, s, h, hd))
+    v = v.astype(np.float32)
+    v[0, 0, :, 0], v[0, 1, :, 0] = 1.0, -1.5
+    return [torch.from_numpy(x).to(cuda).bfloat16() for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_wgmma_split_holds_where_values_cancel(cuda, hd):
+    """Outputs near 0 where two keys' values cancel: one bf16 P would err
+    there by up to 2^-8 p |v|, far above the bf16 tolerance; the wgmma
+    kernel's P_hi + P_lo products must keep it."""
+    q, k, v = _cancel_inputs(hd, cuda)
+    want = tref.flash_attention(q.float(), k.float(), v.float(),
+                                causal=False)
+    assert int((want[..., 0].abs() < 0.01).sum()) >= 4
+    before = flash_attention.launches_by_route["wgmma"]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    assert flash_attention.launches_by_route["wgmma"] == before + 1
+    assert_flash_close(got, q, k, v, False, 0)
 
 
 @pytest.mark.cuda
@@ -373,6 +440,8 @@ def test_flash_kernel_rejects_bad_inputs(cuda):
         flash_attention.flash_attention_cuda(q, k[:, :4], v[:, :4])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="no 'wgmma' kernel"):
+        flash_attention._launch(q, k, v, True, 0, "wgmma")
 
 
 @pytest.mark.cuda

@@ -4,15 +4,20 @@
 interpret mode and its plain version, on the same numpy inputs; the
 dispatch of a CUDA tensor to the kernel; the attention layers
 (``attention_dense``, ``attention_stream``'s chunk loop, ``expand_kv``)
-against the reference's. The CUDA kernel itself is held
-to the plain version on the card by tests/test_torch_cuda.py and
+against the reference's; a numeric model of the wgmma kernel's
+arithmetic (unscaled bf16 Q.K^T in fp32, the fp32 scale, the online
+softmax over 128-key tiles, P split into two bf16 products) against
+both, and the case that shows the split is needed; which kernel a CUDA
+call routes to, with the library faked. The CUDA kernels themselves are
+held to the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 
 Tolerance: fp32 rtol=2e-5, atol=2e-5, the reference's ``test_flash_sweep``
 tolerance (summation order; the TPU kernel scales q before the dot, the
 plain versions divide the scores after it). bf16: within one rounding to
 bf16 (2^-8 |b|) plus 2^-16 max|v| of the reference's fp32 result on the
-same inputs. Attention layers: rtol=1e-5, atol=1e-5 (fp32 sum order).
+same inputs (``flash_check``'s tolerance in chip_smoke.py). Attention
+layers: rtol=1e-5, atol=1e-5 (fp32 sum order).
 """
 import dataclasses
 
@@ -107,6 +112,114 @@ def test_cpu_dispatch_launches_nothing():
     assert flash_attention.launches == before
 
 
+def _bf16_tol(exact, v):
+    """``flash_check``'s bf16 tolerance around the fp32 result ``exact``:
+    one rounding to bf16 plus 2^-16 max|v|."""
+    return 2.0 ** -8 * np.abs(exact) + 2.0 ** -16 * float(np.abs(v).max())
+
+
+def _wgmma_model(q, k, v, *, causal=True, window=0, bk=128, split=True):
+    """The wgmma kernel's arithmetic in plain torch, for bf16 q, k, v
+    (B, S, H, hd): per 128-key tile, S = q.k^T of the unscaled bf16
+    inputs summed in fp32, times fp32(1/sqrt(hd)); masked scores -1e30,
+    positions past S -inf; fp32 online softmax (m, l = sum of the fp32
+    p); O = O * corr + P_hi.V + P_lo.V with P_hi = bf16(p), P_lo =
+    bf16(p - P_hi) (``split=False``: P_hi alone), each product of bf16
+    operands exact and summed in fp32; out = O / max(l, 1e-30) as bf16.
+    """
+    b, s, h, hd = q.shape
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    pos = torch.arange(s)
+    m = torch.full((b, h, s, 1), -torch.inf)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    for k0 in range(0, s, bk):
+        kp = pos[k0:k0 + bk]
+        sc = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * scale
+        keep = torch.ones((s, len(kp)), dtype=torch.bool)
+        if causal:
+            keep &= kp[None, :] <= pos[:, None]
+        if window:
+            keep &= kp[None, :] > pos[:, None] - window
+        sc = torch.where(keep, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + bk]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        acc = acc * corr + pv
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [200, 256])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 50),
+                                           (False, 0)])
+def test_wgmma_model_matches_pallas_and_ref(hd, s, causal, window):
+    """The wgmma kernel's arithmetic (``_wgmma_model``) and the Pallas
+    kernel in interpret mode, on the same bf16 inputs, each within the
+    bf16 tolerance of the reference's fp32 result on the widened inputs.
+    S = 200 leaves a ragged last tile (the kernel's rows past S are zero
+    and masked)."""
+    q, k, v = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16), np.float32)
+               for x in _qkv((1, s, 2, hd), seed=s + hd + window))
+    exact = np.asarray(jref.flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    blk = 40 if s % 64 else 64
+    pallas = np.asarray(flash_attention_pallas(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=causal, window=window, bq=blk, bk=blk, interpret=True),
+        np.float32)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    model = _wgmma_model(tq, tk, tv, causal=causal, window=window)
+    plain = tref.flash_attention(tq.float(), tk.float(), tv.float(),
+                                 causal=causal, window=window)
+    np.testing.assert_allclose(plain.numpy(), exact, rtol=RTOL, atol=ATOL)
+    tol = _bf16_tol(exact, v)
+    assert model.dtype == torch.bfloat16
+    assert (np.abs(model.float().numpy() - exact) <= tol).all()
+    assert (np.abs(pallas - exact) <= tol).all()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_split_is_needed_where_values_cancel(hd):
+    """Rows where two keys share the weight, p = 1 and p = exp(-c 3.25 /
+    sqrt(hd)) for c near 1 (neither normalised weight representable in
+    bf16), and their values (1 and -1.5 in column 0) nearly cancel, so
+    the output there is near 0: one bf16 P errs by up to 2^-8 p |v|,
+    far above the tolerance 2^-8 |out| + 2^-16 max|v|; the P_hi + P_lo
+    split stays inside it."""
+    s, h = 64, 2
+    c = 1.0 + 2.0 ** -7 * np.arange(-s // 2, s // 2)  # bf16-exact, near 1
+    q = np.zeros((1, s, h, hd), np.float32)
+    q[0, :, :, 0] = c[:, None]
+    k = np.zeros((1, s, h, hd), np.float32)
+    k[0, 0, :, 0] = 3.25 * np.sqrt(hd) / 8      # score 3.25 c / 8
+    k[0, 2:, :, 0] = -1e4                        # weight exactly 0
+    v = np.random.default_rng(hd).uniform(-1.5, 1.5, (1, s, h, hd))
+    v = v.astype(np.float32)
+    v[0, 0, :, 0], v[0, 1, :, 0] = 1.0, -1.5
+    q, k, v = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16), np.float32)
+               for x in (q, k, v))
+    exact = np.asarray(jref.flash_attention(q, k, v, causal=False))
+    tol = _bf16_tol(exact, v)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    near0 = np.abs(exact[..., 0]) < 0.01
+    assert near0.sum() >= 4
+    split = _wgmma_model(tq, tk, tv, causal=False).float().numpy()
+    assert (np.abs(split - exact) <= tol).all()
+    unsplit = _wgmma_model(tq, tk, tv, causal=False,
+                           split=False).float().numpy()
+    over = np.abs(unsplit - exact) > tol
+    assert over[..., 0][near0].any()
+
+
 class _CudaTensor:
     """Stands in for a CUDA tensor where there is no card."""
     device = torch.device("cuda")
@@ -130,6 +243,128 @@ def test_cuda_tensor_reaches_the_kernel(monkeypatch):
     assert ops.flash_attention(t, t, t, causal=False, window=3) is t
     assert TL.attention_stream(t, t, t, causal=True) is t
     assert seen == [(t, False, 3), (t, True, 0)]
+
+
+class _FakeLibrary:
+    """Both flash kernels' C entry points, recording each launch."""
+
+    def __init__(self):
+        self.calls, self.err = [], 0
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(("simt", args))
+        return self.err
+
+    def flash_attention_wgmma_launch(self, *args):
+        self.calls.append(("wgmma", args))
+        return self.err
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``flash_attention_cuda`` on CPU tensors with the kernel libraries
+    faked: the wrapper's checks, copies and routing run as on the card,
+    the launch only records its route and arguments."""
+    lib, built = _FakeLibrary(), []
+    monkeypatch.setattr(flash_attention, "_cuda_device", lambda q: q.device)
+    monkeypatch.setattr(flash_attention.build, "library",
+                        lambda name: built.append(name) or lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(flash_attention, "launches_by_route",
+                        {"wgmma": 0, "simt": 0})
+    lib.built = built
+    return lib
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_cuda_call_routes_by_type_and_head_dim(fake_card, dtype, hd, want):
+    """bf16 at hd 64 and 128 launches the wgmma kernel, every fp32 input
+    and bf16 at hd 16 and 32 the SIMT kernel; one launch, counted in the
+    total and under its route."""
+    q = torch.zeros((1, 8, 2, hd), dtype=dtype)
+    before = flash_attention.launches
+    out = flash_attention.flash_attention_cuda(q, q, q, causal=False,
+                                               window=3)
+    assert flash_attention.route(dtype, hd) == want
+    assert [c[0] for c in fake_card.calls] == [want]
+    assert fake_card.built == [{"wgmma": "flash_attention_wgmma",
+                                "simt": "flash_attention"}[want]]
+    assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_route == {
+        "wgmma": int(want == "wgmma"), "simt": int(want == "simt")}
+    assert out.shape == q.shape and out.dtype == dtype
+    args = fake_card.calls[0][1]
+    assert args[4:8] == (1, 8, 2, hd)      # B, S, H, hd after the pointers
+
+
+@pytest.mark.parametrize("err", [1, 9000, 10001])
+def test_failing_wgmma_launch_raises(fake_card, err):
+    """A launch error of the wgmma kernel (a CUDA error, no tensor-map
+    encoder in the driver, a refused tensor map) raises: the SIMT kernel
+    and the plain version never run in its place, and nothing is
+    counted."""
+    fake_card.err = err
+    q = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match=f"error {err}"):
+        flash_attention.flash_attention_cuda(q, q, q)
+    assert [c[0] for c in fake_card.calls] == ["wgmma"]
+    assert flash_attention.launches == before
+    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+
+
+def test_failing_wgmma_build_raises(fake_card, monkeypatch):
+    """A build failure of the wgmma library raises too; no other library
+    is asked for."""
+    asked = []
+
+    def broken(name):
+        asked.append(name)
+        raise RuntimeError("nvcc failed for csrc/flash_attention_wgmma.cu")
+    monkeypatch.setattr(flash_attention.build, "library", broken)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        flash_attention.flash_attention_cuda(q, q, q)
+    assert asked == ["flash_attention_wgmma"]
+
+
+def test_kernel_named_by_the_caller(fake_card):
+    """``_launch`` with ``"simt"`` launches the SIMT kernel on a bf16
+    hd-128 input (to compare the kernels at one shape); ``"wgmma"``
+    takes only the inputs its route takes; the public wrapper has no
+    such option."""
+    q = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    flash_attention._launch(q, q, q, True, 0, "simt")
+    assert [c[0] for c in fake_card.calls] == ["simt"]
+    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 1}
+    with pytest.raises(ValueError, match="no 'wgmma' kernel"):
+        flash_attention._launch(q.float(), q.float(), q.float(), True, 0,
+                                "wgmma")
+    with pytest.raises(ValueError, match="no 'tiled' kernel"):
+        flash_attention._launch(q, q, q, True, 0, "tiled")
+    with pytest.raises(TypeError, match="kernel"):
+        flash_attention.flash_attention_cuda(q, q, q, kernel="simt")
+
+
+def test_wgmma_route_copies_strides_tma_cannot_read(fake_card):
+    """Heads strided by 132 elements (4-, not 8-element aligned): the
+    SIMT kernel reads the view in place, the wgmma route (TMA needs
+    16-byte strides) is handed an explicit contiguous copy."""
+    wide = torch.zeros((1, 8, 2, 132), dtype=torch.bfloat16)
+    wide = wide.as_strided((1, 8, 2, 128), (8 * 2 * 132, 2 * 132, 132, 1))
+    flash_attention._launch(wide, wide, wide, True, 0, "simt")
+    flash_attention.flash_attention_cuda(wide, wide, wide)
+    (r0, simt), (r1, wgmma) = fake_card.calls
+    assert (r0, r1) == ("simt", "wgmma")
+    assert simt[0] == wide.data_ptr()
+    assert simt[-10:-1] == (8 * 2 * 132, 2 * 132, 132) * 3
+    assert wgmma[0] != wide.data_ptr()
+    assert wgmma[-10:-1] == (8 * 2 * 128, 2 * 128, 128) * 3
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
