@@ -8,13 +8,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. build: every kernel compiled from ``src/repro_torch/csrc`` with nvcc
    (one process per source, all started together); ptxas must report no
-   spill in the wgmma flash kernel;
+   spill in the wgmma flash kernel, nor in the kernels of the shared
+   distance tile (``pairwise_sq_l2``, both ``topk_l2`` routes, the split
+   merge);
 2. kernels: each CUDA kernel of the retrieval paths against its plain
    PyTorch version on the card at the shapes its path gives it — ids
    exactly equal, squared distances within the fp32 dot-product error
-   bound, ``quant_lb2``'s bounds never above the exact distance — and
-   timed beside its plain version, a PyTorch library yardstick and its
-   roofline bound;
+   bound, self-distances exactly 0 on the whole Gaussian table,
+   ``topk_l2`` bit-equal to ``stable_topk`` of ``pairwise_sq_l2``'s
+   distances on both of its routes, ``quant_lb2``'s bounds never above
+   the exact distance — and timed beside its plain version, a PyTorch
+   library yardstick and its roofline bound;
 3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
    then timed) and one batch of V.K queries at k = 300 and 1000, every
@@ -99,6 +103,23 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_spills(report: str) -> dict:
+    """{kernel: spill bytes, stores and loads} from a ``ptxas -v`` report,
+    by the mangled name of each entry function."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return out
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (after one warm
     call), from CUDA events."""
@@ -115,6 +136,22 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------- kernels
+def _pairwise_call(torch, pw, ref, x, mc: int):
+    """Time ``pairwise_sq_l2`` at (mc, rows, dim), the first mc rows of x
+    against all of them, beside its plain version, ``torch.cdist`` and
+    its bound."""
+    rows, dim = x.shape
+    qc = x[:mc].contiguous()
+    return dict(
+        shape=f"({mc}, {rows}, {dim})",
+        ms=time_ms(torch, lambda: pw.pairwise_sq_l2_cuda(qc, x), 3),
+        plain_ms=time_ms(torch, lambda: ref.pairwise_sq_l2(qc, x), 3),
+        library_ms=time_ms(torch, lambda: torch.cdist(
+            qc, x, compute_mode="use_mm_for_euclid_dist"), 3),
+        bound_ms=bound_ms(2.0 * mc * rows * dim,
+                          4.0 * (mc * dim + rows * dim + mc * rows))[0])
+
+
 def check_pairwise(torch, pw, ref, lpgf, dev, gen, rows: int, dim: int):
     m = 4096      # DPC's rho/delta row blocks: the largest call on the path
     x = torch.randn((rows, dim), generator=gen, device=dev)
@@ -127,7 +164,16 @@ def check_pairwise(torch, pw, ref, lpgf, dev, gen, rows: int, dim: int):
     err = (got - want).abs()
     ok = bool((err <= 4 * dim * U32 * scale + 1e-6).all())
     max_err = float(err.max())
+    # self-distances exactly 0: the first m rows against the table, then
+    # every row of the table against itself, 4096 rows a call
+    self_zero = bool((got.diagonal() == 0).all())
     del got, want, scale, err
+    for i in range(0, rows, m):
+        xb = x[i:i + m].contiguous()
+        self_zero &= bool((pw.pairwise_sq_l2_cuda(xb, xb).diagonal() == 0)
+                          .all())
+    log(f"pairwise_sq_l2: self-distances exactly 0 on all {rows} Gaussian "
+        f"rows: {self_zero}")
     # integer grid: every sum exact in fp32, so the two must be equal
     gq = torch.randint(-3, 4, (256, dim), generator=gen, device=dev).float()
     gp = torch.randint(-3, 4, (rows, dim), generator=gen, device=dev).float()
@@ -138,76 +184,92 @@ def check_pairwise(torch, pw, ref, lpgf, dev, gen, rows: int, dim: int):
     ragged = bool(torch.allclose(small, ref.pairwise_sq_l2(q[:17, :5],
                                                            x[:33, :5]),
                                  rtol=1e-5, atol=1e-5))
-    ms = time_ms(torch, lambda: pw.pairwise_sq_l2_cuda(q, x), 3)
-    plain = time_ms(torch, lambda: ref.pairwise_sq_l2(q, x), 3)
-    lib = time_ms(torch, lambda: torch.cdist(
-        q, x, compute_mode="use_mm_for_euclid_dist"), 3)
+    row = _pairwise_call(torch, pw, ref, x, m)
     bms, by = bound_ms(2.0 * m * rows * dim,
                        4.0 * (m * dim + rows * dim + m * rows))
-    # LPGF's call: one row chunk of a 4096-row tile against every point
-    mc = lpgf._ROW_CHUNK
-    qc = x[:mc].contiguous()
-    chunk = dict(
-        shape=f"({mc}, {rows}, {dim})",
-        ms=time_ms(torch, lambda: pw.pairwise_sq_l2_cuda(qc, x), 3),
-        plain_ms=time_ms(torch, lambda: ref.pairwise_sq_l2(qc, x), 3),
-        library_ms=time_ms(torch, lambda: torch.cdist(
-            qc, x, compute_mode="use_mm_for_euclid_dist"), 3),
-        bound_ms=bound_ms(2.0 * mc * rows * dim,
-                          4.0 * (mc * dim + rows * dim + mc * rows))[0])
-    return (ok and exact and ragged), dict(
+    return (ok and exact and ragged and self_zero), dict(
         name="pairwise_sq_l2", route="cuda",
         source="src/repro_torch/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/pairwise_l2.py:42",
-        max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib,
-        shape=f"({m}, {rows}, {dim})",
-        library="torch.cdist (L2, not squared)", lpgf_chunk=chunk)
+        max_abs_err=max_err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=bms, bound_by=by, library_ms=row["library_ms"],
+        shape=row["shape"], library="torch.cdist (L2, not squared)",
+        # LPGF's call (one row chunk of a 4096-row tile against every
+        # point) and the dense V.R mask's (a 256-query batch)
+        lpgf_chunk=_pairwise_call(torch, pw, ref, x, lpgf._ROW_CHUNK),
+        vr_dense=_pairwise_call(torch, pw, ref, x, 256))
 
 
-def _plain_topk(torch, ref, q, x, k):
-    """The plain version over 2048-row blocks (as ops.topk_l2_blocked)."""
-    outs = [ref.topk_l2(q[i:i + 2048], x, k)
-            for i in range(0, q.shape[0], 2048)]
-    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
-
-
-def check_topk_l2(torch, ft, ref, dev, gen, rows: int, dim: int):
-    m, k = 4096, 2   # lpgf.mean_nn_distance: 4096 sampled rows, k=2
+def check_topk_l2(torch, ft, pw, ref, build, dev, gen, rows: int, dim: int):
+    """``topk_l2`` at the path's launch, (2048, rows, dim) with k = 2
+    (``lpgf.mean_nn_distance`` through ``ops.topk_l2_blocked``, launched
+    twice on the fp32 path), on its register route; the rank-merge route
+    at k = 17, 256, 300 and 1000; both against the plain version."""
+    m, k = 2048, 2
     # integer grid with the queries inside the point set: exact distances
     # and many exact ties, which the lower index must win
     gp = torch.randint(-3, 4, (rows, dim), generator=gen, device=dev).float()
     idx = torch.randperm(rows, generator=gen, device=dev)[:m]
     gq = gp[idx].contiguous()
-    ok = True
-    # k above the old 256 limit: 1000 takes the global-scratch buffers
+    grid_ok = True
     for mm, kk in ((m, k), (512, 256), (256, 300), (128, 1000)):
         gd, gi = ft.topk_l2_cuda(gq[:mm].contiguous(), gp, kk)
-        wd, wi = _plain_topk(torch, ref, gq[:mm], gp, kk)
-        ok &= torch.equal(gi, wi) and torch.equal(gd, wd)
+        wd, wi = ref.topk_l2(gq[:mm], gp, kk)
+        grid_ok &= torch.equal(gi, wi) and torch.equal(gd, wd)
+    # each of 8 query rows copied into every N split: exact ties across
+    # splits, which the lower index must win in any merge order
+    for kk in (2, 300):
+        splits = build.library("fused_topk").topk_l2_splits(
+            m, rows, kk, int(ft.route(kk) == "reg"))
+        for j in range(8):
+            for b, e in ft.split_bounds(rows, splits):
+                gp[min(e - 1, b + 11 + j)] = gq[j]
+        gd, gi = ft.topk_l2_cuda(gq, gp, kk)
+        wd, wi = ref.topk_l2(gq, gp, kk)
+        grid_ok &= torch.equal(gi, wi) and torch.equal(gd, wd)
+        log(f"topk_l2: ties across {splits} splits at k={kk}: "
+            f"{torch.equal(gi, wi)}")
     del gp, gq
-    # gaussian: distances within the fp32 error bound of the expansion
+    # gaussian: ids and distances equal stable_topk of the pairwise
+    # kernel's distances bit for bit (one tile), distances within the
+    # fp32 error bound of the plain version's; both routes at k = 2
     x = torch.randn((rows, dim), generator=gen, device=dev)
     q = x[idx].contiguous()
-    gd, _ = ft.topk_l2_cuda(q, x, k)
-    wd, _ = _plain_topk(torch, ref, q, x, k)
+    same = True
+    for mm, kk in ((m, 1), (m, 2), (512, 17), (512, 256), (256, 300),
+                   (128, 1000)):
+        qm = q[:mm].contiguous()
+        gd, gi = ft.topk_l2_cuda(qm, x, kk)
+        wd, wi = ref.stable_topk(pw.pairwise_sq_l2_cuda(qm, x), kk)
+        same &= torch.equal(gi, wi) and torch.equal(gd, wd)
+    md, mi = ft._launch(q, x, k, "merge")
+    gd, gi = ft.topk_l2_cuda(q, x, k)
+    routes = torch.equal(md, gd) and torch.equal(mi, gi)
+    self_first = bool((gi[:, 0] == idx).all())
+    wd, _ = ref.topk_l2(q, x, k)
     scale = (q * q).sum(1)[:, None] + (x * x).sum(1).max()
     err = (gd - wd).abs()
-    ok &= bool((err <= 4 * dim * U32 * scale + 1e-6).all())
+    bounded = bool((err <= 4 * dim * U32 * scale + 1e-6).all())
+    log(f"topk_l2: integer grid equal to the plain version {grid_ok}; "
+        f"Gaussian equal to stable_topk(pairwise_sq_l2_cuda) bit for bit "
+        f"at k = 1, 2, 17, 256, 300, 1000: {same}; register and rank-merge "
+        f"routes equal at k=2: {routes}; each query's first hit itself: "
+        f"{self_first}; within the fp32 bound of the plain version: "
+        f"{bounded}")
     ms = time_ms(torch, lambda: ft.topk_l2_cuda(q, x, k), 3)
-    plain = time_ms(torch, lambda: _plain_topk(torch, ref, q, x, k), 2)
-    lib = time_ms(torch, lambda: [torch.topk(torch.cdist(
-        q[i:i + 2048], x, compute_mode="use_mm_for_euclid_dist"), k,
-        largest=False) for i in range(0, m, 2048)], 2)
+    plain = time_ms(torch, lambda: ref.topk_l2(q, x, k), 2)
+    lib = time_ms(torch, lambda: torch.topk(torch.cdist(
+        q, x, compute_mode="use_mm_for_euclid_dist"), k, largest=False), 2)
+    merge_ms = time_ms(torch, lambda: ft._launch(q, x, k, "merge"), 2)
     bms, by = bound_ms(2.0 * m * rows * dim,
                        4.0 * (m * dim + rows * dim) + 12.0 * m * k)
-    return ok, dict(
+    return (grid_ok and same and routes and self_first and bounded), dict(
         name="topk_l2", route="cuda",
         source="src/repro_torch/csrc/fused_topk.cu",
         replaces="src/repro/kernels/fused_topk.py:83",
         max_abs_err=float(err.max()), ms=ms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=lib, shape=f"({m}, {rows}, {dim}), k={k}",
-        library="torch.cdist + torch.topk")
+        library="torch.cdist + torch.topk", merge_route_ms=merge_ms)
 
 
 def check_topk_masked(torch, ft, ref, dev, gen, dim: int, k: int):
@@ -743,8 +805,8 @@ def _counters(kmods):
 
 def _reset(kmods):
     pw, ft, qk, lf, fa = kmods
-    pw.launches = ft.topk_l2_launches = ft.topk_l2_masked_launches = 0
-    qk.launches = lf.launches = 0
+    pw.launches = qk.launches = lf.launches = 0
+    ft.reset_launches()
     fa.reset_launches()
 
 
@@ -1093,6 +1155,11 @@ def log_kernel(label: str, ok: bool, row: dict) -> None:
     if "lpgf_chunk" in row:
         log(f"kernel {label} at LPGF's chunk: "
             + json.dumps(row["lpgf_chunk"]))
+        log(f"kernel {label} at the dense V.R mask's batch: "
+            + json.dumps(row["vr_dense"]))
+    if "merge_route_ms" in row:
+        log(f"kernel {label}: the rank-merge route at the same shape "
+            f"{row['merge_route_ms']:.4f} ms")
 
 
 def main() -> int:
@@ -1145,6 +1212,16 @@ def main() -> int:
         f"loads, hd 64 and 128)")
     if len(spills) != 4 or any(spills):
         return fail(f"flash_attention_wgmma: ptxas reports spills {spills}")
+    # the shared distance tile's kernels: pairwise_sq_l2, both topk_l2
+    # routes and the split merge, none spilling
+    tile = {f: b for lib in ("pairwise_l2", "fused_topk")
+            for f, b in ptxas_spills(logs[lib]).items()
+            if re.search(r"pairwise_sq_l2_kernel|topk_l2_split_kernel|"
+                         r"topk_merge_kernel", f)}
+    log(f"distance-tile kernels: ptxas spill bytes {sorted(tile.values())} "
+        f"({len(tile)} kernels)")
+    if len(tile) != 4 or any(tile.values()):
+        return fail(f"distance-tile kernels: ptxas reports spills {tile}")
 
     # -------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
@@ -1157,7 +1234,8 @@ def main() -> int:
                 torch, pairwise_l2, ref, lpgf, dev, gen, args.rows,
                 args.dim)),
             ("topk_l2", lambda: check_topk_l2(
-                torch, fused_topk, ref, dev, gen, args.rows, args.dim)),
+                torch, fused_topk, pairwise_l2, ref, build, dev, gen,
+                args.rows, args.dim)),
             ("topk_l2_masked", lambda: check_topk_masked(
                 torch, fused_topk, ref, dev, gen, args.dim, k_scan)),
             ("quant_lb2 int8", lambda: check_quant_lb2(
@@ -1206,6 +1284,8 @@ def main() -> int:
     log(f"k = 300 / 1000 batch (16 V.K, first run): {t_big:.3f} s, "
         f"knn_exact_fallbacks {big_stats.knn_exact_fallbacks}")
     log("launches on the fp32 path: " + json.dumps(fp32_launches))
+    log("topk_l2 launches by route on the fp32 path: "
+        + json.dumps(fused_topk.topk_l2_launches_by_route))
     path_launches = {n: fp32_launches[n] for n in
                      ("pairwise_sq_l2", "topk_l2", "topk_l2_masked")}
     if min(path_launches.values()) <= 0:

@@ -39,6 +39,9 @@ from repro_torch.core.transform import (HyperspaceTransform, init_transform,
                                         perturb)
 from repro_torch.utils.quant import PRECISIONS
 
+# engines kept by ``MQRLD.engine()``, as in the reference
+MAX_ENGINES = 4
+
 
 @dataclass
 class LeafMeta:
@@ -204,20 +207,30 @@ class MQRLD:
         """The device-resident batched executor (built lazily, one per
         (beam, tile, precision), invalidated by ``prepare``).
         ``device_loop`` sets the engine's default beam loop only when
-        passed explicitly; ``precision`` as in ``_resolve_precision``."""
+        passed explicitly; ``precision`` as in ``_resolve_precision``.
+
+        At most ``MAX_ENGINES`` are kept, least recently used first out
+        (the reference's bound): each engine holds device copies of the
+        whole table's tiles, and a precision's planes besides, so a
+        process sweeping configurations must not keep one per
+        configuration it ever touched. An evicted engine is derived
+        state; asking for it again rebuilds it."""
         if self.tree is None:
             raise RuntimeError("call prepare() first")
         from repro_torch.core.engine import HybridEngine
         prec = self._resolve_precision(precision)
         key = (beam, tile, prec)
-        eng = self._engines.get(key)
+        eng = self._engines.pop(key, None)
         if eng is None:
-            eng = self._engines[key] = HybridEngine(
+            while len(self._engines) >= MAX_ENGINES:
+                self._engines.pop(next(iter(self._engines)))
+            eng = HybridEngine(
                 self.tree, self.table, self.meta, beam=beam, tile=tile,
                 device_loop=True if device_loop is None else device_loop,
                 device=self.device, precision=prec)
         elif device_loop is not None:
             eng.device_loop = device_loop
+        self._engines[key] = eng      # (re-)inserted last: LRU order
         return eng
 
     def session(self, *, device_loop: bool = True, beam: int = 16,

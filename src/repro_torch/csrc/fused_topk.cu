@@ -18,13 +18,14 @@
 // its own list plus its rank in the other, and slots >= K fall off. A
 // chunk with no key below the running kth skips the merge.
 //
-// Any K: the running buffer and its merge target (2K keys per query) live
-// in dynamic shared memory, opted in above 48 KB, while they fit beside
-// the chunk keys; above that K they live in a global-memory scratch that
-// the wrapper allocates (*_scratch_bytes says how much, 0 when shared
-// memory holds them). The code is the same either way: B and T are
-// generic pointers, and __syncthreads orders global writes within the
-// block as it does shared ones.
+// topk_l2_masked at any K: the running buffer and its merge target (2K
+// keys per query) live in dynamic shared memory, opted in above 48 KB,
+// while they fit beside the chunk keys; above that K they live in a
+// global-memory scratch that the wrapper allocates
+// (topk_l2_masked_scratch_bytes says how much, 0 when shared memory holds
+// them). The code is the same either way: B and T are generic pointers,
+// and __syncthreads orders global writes within the block as it does
+// shared ones.
 //
 // Bounds on this card:
 //   * topk_l2_masked reads G*C*D*4 bytes of candidates for G*C*D*2
@@ -33,13 +34,16 @@
 //     candidate rows (lanes stride D, so loads are coalesced) and masked
 //     candidates are never read. Chunks of 256 candidates.
 //   * topk_l2 does 2*M*N*D operations on (M + N)*D floats: operation-
-//     bound. A block of 16 queries shares every staged 64-point chunk
-//     (sliced along D through shared memory), so the point set is read
-//     M/16 times instead of M times; the main path calls it with M=4096
-//     sampled queries against all N=200k rows (LPGF's mean NN distance).
+//     bound, on the SIMT fp32 pipe. It forms its distances with the tile
+//     pairwise_sq_l2 uses (l2_tile.cuh), bit for bit the same, and splits
+//     N across blocks so that the card is full at the path's shape: LPGF's
+//     mean NN distance, 2048 sampled rows against all N=200k rows, k=2
+//     (see the "shared" section below).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stddef.h>
+
+#include "l2_tile.cuh"
 
 namespace {
 
@@ -208,102 +212,200 @@ topk_l2_masked_kernel(const float* __restrict__ q, const float* __restrict__ p,
 }
 
 // ---------------------------------------------------------------- shared
-constexpr int QB = 16;   // queries per block
-constexpr int PC = 64;   // points per staged chunk
-constexpr int BK = 32;   // D slice per stage
+// topk_l2 in two kernels: topk_l2_split_kernel walks, for one 128-row tile
+// of q, the column tiles of one split of p through the shared distance
+// tile (l2_tile.cuh) and leaves that split's k best keys per row in a
+// partial buffer (M, splits, K); topk_merge_kernel then merges each row's
+// splits. The grid (row tiles, splits) fills the card where the row tiles
+// alone would not: at (2048, 200k, 512) 16 row tiles x 8 splits.
+//
+// Two routes, chosen by the wrapper from K alone:
+//   * registers (K <= kRegK): each thread keeps, for each of its 8 rows, the
+//     kRegK best keys over its own columns, sorted, in registers; after the
+//     walk the 16 threads that share a row pool theirs in shared memory and
+//     one of them keeps the row's best;
+//   * rank merge (any K): each tile's keys go to shared memory, 16 rows at a
+//     time, and 16 threads per row rank-merge them (merge_chunk) into the
+//     row's sorted running buffer, which lives in the partial buffer itself
+//     (its merge target in a second global buffer); a tile with no key below
+//     the running kth skips the merge.
+// Keys are pack_key's (distance bits, index), unique per column, so "ties
+// keep the lower index" holds in any split order and any merge order.
+constexpr int kRegK = 2;
+constexpr int kSLD = l2tile::BN + 8;   // shared key row stride (u64)
+constexpr int kPassRows = 16;          // rows a merge pass
+constexpr int kGroup = l2tile::THREADS / kPassRows;   // threads a row
+constexpr size_t kMergeSmem =
+    l2tile::SMEM_BYTES + (size_t)kPassRows * kSLD * sizeof(u64);
 
-__global__ void __launch_bounds__(256)
-topk_l2_kernel(const float* __restrict__ q, const float* __restrict__ p,
-               float* __restrict__ outd, long long* __restrict__ outi,
-               u64* scratch, int M, int N, int D, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* S = reinterpret_cast<u64*>(smem);  // QB * PC
-  // QB * K running keys + QB * K merge output: shared memory after the
-  // chunk keys, or this block's slice of the scratch
-  u64* B = scratch ? scratch + (size_t)blockIdx.x * 2 * QB * K : S + QB * PC;
-  u64* T = B + QB * K;
-  __shared__ float Qs[QB][BK + 1];
-  __shared__ float Ps[PC][BK + 1];
-  __shared__ float qqs[QB];
-  __shared__ float pps[PC];
-
-  const int tid = threadIdx.x;
-  const int qi = tid / 16;     // this thread's query within the block
-  const int l16 = tid % 16;    // lane within the query's 16-thread group
-  const int m0 = blockIdx.x * QB;
-  const int gm = m0 + qi;
-
-  {
-    float s = 0.f;
-    if (gm < M) {
-      const float* row = q + (size_t)gm * D;
-      for (int d = l16; d < D; d += 16) s = fmaf(row[d], row[d], s);
-    }
+// Insert `key` into the sorted list `b` (the largest key falls off).
+template <int KR>
+__device__ __forceinline__ void insert_key(u64 (&b)[KR], u64 key) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (l16 == 0) qqs[qi] = s;
+  for (int r = 0; r < KR; ++r) {
+    const u64 lo = key < b[r] ? key : b[r];
+    key = key < b[r] ? b[r] : key;
+    b[r] = lo;
   }
-  for (int i = tid; i < QB * K; i += 256) B[i] = empty_key(i % K);
-  __syncthreads();
+}
 
-  for (int n0 = 0; n0 < N; n0 += PC) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float pn = 0.f;
-    for (int k0 = 0; k0 < D; k0 += BK) {
+// The first column tile of split s when T column tiles are cut into S
+// splits: split s takes tiles [s * T / S, (s + 1) * T / S).
+__device__ __forceinline__ int split_tile(int s, int tiles, int splits) {
+  return (int)((long long)s * tiles / splits);
+}
+
+template <bool REG>
+__global__ void __launch_bounds__(l2tile::THREADS, 1)
+topk_l2_split_kernel(const float* __restrict__ q, const float* __restrict__ p,
+                     u64* part, u64* tmp, int M, int N, int D, int K,
+                     int vec) {
+  using namespace l2tile;
+  extern __shared__ __align__(16) float tile_smem[];
+  const int splits = gridDim.y, s = blockIdx.y;
+  const int m0 = blockIdx.x * BM;
+  const int tiles = (N + BN - 1) / BN;
+  const int c0 = split_tile(s, tiles, splits);
+  const int ntiles = split_tile(s + 1, tiles, splits) - c0;
+  auto tile = [&](int t, int& a, int& b) {
+    a = m0;
+    b = (c0 + t) * BN;
+  };
+  // row m's partial for this split: its running buffer on the merge route
+  auto row_part = [&](int m) { return part + ((size_t)m * splits + s) * K; };
+  const Lane L0 = lane_of(threadIdx.x);
+
+  if constexpr (REG) {
+    u64 best[TM][kRegK];
 #pragma unroll
-      for (int i = 0; i < (QB * BK) / 256; ++i) {
-        const int e = tid + i * 256;
-        const int r = e / BK, c = e % BK;
-        const int m = m0 + r, k = k0 + c;
-        Qs[r][c] = (m < M && k < D) ? q[(size_t)m * D + k] : 0.f;
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int r = 0; r < kRegK; ++r) best[i][r] = ~0ull;
+    auto keep = [&](int t, float (&acc)[TM][TN], const float* qn,
+                    const float* pn, const Lane& L) {
+      const int n0 = (c0 + t) * BN;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float qv = qn[L.row(i)];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int n = n0 + L.col(j);
+          const u64 key =
+              pack_key(sq_dist(qv, pn[L.col(j)], acc[i][j]), (unsigned)n);
+          if (n < N && key < best[i][kRegK - 1]) insert_key(best[i], key);
+        }
       }
+    };
+    walk(q, p, M, N, D, vec != 0, ntiles, tile, keep, tile_smem);
+    // pool the 16 lists of each row, then keep the row's best kRegK
+    __syncthreads();
+    u64* pool = reinterpret_cast<u64*>(tile_smem);    // [BM][16][kRegK]
 #pragma unroll
-      for (int i = 0; i < (PC * BK) / 256; ++i) {
-        const int e = tid + i * 256;
-        const int r = e / BK, c = e % BK;
-        const int n = n0 + r, k = k0 + c;
-        Ps[r][c] = (n < N && k < D) ? p[(size_t)n * D + k] : 0.f;
-      }
-      __syncthreads();
-      if (tid < PC) {
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int c = 0; c < BK; ++c) pn = fmaf(Ps[tid][c], Ps[tid][c], pn);
-      }
+      for (int r = 0; r < kRegK; ++r)
+        pool[(L0.row(i) * 16 + L0.row_slot()) * kRegK + r] = best[i][r];
+    __syncthreads();
+    if (L0.tid < BM && m0 + L0.tid < M) {
+      u64 top[kRegK];
 #pragma unroll
-      for (int c = 0; c < BK; ++c) {
-        const float a = Qs[qi][c];
+      for (int r = 0; r < kRegK; ++r) top[r] = ~0ull;
+      const u64* row = pool + L0.tid * 16 * kRegK;
+      for (int e = 0; e < 16 * kRegK; ++e)
+        if (row[e] < top[kRegK - 1]) insert_key(top, row[e]);
+      u64* dst = row_part(m0 + L0.tid);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r] = fmaf(a, Ps[l16 + 16 * r][c], acc[r]);
-      }
-      __syncthreads();
+      for (int r = 0; r < kRegK; ++r)
+        if (r < K) dst[r] = top[r];
     }
-    if (tid < PC) pps[tid] = pn;
-    __syncthreads();
-    u64* Sq = S + qi * PC;
-    u64* Bq = B + qi * K;
-    int hit = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = l16 + 16 * r;
-      const int n = n0 + j;
-      u64 key;
-      if (n < N && gm < M)
-        key = pack_key((qqs[qi] + pps[j]) - 2.f * acc[r], (unsigned)n);
-      else
-        key = inf_key((unsigned)n);
-      Sq[j] = key;
-      hit |= key < Bq[K - 1];
+  } else {
+    u64* S = reinterpret_cast<u64*>(tile_smem + SMEM_BYTES / sizeof(float));
+    for (int r = 0; r < BM && m0 + r < M; ++r) {
+      u64* b = row_part(m0 + r);
+      for (int i = threadIdx.x; i < K; i += THREADS) b[i] = empty_key(i);
     }
-    if (!__syncthreads_or(hit)) continue;
-    merge_chunk(Sq, PC, Bq, T + qi * K, K, l16, 16);
     __syncthreads();
-    for (int i = l16; i < K; i += 16) Bq[i] = T[qi * K + i];
-    __syncthreads();
+    auto merge = [&](int t, float (&acc)[TM][TN], const float* qn,
+                     const float* pn, const Lane& L) {
+      const int n0 = (c0 + t) * BN;
+      const int g = L.tid / kGroup, gl = L.tid % kGroup;
+      // pass h takes rows [16h, 16h + 16): warp row wm = h / 2, and of
+      // each thread's rows wm*32 + ty + 4i those with i / 4 == h % 2
+#pragma unroll
+      for (int h = 0; h < BM / kPassRows; ++h) {
+        if (L.wm == h / 2) {
+#pragma unroll
+          for (int i = 4 * (h % 2); i < 4 * (h % 2) + 4; ++i) {
+            const float qv = qn[L.row(i)];
+            u64* srow = S + (L.row(i) - h * kPassRows) * kSLD;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+              const int n = n0 + L.col(j);
+              srow[L.col(j)] =
+                  n < N ? pack_key(sq_dist(qv, pn[L.col(j)], acc[i][j]),
+                                   (unsigned)n)
+                        : inf_key((unsigned)n);
+            }
+          }
+        }
+        __syncthreads();
+        const int m = m0 + h * kPassRows + g;
+        const u64* srow = S + g * kSLD;
+        u64* b = m < M ? row_part(m) : nullptr;
+        const u64 kth = b ? b[K - 1] : 0ull;
+        int hit = 0;
+        for (int c = gl; c < BN; c += kGroup) hit |= srow[c] < kth;
+#pragma unroll
+        for (int o = 1; o < kGroup; o <<= 1)
+          hit |= __shfl_xor_sync(0xffffffffu, hit, o);
+        u64* tb = b ? tmp + ((size_t)m * splits + s) * K : nullptr;
+        if (hit) merge_chunk(srow, BN, b, tb, K, gl, kGroup);
+        __syncwarp();
+        if (hit)
+          for (int i = gl; i < K; i += kGroup) b[i] = tb[i];
+        __syncthreads();
+      }
+    };
+    walk(q, p, M, N, D, vec != 0, ntiles, tile, merge, tile_smem);
   }
-  if (gm < M)
-    write_out(B + qi * K, K, outd + (size_t)gm * K, outi + (size_t)gm * K,
-              l16, 16);
+}
+
+// Row m's splits (each sorted, K keys) -> its K best, ascending. A real
+// key's output slot is its place in its own split plus, in every other
+// split, the keys below it: each column lies in one split, so real keys
+// are unique and the slots a permutation. Padding keys (empty slots, and
+// columns past N) sort after every real key and K <= N real keys exist, so
+// none can take a slot below K; they are skipped.
+__global__ void topk_merge_kernel(const u64* __restrict__ part,
+                                  float* __restrict__ outd,
+                                  long long* __restrict__ outi, int splits,
+                                  int K) {
+  const int m = blockIdx.x;
+  const u64* rowp = part + (size_t)m * splits * K;
+  const long long total = (long long)splits * K;
+  for (long long e = threadIdx.x; e < total; e += blockDim.x) {
+    const u64 key = rowp[e];
+    if ((unsigned)(key >> 32) >= (unsigned)kInfHi) continue;
+    const int s = (int)(e / K);
+    long long slot = e - (long long)s * K;
+    for (int t = 0; t < splits && slot < K; ++t) {
+      if (t == s) continue;
+      slot += lower_bound(rowp + (size_t)t * K, K, key);
+    }
+    if (slot < K) {
+      outd[(size_t)m * K + slot] = key_dist(key);
+      outi[(size_t)m * K + slot] = (long long)(unsigned)(key & 0xFFFFFFFFull);
+    }
+  }
+}
+
+template <bool REG>
+int split_occupancy() {
+  int occ = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, topk_l2_split_kernel<REG>, l2tile::THREADS,
+      REG ? l2tile::SMEM_BYTES : kMergeSmem);
+  return occ > 0 ? occ : 1;
 }
 
 // Dynamic shared memory the kernel may take beside its static arrays.
@@ -322,10 +424,6 @@ size_t masked_base_smem(int D) {
 }
 
 size_t masked_buffer_bytes(int K) { return (size_t)2 * K * sizeof(u64); }
-
-size_t shared_base_smem() { return (size_t)QB * PC * sizeof(u64); }
-
-size_t shared_buffer_bytes(int K) { return (size_t)2 * QB * K * sizeof(u64); }
 
 int launch_error(cudaError_t set) {
   const cudaError_t err = cudaGetLastError();
@@ -361,25 +459,75 @@ extern "C" int topk_l2_masked_launch(const float* q, const float* p,
   return launch_error(set);
 }
 
-// Bytes of global scratch topk_l2_launch needs for M queries at this K: 0
-// while the running buffers fit in shared memory.
-extern "C" long long topk_l2_scratch_bytes(int M, int K) {
-  const size_t smem = shared_base_smem() + shared_buffer_bytes(K);
-  if (smem <= (size_t)dyn_smem_limit((const void*)topk_l2_kernel)) return 0;
-  return (long long)((M + QB - 1) / QB) * (long long)shared_buffer_bytes(K);
+// The number of N splits topk_l2_launch uses for M queries over N points
+// at this K on one route (reg = K <= topk_l2_reg_k()): as many as fill the
+// card's block slots beside the row tiles, at most one a column tile, and
+// on the rank-merge route at most one per 4K points (each split fills a
+// K-key buffer, and the split merge's work grows with splits^2 * K).
+extern "C" int topk_l2_splits(int M, int N, int K, int reg) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int slots = sms * (reg ? split_occupancy<true>()
+                               : split_occupancy<false>());
+  const int rows = (M + l2tile::BM - 1) / l2tile::BM;
+  const int tiles = (N + l2tile::BN - 1) / l2tile::BN;
+  int splits = slots / rows;
+  if (!reg) {
+    const long long cap = (long long)N / (4ll * K);
+    if (splits > cap) splits = (int)cap;
+  }
+  if (splits > tiles) splits = tiles;
+  return splits > 1 ? splits : 1;
 }
 
-// q (M, D), p (N, D); outd (M, K) fp32, outi (M, K) int64; 1 <= K <= N;
-// scratch: NULL, or topk_l2_scratch_bytes(M, K) bytes. Returns
-// cudaGetLastError().
-extern "C" int topk_l2_launch(const float* q, const float* p, float* outd,
-                              long long* outi, void* scratch, int M, int N,
-                              int D, int K, void* stream) {
-  const size_t smem =
-      shared_base_smem() + (scratch ? 0 : shared_buffer_bytes(K));
-  const cudaError_t set = cudaFuncSetAttribute(
-      topk_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  topk_l2_kernel<<<(M + QB - 1) / QB, 256, smem, (cudaStream_t)stream>>>(
-      q, p, outd, outi, (u64*)scratch, M, N, D, K);
+// The largest K the register route takes.
+extern "C" int topk_l2_reg_k() { return kRegK; }
+
+// Bytes of global scratch topk_l2_launch needs: the (M, splits, K) partial
+// keys, and on the rank-merge route their merge target beside them.
+extern "C" long long topk_l2_scratch_bytes(int M, int K, int splits,
+                                           int reg) {
+  return (long long)(reg ? 1 : 2) * M * splits * K * (long long)sizeof(u64);
+}
+
+// q (M, D), p (N, D) fp32; 1 <= K <= N (K <= topk_l2_reg_k() when reg);
+// scratch: topk_l2_scratch_bytes(M, K, splits, reg) bytes. Leaves each
+// row's best K keys of every split in the scratch, for
+// topk_l2_merge_launch. Returns cudaGetLastError().
+extern "C" int topk_l2_launch(const float* q, const float* p, void* scratch,
+                              int M, int N, int D, int K, int splits,
+                              int reg, void* stream) {
+  if (reg && K > kRegK) return (int)cudaErrorInvalidValue;
+  u64* part = (u64*)scratch;
+  u64* tmp = reg ? nullptr : part + (size_t)M * splits * K;
+  const dim3 grid((M + l2tile::BM - 1) / l2tile::BM, splits);
+  const int vec = (int)l2tile::vec_ok(q, p, D);
+  cudaError_t set;
+  if (reg) {
+    set = cudaFuncSetAttribute(topk_l2_split_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)l2tile::SMEM_BYTES);
+    topk_l2_split_kernel<true>
+        <<<grid, l2tile::THREADS, l2tile::SMEM_BYTES, (cudaStream_t)stream>>>(
+            q, p, part, tmp, M, N, D, K, vec);
+  } else {
+    set = cudaFuncSetAttribute(topk_l2_split_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMergeSmem);
+    topk_l2_split_kernel<false>
+        <<<grid, l2tile::THREADS, kMergeSmem, (cudaStream_t)stream>>>(
+            q, p, part, tmp, M, N, D, K, vec);
+  }
   return launch_error(set);
+}
+
+// Merge the splits topk_l2_launch left in `scratch` into outd (M, K) fp32
+// ascending and outi (M, K) int64. Returns cudaGetLastError().
+extern "C" int topk_l2_merge_launch(const void* scratch, float* outd,
+                                    long long* outi, int M, int K, int splits,
+                                    void* stream) {
+  topk_merge_kernel<<<M, 128, 0, (cudaStream_t)stream>>>(
+      (const u64*)scratch, outd, outi, splits, K);
+  return launch_error(cudaSuccess);
 }

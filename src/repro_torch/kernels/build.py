@@ -3,9 +3,9 @@ plain C interface, loaded with ``ctypes``.
 
 Each source in ``repro_torch/csrc/`` becomes one library, compiled at
 first use for ``sm_90a`` into ``repro_torch/_build/`` (listed in
-``.gitignore``) under a name that carries the hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads the
-library already built. ``build_all`` starts one ``nvcc`` per source at
+``.gitignore``) under a name that carries the hash of the source, of the
+headers it includes from ``csrc/`` and of the flags, so an edited source
+or header rebuilds and an unchanged one loads the library already built. ``build_all`` starts one ``nvcc`` per source at
 once. A failed build raises with the compiler's output; nothing is ever
 taken from outside the repository's own sources.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,8 +43,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "topk_l2_masked_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _P], _I),
         "topk_l2_masked_scratch_bytes": ([_I, _I, _I], _L),
-        "topk_l2_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "topk_l2_scratch_bytes": ([_I, _I], _L),
+        "topk_l2_splits": ([_I, _I, _I, _I], _I),
+        "topk_l2_reg_k": ([], _I),
+        "topk_l2_scratch_bytes": ([_I, _I, _I, _I], _L),
+        "topk_l2_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "topk_l2_merge_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     },
     "quant_lb2": {
         "quant_lb2_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -78,9 +82,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(name: str) -> List[str]:
+    """The ``csrc/`` headers ``csrc/<name>.cu`` includes, directly or
+    through another header, in the order first met."""
+    found: List[str] = []
+    todo = [f"{name}.cu"]
+    while todo:
+        with open(os.path.join(CSRC, todo.pop(0)), "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                inc = inc.decode()
+                if inc not in found:
+                    found.append(inc)
+                    todo.append(inc)
+    return found
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in (f"{name}.cu", *headers(name)):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 

@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel ``repro/kernels/pairwise_l2.py::
 pairwise_sq_l2_pallas`` (body ``_kernel``). The kernel,
-``csrc/pairwise_l2.cu``, is a shared-memory fp32 SGEMM tile (64x64
-outputs per block, 4x4 register micro-tiles) with the row norms and the
-``max(0, .)`` clamp fused into its epilogue. At the main path's shapes it
-does 2*M*N*D fp32 operations on (M + N)*D + M*N floats, so it is bound
-by fp32 operations outside the tensor cores (TF32 would break the V.R
-slack constants' IEEE fp32 assumption); its design answers that with
-operand reuse through shared memory and registers. A CPU tensor takes
-the plain version ``ref.pairwise_sq_l2``.
+``csrc/pairwise_l2.cu``, is the shared IEEE-fp32 distance tile of
+``csrc/l2_tile.cuh`` (128 x 128 outputs a block, 8 x 8 register
+micro-tiles, three ``cp.async`` stages of 32-wide D slices, persistent
+blocks) with a store epilogue that fuses the row norms and the
+``max(0, .)`` clamp. At the main path's shapes it does 2*M*N*D fp32
+operations on (M + N)*D + M*N floats, so it is bound by fp32 operations
+outside the tensor cores (TF32 would break the V.R slack constants' IEEE
+fp32 assumption). Norms and products are one fmaf chain each over D in
+the same order, so a row against itself is exactly 0 (LPGF masks self
+pairs by that). A CPU tensor takes the plain version
+``ref.pairwise_sq_l2``.
 """
 from __future__ import annotations
 

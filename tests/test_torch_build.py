@@ -223,9 +223,32 @@ def test_every_kernel_source_is_built_and_bound():
     assert "flash_attention_wgmma" in build.SOURCES
     assert "flash_attention_wgmma_launch" in \
         build.SIGNATURES["flash_attention_wgmma"]
+    # one distance tile for pairwise_sq_l2 and topk_l2, in a header
+    assert build.headers("pairwise_l2") == ["l2_tile.cuh"]
+    assert build.headers("fused_topk") == ["l2_tile.cuh"]
+    assert {"topk_l2_splits", "topk_l2_reg_k", "topk_l2_scratch_bytes",
+            "topk_l2_launch", "topk_l2_merge_launch"} <= \
+        set(build.SIGNATURES["fused_topk"])
     for name, fns in build.SIGNATURES.items():
         assert any(fn.endswith("_launch") for fn in fns), name
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()
         for fn in fns:
             assert re.search(r'extern "C" [\w ]+ ' + fn + r"\(", src), fn
+
+
+def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
+    """A library's name carries the hash of its source and of every
+    ``csrc/`` header it includes, so an edited header rebuilds both
+    libraries that include it and no other."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    before = {n: build._target(n) for n in build.SOURCES}
+    with open(csrc / "l2_tile.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: build._target(n) for n in build.SOURCES}
+    changed = sorted(n for n in build.SOURCES if before[n] != after[n])
+    assert changed == ["fused_topk", "pairwise_l2"]

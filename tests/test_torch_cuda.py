@@ -8,7 +8,9 @@ the reference package, so it runs on the machine with the card:
 Tolerance: ids exact; squared distances rtol=1e-5, atol=1e-5 at these
 small widths (fp32 summation order differs between the kernel and the
 library GEMM), and exactly equal on integer-grid inputs, where every sum
-is exact in fp32. ``quant_lb2``: int8 bounds bit-equal to the plain
+is exact in fp32. ``pairwise_sq_l2`` and ``topk_l2`` share one distance
+tile: self-distances are exactly 0, and the top-k kernel's ids and
+distances equal ``stable_topk`` of the pairwise kernel's bit for bit. ``quant_lb2``: int8 bounds bit-equal to the plain
 version (the cross term is an exact integer sum and the epilogue rounds
 in the same order); bf16 bounds within 1e-3 * sqrt(|q|^2 + |p|^2) of the
 plain version's (sum order of the cross term, a quarter of the slack
@@ -147,17 +149,114 @@ def test_topk_masked_kernel_matches_plain(cuda, kind, with_lb2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 17, 256, 300, 1000])
 def test_topk_l2_kernel_matches_plain(cuda, k):
-    """k = 1000 keeps the running buffers in the global scratch."""
+    """Integer grid (exact distances, many exact ties) with the queries
+    inside the point set, on the route ``route(k)`` names: the register
+    route at k <= 2, the rank merge above."""
     rng = np.random.default_rng(0)
     p = torch.from_numpy(
         rng.integers(-3, 4, (5000, 24)).astype(np.float32)).to(cuda)
     q = p[torch.arange(0, 5000, 50, device=cuda)].contiguous()
-    assert (build.library("fused_topk").topk_l2_scratch_bytes(100, k)
-            > 0) == (k == 1000)
+    assert fused_topk.route(k) == ("reg" if k <= 2 else "merge")
+    before = dict(fused_topk.topk_l2_launches_by_route)
     gd, gi = fused_topk.topk_l2_cuda(q, p, k)
     wd, wi = tref.topk_l2(q, p, k)
     assert torch.equal(gi, wi)
     assert torch.equal(gd, wd)
+    r = fused_topk.route(k)
+    assert fused_topk.topk_l2_launches_by_route[r] == before[r] + 1
+
+
+def _gauss(shape, seed, cuda):
+    return torch.from_numpy(_np(shape, seed)).to(cuda)
+
+
+@pytest.mark.cuda
+def test_pairwise_self_distances_are_exactly_zero(cuda):
+    """A Gaussian row against itself: the norms and the dot product are
+    one fmaf chain over the same staged slices in the same order, so the
+    expansion cancels to 0 bit for bit (LPGF masks self pairs by it),
+    wherever the row falls in the tile grid."""
+    x = _gauss((4096, 512), 3, cuda)
+    assert bool((pairwise_l2.pairwise_sq_l2_cuda(x, x).diagonal() == 0)
+                .all())
+    # the same rows as the queries' tail and the points' head
+    got = pairwise_l2.pairwise_sq_l2_cuda(x[1000:].contiguous(),
+                                          x[:3100].contiguous())
+    assert bool((got.diagonal(offset=1000) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 17, 256, 300, 1000])
+def test_topk_l2_equals_stable_topk_of_pairwise(cuda, k):
+    """The top-k kernel forms its distances with the pairwise kernel's
+    tile, so on Gaussian inputs its ids and distances equal
+    ``stable_topk(pairwise_sq_l2_cuda(q, p), k)`` bit for bit; the
+    distances are within the fp32 expansion's error bound, 4 D u (|q|^2
+    + |p|^2), of the plain version's. N = 5003 is a multiple of neither
+    the 128-point tile nor the split count."""
+    q, p = _gauss((300, 512), 5, cuda), _gauss((5003, 512), 6, cuda)
+    gd, gi = fused_topk.topk_l2_cuda(q, p, k)
+    wd, wi = tref.stable_topk(pairwise_l2.pairwise_sq_l2_cuda(q, p), k)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    pd, _ = tref.topk_l2(q, p, k)
+    scale = (q * q).sum(1)[:, None] + (p * p).sum(1).max()
+    assert bool(((gd - pd).abs() <= 4 * 512 * 2.0 ** -24 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 256, 300, 1000])
+def test_topk_l2_lower_index_wins_across_splits(cuda, k):
+    """Integer grid with each of four queries' rows copied into every N
+    split: all copies tie at 0, and the lower index must win whichever
+    split holds it and whatever order the splits merge in (at k = 2 the
+    two winners lie in different splits)."""
+    rng = np.random.default_rng(k)
+    n, d = 20000, 16
+    p = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    lib = build.library("fused_topk")
+    splits = lib.topk_l2_splits(40, n, k, int(k <= fused_topk.REG_K))
+    bounds = fused_topk.split_bounds(n, splits)
+    assert splits >= 4 and len(bounds) == splits
+    q = p[[b for b, _ in bounds][:-5:-1]].copy()
+    for j in range(4):
+        for b, e in bounds:
+            p[min(e - 1, b + 7 + j)] = q[j]
+    q = np.concatenate([q, rng.integers(-3, 4, (36, d)).astype(np.float32)])
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    gd, gi = fused_topk.topk_l2_cuda(qt, pt, k)
+    wd, wi = tref.topk_l2(qt, pt, k)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,k", [(17, 33, 5, 1), (17, 33, 5, 2),
+                                     (17, 33, 5, 17), (17, 33, 5, 33),
+                                     (129, 5003, 130, 2),
+                                     (129, 5003, 130, 300)])
+def test_topk_l2_ragged_shapes(cuda, m, n, d, k):
+    """Ragged M, N and D (D = 5 and 130 not a multiple of the 64-wide
+    slice, 5 not of 4: the 4-byte copies), k up to N."""
+    q, p = _gauss((m, d), m, cuda), _gauss((n, d), n, cuda)
+    gd, gi = fused_topk.topk_l2_cuda(q, p, k)
+    wd, wi = tref.stable_topk(pairwise_l2.pairwise_sq_l2_cuda(q, p), k)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 40])
+def test_topk_l2_routes_and_split_counts_agree(cuda, splits):
+    """Both routes, and any split count (40 splits of 5003 points leave
+    each split 128 or 256 points, below k = 300), give the same bits; the
+    library's register-route limit is the wrapper's."""
+    assert build.library("fused_topk").topk_l2_reg_k() == fused_topk.REG_K
+    q, p = _gauss((200, 64), 7, cuda), _gauss((5003, 64), 8, cuda)
+    want = tref.stable_topk(pairwise_l2.pairwise_sq_l2_cuda(q, p), 300)
+    for k, path in ((1, "reg"), (2, "reg"), (2, "merge"), (300, "merge")):
+        gd, gi = fused_topk._launch(q, p, k, path, splits=splits)
+        assert torch.equal(gd, want[0][:, :k]) and torch.equal(
+            gi, want[1][:, :k]), (k, path)
+    with pytest.raises(ValueError, match="no 'reg' route"):
+        fused_topk._launch(q, p, 3, "reg")
 
 
 def _quant_case(kind, precision, cuda, seed=0):

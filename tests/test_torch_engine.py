@@ -260,3 +260,27 @@ def test_unplannable_query_raises_not_implemented(pair):
                   TQ.Or.of(TQ.VK.of("v", v, 3), TQ.NR("price", 0, 10)))
     with pytest.raises(NotImplementedError, match="scalar executor"):
         pt.session().plan([q]).execute()
+
+
+def test_engine_cache_keeps_four_in_lru_order(pair):
+    """``MQRLD.engine()`` keeps at most four engines, least recently used
+    out first, and re-inserts an engine on a hit. A fifth configuration
+    evicts the first; asking for the first again rebuilds it, with the
+    same rows as before."""
+    p, _, radius = pair
+    pt = state_from_numpy(ref_state_arrays(p), device="cpu")
+    batch = _batch(TQ, pt.table.vector["v"], radius)
+    first = pt.engine(precision="fp32")
+    rows, _ = pt.session(precision="fp32").plan(batch).execute()
+    keys = [(16, 128, "fp32"), (8, 128, "fp32"), (16, 64, "fp32"),
+            (32, 128, "fp32"), (16, 128, "int8")]
+    for beam, tile, prec in keys[1:]:
+        pt.engine(beam=beam, tile=tile, precision=prec)
+    assert list(pt._engines) == keys[1:]
+    pt.engine(beam=8, tile=128, precision="fp32")        # a hit
+    assert list(pt._engines) == keys[2:] + [keys[1]]
+    again, _ = pt.session(precision="fp32").plan(batch).execute()
+    assert list(pt._engines) == keys[3:] + [keys[1], keys[0]]
+    assert pt.engine(precision="fp32") is not first
+    for a, b in zip(rows, again):
+        np.testing.assert_array_equal(a, b)
