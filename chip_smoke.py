@@ -10,15 +10,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (one process per source, all started together); ptxas must report no
    spill in the wgmma flash kernel, nor in the kernels of the shared
    distance tile (``pairwise_sq_l2``, both ``topk_l2`` routes, the split
-   merge);
+   merge) and the four of ``lpgf_force``;
 2. kernels: each CUDA kernel of the retrieval paths against its plain
    PyTorch version on the card at the shapes its path gives it — ids
    exactly equal, squared distances within the fp32 dot-product error
    bound, self-distances exactly 0 on the whole Gaussian table,
    ``topk_l2`` bit-equal to ``stable_topk`` of ``pairwise_sq_l2``'s
    distances on both of its routes, ``quant_lb2``'s bounds never above
-   the exact distance — and timed beside its plain version, a PyTorch
-   library yardstick and its roofline bound;
+   the exact distance, ``lpgf_force``'s stored distances equal to
+   ``pairwise_sq_l2``'s and its calls bit-identical — and timed beside
+   its plain version, a PyTorch library yardstick and its roofline
+   bound;
 3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
    then timed) and one batch of V.K queries at k = 300 and 1000, every
@@ -101,23 +103,6 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
-
-
-def ptxas_spills(report: str) -> dict:
-    """{kernel: spill bytes, stores and loads} from a ``ptxas -v`` report,
-    by the mangled name of each entry function."""
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name is not None:
-            out[name] = int(m.group(1)) + int(m.group(2))
-            name = None
-    return out
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -464,14 +449,30 @@ def check_quant_lb2(torch, qk, ref, build, plan_tiles, dev, gen, dim: int,
         library="torch.bmm in bf16 + epilogue" if lib_ms else "none")
 
 
-def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
+def check_lpgf_force(torch, lf, pw, ref, dev, gen, dim: int):
     """Quarter-integer points make every squared distance exact, so the
     kernel and the plain version take the same ring decisions; F agrees
-    within 1e-5 of its largest entry and W within rtol 1e-5 (sum
-    order)."""
+    within 1e-5 of its largest entry and W within rtol 1e-5 (sum order):
+    at (4096, dim), (1000, dim), (1000, 37) (D not a multiple of 4: the
+    4-byte copies) and (1000, 2048) (past the old shared-memory limit).
+    Then on Gaussian points at (4096, dim), through ``lf._launch(keep=
+    True)``: the stored squared distances symmetric and equal to
+    ``pairwise_sq_l2_cuda(x, x)`` bit for bit, d1 (the least of the
+    per-tile row minima) the least distance off the diagonal, the weights
+    the plain law's on those distances bit for bit, F and W within the
+    same tolerances of the plain formula fed those distances; and two
+    calls bit-identical."""
     ok, errs = True, []
-    for n in (4096, 1000):
-        x = torch.randint(-12, 13, (n, dim), generator=gen,
+
+    def held(x, r, g, gf, gw, d2=None):
+        wf, ww = ref.lpgf_force(x, r, g, d2=d2)
+        scale = float(wf.abs().max()) + 1e-6
+        errs.append(float((gf - wf).abs().max()))
+        return (errs[-1] <= 1e-5 * scale and
+                bool(((gw - ww).abs() <= 1e-5 + 1e-5 * ww.abs()).all()))
+
+    for n, d in ((4096, dim), (1000, dim), (1000, 37), (1000, 2048)):
+        x = torch.randint(-12, 13, (n, d), generator=gen,
                           device=dev).float() * 0.25
         x[7] = x[3]                                       # a duplicate
         d2 = ref.pairwise_sq_l2(x, x)
@@ -479,24 +480,49 @@ def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
         g = float(d2.min(1).values.sqrt().mean())
         del d2
         gf, gw = lf.lpgf_force_cuda(x, 7.5 * g, g)
-        wf, ww = ref.lpgf_force(x, 7.5 * g, g)
-        scale = float(wf.abs().max()) + 1e-6
-        errs.append(float((gf - wf).abs().max()))
-        ok &= errs[-1] <= 1e-5 * scale
-        ok &= bool(((gw - ww).abs() <= 1e-5 + 1e-5 * ww.abs()).all())
-        if n == 4096:
+        ok &= held(x, 7.5 * g, g, gf, gw)
+        if (n, d) == (4096, dim):
             xt, rt, gt = x, 7.5 * g, g
     n = xt.shape[0]
+    xg = torch.randn((n, dim), generator=gen, device=dev)
+    xg[7] = xg[3]
+    d2 = ref.pairwise_sq_l2(xg, xg)
+    d2.fill_diagonal_(float("inf"))
+    gg = float(d2.min(1).values.sqrt().mean())
+    del d2
+    gf, gw, s = lf._launch(xg, 1.5 * gg, gg, keep=True)
+    d2 = s["d2"]
+    off = d2.clone()
+    off.fill_diagonal_(float("inf"))
+    want_w, want_d1 = ref.lpgf_weights(d2, 1.5 * gg, gg)
+    stored = dict(
+        symmetric=torch.equal(d2, d2.T),
+        equals_pairwise=torch.equal(d2, pw.pairwise_sq_l2_cuda(xg, xg)),
+        d1_is_row_min=torch.equal(s["pmin"].min(1).values,
+                                  off.min(1).values),
+        weights_equal_plain=torch.equal(s["w"], want_w)
+        and torch.equal(off.min(1).values, want_d1),
+        held_to_own_d2=held(xg, 1.5 * gg, gg, gf, gw, d2=d2))
+    del s, d2, off, want_w
+    a = lf.lpgf_force_cuda(xg, 1.5 * gg, gg)
+    b = lf.lpgf_force_cuda(xg, 1.5 * gg, gg)
+    stored["calls_bit_identical"] = (torch.equal(a[0], b[0]) and
+                                     torch.equal(a[1], b[1]) and
+                                     torch.equal(a[0], gf))
+    ok &= all(stored.values())
+    del a, b
     ms = time_ms(torch, lambda: lf.lpgf_force_cuda(xt, rt, gt), 5)
     plain = time_ms(torch, lambda: ref.lpgf_force(xt, rt, gt), 2)
-    # torch.cdist computes phase 1's distances only, not the function:
-    # logged beside the kernel, no library time in the JSON row
+    # torch.cdist computes the distances only, not the function: logged
+    # beside the kernel, no library time in the JSON row
     cdist = time_ms(torch, lambda: torch.cdist(
         xt, xt, compute_mode="use_mm_for_euclid_dist"), 5)
+    # device time of each of the four kernels of one call
+    trace = _trace(torch, lambda: lf.lpgf_force_cuda(xt, rt, gt), 1)
     # the least work of the function: every squared distance once, N^2*D
     # operations with the Gram matrix's symmetry, and w @ x, 2*N^2*D (the
-    # kernel forms each distance tile twice, in its two passes, as the
-    # TPU kernel does: 6*N^2*D)
+    # kernels do N^2*D + N*128*D on the upper-triangle tiles and 2*N^2*D,
+    # plus the unused norm chain of w @ x's tile)
     bms, by = bound_ms(3.0 * n * n * dim, 4.0 * (2 * n * dim + n))
     return ok, dict(
         name="lpgf_force", route="cuda",
@@ -504,8 +530,9 @@ def check_lpgf_force(torch, lf, ref, dev, gen, dim: int):
         replaces="src/repro/kernels/lpgf_force.py:84",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=None, shape=f"({n}, {dim}); also (1000, "
-        f"{dim})", library=f"none; torch.cdist, phase 1 only, {cdist:.4f} "
-        f"ms")
+        f"{dim}), (1000, 37), (1000, 2048) and Gaussian ({n}, {dim})",
+        library=f"none; torch.cdist, the distances only, {cdist:.4f} ms",
+        stored=stored, trace=trace)
 
 
 # (B, S, H, hd), type, causal, window, inputs: flash_attention's further
@@ -1160,6 +1187,11 @@ def log_kernel(label: str, ok: bool, row: dict) -> None:
     if "merge_route_ms" in row:
         log(f"kernel {label}: the rank-merge route at the same shape "
             f"{row['merge_route_ms']:.4f} ms")
+    if "stored" in row:
+        log(f"kernel {label}: stored distances and calls on Gaussian "
+            f"points: " + json.dumps(row["stored"]))
+        log(f"kernel {label}: one call traced (torch.profiler): "
+            + json.dumps(row["trace"]))
 
 
 def main() -> int:
@@ -1213,14 +1245,16 @@ def main() -> int:
     if len(spills) != 4 or any(spills):
         return fail(f"flash_attention_wgmma: ptxas reports spills {spills}")
     # the shared distance tile's kernels: pairwise_sq_l2, both topk_l2
-    # routes and the split merge, none spilling
-    tile = {f: b for lib in ("pairwise_l2", "fused_topk")
-            for f, b in ptxas_spills(logs[lib]).items()
+    # routes and the split merge, lpgf_force's four kernels, none spilling
+    tile = {f: b for lib in ("pairwise_l2", "fused_topk", "lpgf_force")
+            for f, b in build.spill_bytes(logs[lib]).items()
             if re.search(r"pairwise_sq_l2_kernel|topk_l2_split_kernel|"
-                         r"topk_merge_kernel", f)}
+                         r"topk_merge_kernel|lpgf_d2_kernel|"
+                         r"lpgf_weights_kernel|transpose_kernel|"
+                         r"lpgf_wx_kernel", f)}
     log(f"distance-tile kernels: ptxas spill bytes {sorted(tile.values())} "
         f"({len(tile)} kernels)")
-    if len(tile) != 4 or any(tile.values()):
+    if len(tile) != 8 or any(tile.values()):
         return fail(f"distance-tile kernels: ptxas reports spills {tile}")
 
     # -------------------------------------------------------- kernels
@@ -1245,7 +1279,7 @@ def main() -> int:
                 torch, quant_lb2, ref, build, plan_tiles, dev, gen,
                 args.dim, "bf16")),
             ("lpgf_force", lambda: check_lpgf_force(
-                torch, lpgf_force, ref, dev, gen, args.dim))):
+                torch, lpgf_force, pairwise_l2, ref, dev, gen, args.dim))):
         ok, row = fn()
         torch.cuda.synchronize()
         log_kernel(label, ok, row)

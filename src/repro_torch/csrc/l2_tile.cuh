@@ -1,6 +1,8 @@
 // One IEEE-fp32 distance tile for Hopper (sm_90a), shared by the
-// pairwise_sq_l2 kernel (csrc/pairwise_l2.cu, the store epilogue) and the
-// topk_l2 kernel (csrc/fused_topk.cu, the running top-k epilogue).
+// pairwise_sq_l2 kernel (csrc/pairwise_l2.cu, the store epilogue), the
+// topk_l2 kernel (csrc/fused_topk.cu, the running top-k epilogue) and the
+// lpgf_force kernels (csrc/lpgf_force.cu: the distances with a mirrored
+// store and partial minima, then w @ x as the tile's dot product).
 //
 // It computes, for a 128 x 128 tile of (q row m, p row n) pairs, the dot
 // products q_m . p_n and the row norms |q_m|^2 and |p_n|^2; an epilogue
@@ -172,6 +174,18 @@ __device__ __forceinline__ void slice(const float* As, const float* Bs,
     nrm = fmaf(v.z, v.z, nrm);
     nrm = fmaf(v.w, v.w, nrm);
   }
+}
+
+// Persistent blocks for `kernel` (THREADS threads, `smem` bytes of dynamic
+// shared memory, already opted in): as many as the card holds at once, at
+// most `tiles`.
+inline int persistent_grid(const void* kernel, size_t smem, long long tiles) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
+  const long long slots = (long long)sms * (occ > 0 ? occ : 1);
+  return (int)(tiles < slots ? tiles : slots);
 }
 
 // Whether the 16-byte copies may be used: D a multiple of 4 and both bases

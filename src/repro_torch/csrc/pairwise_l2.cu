@@ -64,15 +64,9 @@ extern "C" int pairwise_sq_l2_launch(const float* q, const float* p,
   const cudaError_t set = cudaFuncSetAttribute(
       pairwise_sq_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
-  int dev = 0, sms = 0, occ = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pairwise_sq_l2_kernel,
-                                                THREADS, SMEM_BYTES);
-  const long long total =
-      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const long long slots = (long long)sms * (occ > 0 ? occ : 1);
-  const int grid = (int)(total < slots ? total : slots);
+  const int grid = persistent_grid(
+      (const void*)pairwise_sq_l2_kernel, SMEM_BYTES,
+      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN));
   pairwise_sq_l2_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       q, p, out, M, N, D, (int)vec_ok(q, p, D));
   const cudaError_t err = cudaGetLastError();

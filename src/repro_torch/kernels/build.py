@@ -54,8 +54,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
                               _I, _I, _I, _P], _I),
     },
     "lpgf_force": {
-        "lpgf_force_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _F, _P], _I),
-        "lpgf_force_max_d": ([], _I),
+        "lpgf_force_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                               _F, _P], _I),
     },
     "flash_attention": {
         "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -162,6 +162,24 @@ def build_all() -> Dict[str, str]:
             with open(f"{_target(name)}.log") as f:
                 logs[name] = f.read()
     return logs
+
+
+def spill_bytes(report: str) -> Dict[str, int]:
+    """{kernel: spill bytes, stores and loads} from a ``ptxas -v`` report
+    (``build_all``'s), by the mangled name of each entry function."""
+    out: Dict[str, int] = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

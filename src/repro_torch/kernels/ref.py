@@ -117,21 +117,15 @@ def quant_lb2(q: torch.Tensor, codes: torch.Tensor, cscale: torch.Tensor,
                        torch.full_like(lbr, float("inf")))
 
 
-def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
-               c: float = 1.1, row_block: int = 256):
-    """LPGF resultant force per point (paper Fig 13), exact all-pairs:
-    returns (raw resultant force (N, D), total weight (N,)). Semantics of
-    ``repro.kernels.lpgf_force.lpgf_force_pallas``, the kernel the
-    reference runs: self pairs are excluded by index. (The reference's
-    ``ref.lpgf_force`` adds max(d2) + 1 to the diagonal instead, which
-    differs only when that still lies within the radius.) The force sum
-    runs over ``row_block`` rows at a time to bound the (rows, N, D)
-    difference tensor."""
+def lpgf_weights(d2: torch.Tensor, radius: float, g_mean: float,
+                 c: float = 1.1):
+    """The LPGF force law's weights from all squared distances d2 (N, N):
+    returns (w (N, N), d1 (N,)), d1 the squared nearest-neighbour
+    distance. Self pairs are excluded by index, as
+    ``repro.kernels.lpgf_force._nn_kernel`` and ``_force_kernel`` do."""
     from repro_torch.utils.quant import sqrt_rn
-    x = points.float()
-    n = x.shape[0]
-    d2 = pairwise_sq_l2(x, x)
-    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    n = d2.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=d2.device)
     d2_off = torch.where(eye, torch.full_like(d2, float("inf")), d2)
     d1sq = torch.min(d2_off, dim=1).values
     thresh_near = g_mean * sqrt_rn(d1sq)
@@ -142,7 +136,26 @@ def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
     w_far = torch.where(far, d1sq[:, None] / torch.clamp_min(d2_off, 1e-12),
                         zero)
     w_near = torch.where(near & in_r, torch.full_like(d2_off, 1.0 / c), zero)
-    w = w_far + w_near
+    return w_far + w_near, d1sq
+
+
+def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
+               c: float = 1.1, row_block: int = 256, d2=None):
+    """LPGF resultant force per point (paper Fig 13), exact all-pairs:
+    returns (raw resultant force (N, D), total weight (N,)). Semantics of
+    ``repro.kernels.lpgf_force.lpgf_force_pallas``, the kernel the
+    reference runs: self pairs are excluded by index. (The reference's
+    ``ref.lpgf_force`` adds max(d2) + 1 to the diagonal instead, which
+    differs only when that still lies within the radius.) The force sum
+    runs over ``row_block`` rows at a time to bound the (rows, N, D)
+    difference tensor. ``d2`` gives the squared distances to use instead
+    of ``pairwise_sq_l2(points, points)`` (the card tests feed the
+    kernel's own)."""
+    x = points.float()
+    n = x.shape[0]
+    if d2 is None:
+        d2 = pairwise_sq_l2(x, x)
+    w, _ = lpgf_weights(d2, radius, g_mean, c)
     f = torch.cat([
         torch.einsum("ij,ijd->id", w[i:i + row_block],
                      x[None, :, :] - x[i:i + row_block, None, :])

@@ -223,9 +223,12 @@ def test_every_kernel_source_is_built_and_bound():
     assert "flash_attention_wgmma" in build.SOURCES
     assert "flash_attention_wgmma_launch" in \
         build.SIGNATURES["flash_attention_wgmma"]
-    # one distance tile for pairwise_sq_l2 and topk_l2, in a header
+    # one distance tile for pairwise_sq_l2, topk_l2 and lpgf_force, in a
+    # header
     assert build.headers("pairwise_l2") == ["l2_tile.cuh"]
     assert build.headers("fused_topk") == ["l2_tile.cuh"]
+    assert build.headers("lpgf_force") == ["l2_tile.cuh"]
+    assert set(build.SIGNATURES["lpgf_force"]) == {"lpgf_force_launch"}
     assert {"topk_l2_splits", "topk_l2_reg_k", "topk_l2_scratch_bytes",
             "topk_l2_launch", "topk_l2_merge_launch"} <= \
         set(build.SIGNATURES["fused_topk"])
@@ -239,7 +242,7 @@ def test_every_kernel_source_is_built_and_bound():
 
 def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
     """A library's name carries the hash of its source and of every
-    ``csrc/`` header it includes, so an edited header rebuilds both
+    ``csrc/`` header it includes, so an edited header rebuilds the three
     libraries that include it and no other."""
     import shutil
     from repro_torch.kernels import build
@@ -251,4 +254,22 @@ def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     after = {n: build._target(n) for n in build.SOURCES}
     changed = sorted(n for n in build.SOURCES if before[n] != after[n])
-    assert changed == ["fused_topk", "pairwise_l2"]
+    assert changed == ["fused_topk", "lpgf_force", "pairwise_l2"]
+
+
+def test_spill_bytes_reads_each_entry_function():
+    """``build.spill_bytes`` pairs each entry function of a ``ptxas -v``
+    report with its spill stores plus loads."""
+    from repro_torch.kernels import build
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z14lpgf_wx_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z14lpgf_wx_kernelPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z16transpose_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z16transpose_kernelPKf
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+"""
+    assert build.spill_bytes(report) == {"_Z14lpgf_wx_kernelPKf": 0,
+                                         "_Z16transpose_kernelPKf": 16}
+    assert build.spill_bytes("") == {}

@@ -17,7 +17,12 @@ plain version's (sum order of the cross term, a quarter of the slack
 that covers it); for both, +inf exactly where invalid and no bound above
 the exact squared distance. ``lpgf_force``: quarter-integer points make
 every distance exact, so both sides take the same ring decisions; F
-within 1e-5 of its largest entry and W rtol 1e-5 (sum order).
+within 1e-5 of its largest entry and W rtol 1e-5 (sum order). On
+Gaussian points its stored squared distances are symmetric and equal
+the pairwise kernel's bit for bit, its weights equal the plain law's on
+those distances bit for bit, and F and W are held to the plain formula
+fed the same distances, to the same tolerances; two calls give the same
+bits.
 ``flash_attention`` (both routes, the SIMT kernel and the wgmma one):
 fp32 outputs within 2e-5 (rtol and atol, the
 reference's ``test_flash_sweep`` tolerance: summation order and the
@@ -322,7 +327,8 @@ def _grid_points(n, d, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,r_mult", [(300, 40, 7.5), (1000, 512, 7.5),
-                                        (1000, 37, 1.5), (4096, 64, 7.5)])
+                                        (1000, 37, 1.5), (4096, 64, 7.5),
+                                        (1000, 2048, 7.5), (129, 2048, 1.5)])
 def test_lpgf_force_kernel_matches_plain(cuda, n, d, r_mult):
     x = torch.from_numpy(_grid_points(n, d, n + d)).to(cuda)
     x[7] = x[3]                          # a duplicate point
@@ -335,6 +341,74 @@ def test_lpgf_force_kernel_matches_plain(cuda, n, d, r_mult):
     assert float((gf - wf).abs().max()) <= 1e-5 * scale
     torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-5)
     assert lpgf_force.launches > 0
+
+
+def _gauss_lpgf_case(n, d, seed, cuda):
+    """Gaussian points with a duplicate, and G (mean nearest-neighbour
+    distance) from the plain distances; 1 for a single point, which has
+    no neighbour."""
+    x = torch.from_numpy(_np((n, d), seed)).to(cuda)
+    if n == 1:
+        return x, 1.0
+    x[7] = x[3]
+    d2 = tref.pairwise_sq_l2(x, x)
+    d2.fill_diagonal_(float("inf"))
+    return x, float(d2.min(1).values.sqrt().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,r_mult", [(1000, 512, 7.5), (1000, 37, 1.5),
+                                        (300, 2048, 1.5), (4096, 64, 1.5),
+                                        (1, 5, 7.5)])
+def test_lpgf_force_stored_distances(cuda, n, d, r_mult):
+    """Through ``_launch(keep=True)``: the stored squared distances are
+    symmetric and equal ``pairwise_sq_l2_cuda(x, x)`` bit for bit (the
+    kernel forms each tile pair once and mirrors it); d1, the least of
+    each row's per-tile minima, is the row's least distance off the
+    diagonal; the weights equal the plain law's on those distances bit
+    for bit (the same ring decisions on data that is not a grid); F and W
+    agree with the plain formula fed the same distances."""
+    x, g = _gauss_lpgf_case(n, d, n + d, cuda)
+    gf, gw, s = lpgf_force._launch(x, r_mult * g, g, keep=True)
+    d2 = s["d2"]
+    assert torch.equal(d2, d2.T)
+    assert torch.equal(d2, pairwise_l2.pairwise_sq_l2_cuda(x, x))
+    off = d2.clone()
+    off.fill_diagonal_(float("inf"))
+    d1 = s["pmin"].min(1).values
+    assert torch.equal(d1, off.min(1).values)
+    want_w, want_d1 = tref.lpgf_weights(d2, r_mult * g, g)
+    assert torch.equal(d1, want_d1)
+    assert torch.equal(s["w"], want_w)
+    assert torch.equal(s["xt"], x.T)
+    wf, ww = tref.lpgf_force(x, r_mult * g, g, d2=d2)
+    scale = float(wf.abs().max()) + 1e-6
+    assert float((gf - wf).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-5)
+    # the weights in place of the distances give the same bits
+    f2, w2 = lpgf_force.lpgf_force_cuda(x, r_mult * g, g)
+    assert torch.equal(f2, gf) and torch.equal(w2, gw)
+
+
+@pytest.mark.cuda
+def test_lpgf_force_calls_are_bit_identical(cuda):
+    """No atomics and every sum in a fixed order: two calls on the same
+    points give the same bits."""
+    x, g = _gauss_lpgf_case(4096, 512, 11, cuda)
+    a = lpgf_force.lpgf_force_cuda(x, 7.5 * g, g)
+    b = lpgf_force.lpgf_force_cuda(x, 7.5 * g, g)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_lpgf_force_kernels_do_not_spill(cuda):
+    """ptxas reports 0 spill bytes for each of the force field's four
+    kernels (the distance tile, the weights, the transpose, w @ x)."""
+    spills = build.spill_bytes(build.build_all()["lpgf_force"])
+    names = ("lpgf_d2_kernel", "lpgf_weights_kernel", "transpose_kernel",
+             "lpgf_wx_kernel")
+    assert all(sum(n in f for f in spills) == 1 for n in names), spills
+    assert not any(spills.values()), spills
 
 
 @pytest.fixture(scope="module")
