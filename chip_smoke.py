@@ -31,6 +31,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    at least one V.K job's re-rank proven without the widening pass; then
    ``quant_lb2`` held and timed again, as in phase 2, at the widest
    (G, C) each precision launched it with on this path;
+   Then the planner's paths on that platform, after its timed batches:
+   8 queries of each of six forms through the scalar ``MQRLD.execute``
+   and a 64-query planned batch with 16 queries the engine cannot plan
+   (``explain()["n_scalar"]`` 16), every row the oracle's; 64 V.K
+   queries through ``BatchedExecutor`` on the card and ``HostExecutor``,
+   each the brute force's rows; Algorithm 3 (``optimize_index``) on a
+   skewed workload, the scalar path's rows and work unchanged; and
+   ``calibrate(batch=16)``, then the hybrid batch again under the fitted
+   model, every row the oracle's;
 5. small-table path: ``prepare()`` with its defaults on a 4,096-row
    table (LPGF's force kernel), then a 64-query batch, every row equal to
    the oracle's;
@@ -81,12 +90,6 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
-# sheet): fp32 outside the tensor cores, dense bf16 and int8 tensor-core
-# rates, and HBM3 bandwidth
-PEAK_FP32 = 67e12
-PEAK_OPS = {"fp32": PEAK_FP32, "bf16": 989e12, "int8": 1979e12}
-PEAK_BYTES = 3.35e12
 U32 = 2.0 ** -24          # unit roundoff of fp32
 
 
@@ -99,8 +102,13 @@ def fail(msg: str) -> int:
     return 1
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, dtype: str = "fp32"):
+    """The least time the card could take (ms): the larger of the
+    operations over the peak for their type and the bytes over the
+    memory rate, from the one peak table the cost model reads too
+    (``repro_torch.utils.roofline``), and which of the two bounds it."""
+    from repro_torch.utils.roofline import PEAK_BYTES, peak_flops
+    t_ops, t_bytes = flops / peak_flops(dtype), nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -437,7 +445,7 @@ def check_quant_lb2(torch, qk, ref, build, plan_tiles, dev, gen, dim: int,
     # byte and output, and the query
     bms, by = bound_ms(2.0 * nvalid * dim,
                        esz * (nvalid * dim + g * dim) + 12.0 * nvalid
-                       + 5.0 * g * c + 16.0 * g, PEAK_OPS[precision])
+                       + 5.0 * g * c + 16.0 * g, precision)
     return ok, dict(
         name="quant_lb2", route="cuda",
         source="src/repro_torch/csrc/quant_lb2.cu",
@@ -700,7 +708,7 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
     # the function's.
     ops = 4.0 * hd * b * h * _attn_pairs(s, causal, window)
     bms, by = bound_ms(ops, 4.0 * b * s * h * hd * q.element_size(),
-                       PEAK_OPS["bf16" if dt == torch.bfloat16 else "fp32"])
+                       "bf16" if dt == torch.bfloat16 else "fp32")
     mask = ("causal" if causal else "non-causal") + (
         f", window {window}" if window else "") + {
         "normal": "", "strided": ", strided (hd + 4), copied",
@@ -835,6 +843,216 @@ def _reset(kmods):
     pw.launches = qk.launches = lf.launches = 0
     ft.reset_launches()
     fa.reset_launches()
+
+
+# ------------------------------------------------------- planner paths
+SCALAR_FORMS = ("VK", "NR", "VR", "NR_and_VK", "VK_in_or_in_and",
+                "VK_or_VR")
+
+
+def scalar_form(Q, v, w, lo: float, radius: float, form: str):
+    """One query of a scalar-path form around the vectors ``v``, ``w``:
+    V.K at k = 20, N.R over [lo, lo + 5], V.R, a filtered V.K, a V.K
+    under an Or under an And (which the batched engine cannot plan) and
+    an Or of a V.K and a V.R."""
+    return {
+        "VK": lambda: Q.VK.of("v", v, 20),
+        "NR": lambda: Q.NR("price", lo, lo + 5),
+        "VR": lambda: Q.VR.of("v", v, radius),
+        "NR_and_VK": lambda: Q.And.of(Q.NR("price", 25, 75),
+                                      Q.VK.of("v", v, 20)),
+        "VK_in_or_in_and": lambda: Q.And.of(
+            Q.Or.of(Q.VK.of("v", v, 20), Q.NR("price", 0, 1)),
+            Q.NR("price", 0, 60)),
+        "VK_or_VR": lambda: Q.Or.of(Q.VK.of("v", v, 20),
+                                    Q.VR.of("v", w, radius)),
+    }[form]()
+
+
+def drive_scalar_path(args, dev, p, radius: float, kmods):
+    """The scalar path: 8 queries of each ``SCALAR_FORMS`` form through
+    ``MQRLD.execute(record=False)``, each row-equal to the oracle (ms per
+    query by form); then a 64-query planned batch, 16 of them not
+    plannable for the engine, through ``session().plan().execute()``:
+    ``explain()["n_scalar"]`` must be 16 and every row the oracle's.
+    Returns (error or None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import query as Q
+
+    vecs = p.table.vector["v"]
+    rng = np.random.default_rng(args.seed + 4)
+    info = {"ms_per_query": {}}
+    for form in SCALAR_FORMS:
+        qs = [scalar_form(Q, vecs[i], vecs[j], float(lo), radius, form)
+              for (i, j), lo in zip(rng.integers(0, len(vecs), (8, 2)),
+                                    rng.uniform(0, 95, 8))]
+        t0 = time.time()
+        res = [p.execute(q, record=False)[0] for q in qs]
+        info["ms_per_query"][form] = (time.time() - t0) * 1e3 / len(qs)
+        bad, _ = oracle_mismatches(p, qs, res)
+        if bad:
+            return f"scalar {form}: query {bad[0]} differs from the " \
+                   f"oracle", info
+    batch = hybrid_batch(Q, np, vecs, radius, 48, args.seed + 5)
+    batch += [scalar_form(Q, vecs[i], None, 0.0, radius, "VK_in_or_in_and")
+              for i in rng.integers(0, len(vecs), 16)]
+    plan = p.session().plan(batch)
+    info["n_scalar"] = plan.explain()["n_scalar"]
+    _reset(kmods)
+    t0 = time.time()
+    res, _ = plan.execute()
+    _sync(torch, dev)
+    info["planned_batch_s"] = time.time() - t0
+    info["launches"] = _counters(kmods)
+    bad, _ = oracle_mismatches(p, batch, res)
+    info["planned_batch_mismatches"] = len(bad)
+    if info["n_scalar"] != 16:
+        return f"planned batch: n_scalar {info['n_scalar']}, want 16", info
+    if bad:
+        return f"planned batch: query {bad[0]} differs from the oracle", info
+    return None, info
+
+
+def drive_executors(args, dev, p, kmods):
+    """``BatchedExecutor`` on the card and ``HostExecutor`` over the
+    platform's tree and enhanced features: 64 V.K queries at k = 20
+    (rows of the table, jittered), each executor's rows equal to the
+    brute-force oracle's over those features. Returns (error or None,
+    info, the host executor)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import query as Q
+    from repro_torch.core.index import BatchedExecutor, HostExecutor
+    from repro_torch.core.lake import MMOTable
+
+    data = p.enhanced
+    rng = np.random.default_rng(args.seed + 6)
+    qs = (data[rng.integers(0, len(data), 64)] + rng.normal(
+        0, 0.01, (64, data.shape[1]))).astype(np.float32)
+    info = {}
+    t0 = time.time()
+    bat = BatchedExecutor(p.tree, data, device=dev)
+    _sync(torch, dev)
+    info["batched_build_s"] = time.time() - t0
+    bat.knn(qs[:8], 20)                         # warm
+    _reset(kmods)
+    t0 = time.time()
+    _, brows, bst = bat.knn(qs, 20)
+    _sync(torch, dev)
+    info["batched_s"] = time.time() - t0
+    info["batched_launches"] = _counters(kmods)
+    info["batched_widened"] = bat.exact_fallbacks
+    info["batched_rows_scanned"] = bst.rows_scanned
+    host = HostExecutor(p.tree, data)
+    t0 = time.time()
+    hres = [host.knn(q, 20) for q in qs]
+    info["host_s"] = time.time() - t0
+    info["host_nodes_scanned"] = sum(s.nodes_scanned for _, s in hres)
+    feats = MMOTable("enhanced").add_vector("e", data)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        truths = list(ex.map(lambda q: Q.execute_bruteforce(
+            feats, Q.VK.of("e", q, 20)), qs))
+    bad_b = [i for i, t in enumerate(truths)
+             if not np.array_equal(brows[i], t)]
+    bad_h = [i for i, t in enumerate(truths)
+             if not np.array_equal(hres[i][0], t)]
+    info["mismatches"] = {"batched": len(bad_b), "host": len(bad_h)}
+    if bad_b or bad_h:
+        return f"executors differ from the brute force: {info}", info, host
+    if info["batched_launches"]["topk_l2_masked"] <= 0:
+        return "BatchedExecutor launched no topk_l2_masked", info, host
+    return None, info, host
+
+
+def drive_reorder(args, p, host):
+    """Algorithm 3 on a skewed workload: 32 V.K queries at k = 20 at the
+    rows of one leaf through ``p.optimize_index``. The scalar path walks
+    leaves in lower-bound order, so its work cannot depend on the sibling
+    order: its rows and its totals of ``QueryStats.nodes_scanned``
+    (which it does not count: 0), ``buckets_touched`` and
+    ``rows_scanned`` must be the same after as before. The sibling order
+    steers the host executor's traversal only: its rows on the same
+    rows' enhanced features must not change, and its total nodes scanned
+    before and after is reported. Returns (error or None, info)."""
+    import numpy as np
+    from repro_torch.core import query as Q
+
+    tree = p.tree
+    rng = np.random.default_rng(args.seed + 7)
+    leaf = tree.leaf_ids[rng.integers(0, len(tree.leaf_ids))]
+    rows = np.arange(int(tree.bucket_start[leaf]),
+                     int(tree.bucket_end[leaf]))[:32]
+    workload = [Q.VK.of("v", p.table.vector["v"][i], 20) for i in rows]
+    feats = p.enhanced[rows]
+
+    def run():
+        host_out = [host.knn(q, 20) for q in feats]
+        out = [p.execute(q, record=False) for q in workload]
+        work = {f"scalar_{k}": sum(getattr(s, k) for _, s in out)
+                for k in ("nodes_scanned", "buckets_touched",
+                          "rows_scanned")}
+        work["host_nodes_scanned"] = sum(s.nodes_scanned
+                                         for _, s in host_out)
+        return [r for r, _ in host_out + out], work
+    rows0, before = run()
+    t0 = time.time()
+    changed = p.optimize_index(workload)
+    info = {"queries": len(workload), "changed": changed,
+            "optimize_s": time.time() - t0}
+    rows1, after = run()
+    info.update(before=before, after=after)
+    if any(not np.array_equal(a, b) for a, b in zip(rows0, rows1)):
+        return "reordering changed a query's rows", info
+    bad, _ = oracle_mismatches(p, workload, rows1[len(workload):])
+    if bad:
+        return f"reorder: query {bad[0]} differs from the oracle", info
+    if any(after[k] != before[k] for k in before if k.startswith("scalar")):
+        return f"reordering changed the scalar path's work: {info}", info
+    return None, info
+
+
+def drive_calibration(args, dev, p, batch, truths, t_uncal: float, kmods):
+    """``p.calibrate(batch=16)`` after warming both beam loops, then the
+    timed hybrid batch again in a fresh session under the fitted model:
+    its seconds beside the uncalibrated ``t_uncal``, how its loop was
+    chosen, the V.R routes the engine took, every row the oracle's.
+    Returns (error or None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.planner import Session
+
+    p.session(device_loop=False).plan(batch).execute()   # warm
+    _sync(torch, dev)
+    _reset(kmods)
+    t0 = time.time()
+    model = p.calibrate(batch=16)
+    _sync(torch, dev)
+    info = {"calibrate_s": time.time() - t0, "sweep_s": model.sweep_s,
+            "launches": _counters(kmods), "host": model.host,
+            "kinds": {k: {"samples": len(p.qbs.cost_samples(k)[1]),
+                          "fitted_on": v["n"], "err": v["err"],
+                          "reliable": model.reliable(k)}
+                      for k, v in model.kinds.items()}}
+    sess = Session(p)
+    res, st, t_warm, t_exec = run_batch(args, dev, sess, batch)
+    plan = sess.plan(batch)
+    info.update(batch_s=t_exec, qps=len(batch) / t_exec,
+                uncalibrated_qps=len(batch) / t_uncal,
+                choices=plan.explain()["cost_model"]["choices"],
+                device_loop=plan.logical.device_loop,
+                vr_routes=[k for k, _, _ in st.stage_samples
+                           if k.startswith("vr:")])
+    bad = [i for i, (r, t) in enumerate(zip(res, truths))
+           if not np.array_equal(r, t)]
+    info["mismatches"] = len(bad)
+    if bad:
+        return f"calibrated batch: query {bad[0]} differs from the " \
+               f"oracle", info
+    if min(info["launches"][n] for n in ("pairwise_sq_l2",
+                                         "topk_l2_masked")) <= 0:
+        return f"calibration launched no engine kernel: {info}", info
+    return None, info
 
 
 # ------------------------------------------------------------ model paths
@@ -1408,6 +1626,54 @@ def main() -> int:
     if mp_launches["quant_lb2"] <= 0:
         return fail(f"quant_lb2 never launched on the mixed-precision "
                     f"path: {mp_launches}")
+
+    # ------------------------------------------------- planner paths
+    # on the same platform, after its timed batches: the scalar path, the
+    # two executors, Algorithm 3 and the cost model's calibration
+    t_planner = time.time()
+    t0 = time.time()
+    err, sc = drive_scalar_path(args, dev, p, radius, kmods)
+    log(f"scalar path: {time.time() - t0:.1f} s; ms per query by form "
+        f"(MQRLD.execute, record=False, 8 each, rows equal to the oracle): "
+        + json.dumps(sc["ms_per_query"]))
+    if "n_scalar" in sc:
+        log(f"scalar path: planned batch of 64, n_scalar {sc['n_scalar']}: "
+            f"{sc.get('planned_batch_s', float('nan')):.3f} s, mismatches "
+            f"{sc.get('planned_batch_mismatches')}; launches "
+            + json.dumps(sc.get("launches")))
+    if err:
+        return fail(err)
+    t0 = time.time()
+    err, ex_info, host = drive_executors(args, dev, p, kmods)
+    log(f"executors: {time.time() - t0:.1f} s; 64 V.K at k = 20 over the "
+        f"enhanced features: " + json.dumps(ex_info))
+    if err:
+        return fail(err)
+    t0 = time.time()
+    err, re_info = drive_reorder(args, p, host)
+    log(f"reorder: {time.time() - t0:.1f} s; " + json.dumps(re_info))
+    if err:
+        return fail(err)
+    del host
+    t0 = time.time()
+    err, cal = drive_calibration(args, dev, p, batch, truths, t_exec, kmods)
+    log(f"calibrate: {time.time() - t0:.1f} s in all; calibrate() "
+        f"{cal['calibrate_s']:.1f} s, by loop (s): "
+        + json.dumps(cal["sweep_s"]) + f", host loop's share "
+        f"{cal['sweep_s']['host'] / max(1e-9, sum(cal['sweep_s'].values())):.3f}")
+    for kind, ent in cal["kinds"].items():
+        log(f"  cost model {kind}: " + json.dumps(ent))
+    log(f"calibrated session: timed batch {cal.get('batch_s', float('nan')):.3f}"
+        f" s, qps {cal.get('qps', float('nan')):.1f} (uncalibrated "
+        f"{cal.get('uncalibrated_qps', float('nan')):.1f}); device_loop "
+        f"{cal.get('device_loop')}; choices " + json.dumps(cal.get("choices"))
+        + "; V.R routes " + json.dumps(cal.get("vr_routes"))
+        + f"; mismatches {cal.get('mismatches')}; calibration launches "
+        + json.dumps(cal["launches"]))
+    if err:
+        return fail(err)
+    log(f"planner paths: {time.time() - t_planner:.1f} s")
+
     del p, batch, res, truths, mp_rows, sess, eng
     gc.collect()            # the platform's reference cycles hold GiBs
     torch.cuda.empty_cache()

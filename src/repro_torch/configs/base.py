@@ -221,11 +221,11 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 # Reference architectures whose model modules are not ported yet, with the
 # ROADMAP item (queue 1) that ports them.
 PENDING: Dict[str, str] = {
-    "phi3.5-moe-42b-a6.6b": "queue 1 item 1, MoE (models/moe.py)",
-    "arctic-480b": "queue 1 item 1, MoE (models/moe.py)",
-    "hymba-1.5b": "queue 1 item 1, hymba (models/hymba.py)",
-    "xlstm-1.3b": "queue 1 item 1, xlstm (models/xlstm.py)",
-    "seamless-m4t-medium": "queue 1 item 1, enc-dec (models/encdec.py)",
+    "phi3.5-moe-42b-a6.6b": "queue 1 item 6, MoE (models/moe.py)",
+    "arctic-480b": "queue 1 item 6, MoE (models/moe.py)",
+    "hymba-1.5b": "queue 1 item 6, hymba (models/hymba.py)",
+    "xlstm-1.3b": "queue 1 item 6, xlstm (models/xlstm.py)",
+    "seamless-m4t-medium": "queue 1 item 6, enc-dec (models/encdec.py)",
 }
 
 

@@ -1,19 +1,58 @@
-"""Analytic cost features of the engine's stages (port of the feature
-functions of ``repro/core/cost.py``).
+"""Calibrated per-host execution cost model for the planner's path
+choices. Port of ``repro/core/cost.py`` for one device.
 
-The engine records every executed KNN and V.R stage as (kind, features,
-observed seconds) into the QBS cost rings, and the planner's explain()
-reads them back. The fitted ``CostModel`` and its calibration come with a
-later slice; until then no model is attached and every path choice uses
-the fixed thresholds, exactly as an uncalibrated reference platform does.
+The planner picks the KNN beam loop (host doubling loop or device
+loop) and the engine picks the V.R route (tile union or dense column
+pass) by fixed constants (the session's loop, ``engine._VR_DENSE_CUTOFF``)
+that are right on one host only. This module replaces them with a small
+model fitted on the host that serves:
+
+  stage kinds     one linear model per stage family: "knn:host",
+                  "knn:device", "vr:tile", "vr:dense" (the reference's
+                  "knn:sharded:sN" kinds wait for sharding; a carried
+                  model that holds one keeps it, and no choice here
+                  ever reads it)
+  features        analytic per-stage vectors (``knn_features`` /
+                  ``vr_features``): queries, first-round scan work scaled
+                  by the scan precision's bytes, candidate rows staged,
+                  top-k work, the straggler round budget, collective
+                  volume (0 on one device)
+  fit             ridge regression over (features, observed seconds)
+                  samples from the QBS cost rings, which every executed
+                  engine stage fills (``EngineStats.stage_samples``)
+  calibration     ``calibrate_platform`` runs synthetic hybrid batches
+                  through both loops and fits from the recorded rings
+  online refit    ``maybe_refit`` refits after ``_REFIT_EVERY`` new
+                  samples; the planner calls it after every executed plan
+
+Fallback contract: the model is ADVISORY. Without a model, with a kind
+not fitted, or with a fit whose in-sample median relative error exceeds
+``CostModel.RELIABLE_ERR``, every consumer keeps its fixed behaviour
+byte for byte. ``predict`` declines (None) beyond ``EXTRAPOLATION_MAX``
+times the fitted feature range. Predictions only move work between
+exact paths: rows never depend on them. The math (features, fit, trims,
+gates) is the reference's, so a model carried across with ``to_dict`` /
+``from_dict`` makes the reference's choices on the same state.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.core.lake import _next_pow2
 
+COST_MODEL_VERSION = 1
+_RIDGE_LAMBDA = 1e-3     # relative to mean feature scale (see ridge_fit)
+_MIN_SAMPLES = 8         # per kind; fewer leaves the kind uncalibrated
+_REFIT_EVERY = 32        # new observed samples between online refits
+
+KNN_FEATURE_DIM = 7
+VR_FEATURE_DIM = 5
 
 _SCAN_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 
@@ -89,3 +128,239 @@ def vr_features(kind: str, g: int, union_tiles: int, cap: int, dim: int,
         rows = float(_next_pow2(max(1, union_tiles)) * cap)
     return (1.0, float(g), g * rows * dim / 1e6, rows * dim / 1e6,
             g * rows / 1e6)
+
+
+def ridge_fit(X: np.ndarray, y: np.ndarray,
+              lam: float = _RIDGE_LAMBDA) -> np.ndarray:
+    """Ridge weights ``(XtX + lam*scale*I)^-1 Xt y`` with the regularizer
+    scaled to the mean diagonal of XtX, so one lambda works across
+    feature magnitudes."""
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y, np.float64)
+    xtx = X.T @ X
+    scale = float(np.trace(xtx)) / max(1, xtx.shape[0])
+    reg = lam * max(scale, 1e-12) * np.eye(xtx.shape[0])
+    return np.linalg.solve(xtx + reg, X.T @ y)
+
+
+def steady_samples(X: np.ndarray, y: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The least observed seconds per distinct feature row: repeated
+    executions of one stage shape re-record the same row, and the first
+    carries one-off costs (on the card: kernel loads and first
+    allocations), an outlier that would dominate a least-squares fit."""
+    best: Dict[Tuple, float] = {}
+    for row, sec in zip(X, y):
+        key = tuple(row)
+        if key not in best or sec < best[key]:
+            best[key] = float(sec)
+    return (np.asarray([list(k) for k in best], np.float64),
+            np.asarray([best[k] for k in best], np.float64))
+
+
+class CostModel:
+    """Per-host collection of per-stage-kind ridge models.
+
+    ``kinds`` maps a stage kind to {"w": weights, "n": training samples,
+    "err": in-sample median relative error, "hi": per-feature training
+    max}; ``host`` records the calibration host's fingerprint. The dict
+    form (``to_dict``) is the reference's ``cost_model.json``."""
+
+    #: in-sample median relative error above which a fitted kind no
+    #: longer STEERS decisions (its predictions are still reported)
+    RELIABLE_ERR = 1.0
+
+    #: predictions are declined once any feature exceeds this multiple of
+    #: the largest value seen in training: ridge weights can be negative,
+    #: so far extrapolation inverts
+    EXTRAPOLATION_MAX = 4.0
+
+    def __init__(self, kinds: Optional[Dict] = None,
+                 host: Optional[Dict] = None):
+        self.kinds: Dict[str, Dict] = dict(kinds or {})
+        self.host: Dict = dict(host or {})
+        # online-refit cursor: QBSTable.cost_total at the last fit
+        self._fit_seen = 0
+        # seconds the last calibration sweep spent in each loop kind
+        self.sweep_s: Dict[str, float] = {}
+
+    def calibrated(self, *kinds: str) -> bool:
+        """True when every named kind has a fitted model (no names: when
+        ANY kind is fitted)."""
+        if not kinds:
+            return bool(self.kinds)
+        return all(k in self.kinds for k in kinds)
+
+    def reliable(self, *kinds: str) -> bool:
+        """True when every named kind is fitted AND its in-sample error is
+        at most ``RELIABLE_ERR``: the gate of every decision."""
+        return all(k in self.kinds
+                   and float(self.kinds[k].get("err", np.inf))
+                   <= self.RELIABLE_ERR
+                   for k in kinds)
+
+    def predict(self, kind: str, feats: Sequence[float]
+                ) -> Optional[float]:
+        """Predicted stage seconds, or None ("no opinion") when the kind
+        is not fitted, the feature vector does not match the fit, or a
+        feature lies beyond ``EXTRAPOLATION_MAX`` times its training
+        max."""
+        ent = self.kinds.get(kind)
+        if ent is None:
+            return None
+        w = np.asarray(ent["w"], np.float64)
+        x = np.asarray(feats, np.float64)
+        if x.shape != w.shape:
+            return None
+        hi = ent.get("hi")
+        if hi is not None and np.any(
+                x > self.EXTRAPOLATION_MAX * np.asarray(hi, np.float64)
+                + 1e-12):
+            return None
+        return float(max(float(w @ x), 1e-9))
+
+    def fit_from_qbs(self, qbs, min_samples: int = _MIN_SAMPLES
+                     ) -> List[str]:
+        """Fit every stage kind with at least ``min_samples`` samples in
+        the QBS cost rings; returns the kinds (re)fitted. Kinds below the
+        floor keep their previous fit (or stay unfitted)."""
+        fitted: List[str] = []
+        for kind in sorted(qbs.cost):
+            s = qbs.cost_samples(kind)
+            if s is None:
+                continue
+            X, y = s
+            if len(y) < min_samples:
+                continue
+            X, y = steady_samples(X, y)
+            w = ridge_fit(X, y)
+            pred = np.maximum(X @ w, 1e-9)
+            rel = np.abs(pred - y) / np.maximum(y, 1e-9)
+            # trimmed refit: a shape executed once keeps its one-off cost
+            # in, and one 100x outlier wrecks a ridge fit; drop
+            # order-of-magnitude residuals and refit once, keeping at
+            # least half the data
+            keep = rel <= max(5.0 * float(np.median(rel)), 1.0)
+            if int(keep.sum()) >= max(4, len(y) // 2) \
+                    and int(keep.sum()) < len(y):
+                w = ridge_fit(X[keep], y[keep])
+                pred = np.maximum(X[keep] @ w, 1e-9)
+                X, y = X[keep], y[keep]
+            err = float(np.median(np.abs(pred - y)
+                                  / np.maximum(y, 1e-9)))
+            self.kinds[kind] = {"w": [float(v) for v in w],
+                                "n": int(len(y)), "err": err,
+                                "hi": [float(v) for v in X.max(axis=0)]}
+            fitted.append(kind)
+        self._fit_seen = int(qbs.cost_total)
+        return fitted
+
+    def maybe_refit(self, qbs) -> bool:
+        """Online recalibration: refit once ``_REFIT_EVERY`` new stage
+        samples arrived since the last fit (a no-op in between)."""
+        if int(qbs.cost_total) - self._fit_seen < _REFIT_EVERY:
+            return False
+        return bool(self.fit_from_qbs(qbs))
+
+    def to_dict(self) -> Dict:
+        return {"version": COST_MODEL_VERSION, "host": self.host,
+                "kinds": self.kinds}
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "CostModel":
+        return cls(kinds=d.get("kinds") or {}, host=d.get("host") or {})
+
+
+def host_fingerprint(device) -> Dict:
+    """What a calibration was measured on (the reference's keys), so a
+    model carried to another host is recognizably stale; it stays
+    advisory either way."""
+    return {"cpu_count": os.cpu_count() or 1,
+            "device_count": torch.cuda.device_count(),
+            "backend": torch.device(device).type}
+
+
+# ---------------------------------------------------------------------------
+# Calibration sweep
+# ---------------------------------------------------------------------------
+def _calibration_batches(p, rng: np.random.Generator, batch: int):
+    """Synthetic hybrid batches over the platform's own columns, covering
+    every stage family: plain V.K at two k, filtered V.K, small-radius
+    V.R (the tile route) and large-radius V.R (the dense pass). The
+    reference's draws, so both packages sweep the same queries."""
+    from repro_torch.core import query as Q
+    table = p.table
+    attr = next(iter(table.vector))
+    col = np.asarray(table.vector[attr], np.float32)
+    n = len(col)
+    num = next(iter(table.numeric), None)
+    # radii from an anchor's true distance profile: r_small about its
+    # 10th-nearest-neighbour distance (a few tiles: the tile route),
+    # r_large past its farthest row (the dense pass)
+    anchor = col[rng.integers(0, n)]
+    d = np.sort(np.sqrt(((col - anchor[None, :]) ** 2).sum(1)))
+    d = d[d > 0]
+    r_small = float(d[min(10, len(d) - 1)]) if len(d) else 1.0
+    r_large = float(d[-1] * 1.1 + 1e-6) if len(d) else 1.0
+
+    def vk(k=8):
+        v = col[rng.integers(0, n)] + rng.normal(0, 1e-3, col.shape[1])
+        return Q.VK.of(attr, v.astype(np.float32), k)
+
+    def vr(radius):
+        v = col[rng.integers(0, n)]
+        return Q.VR.of(attr, v, radius)
+
+    def vr_near(radius):
+        # jittered copies of the SAME anchor keep the batch's leaf union
+        # a handful of tiles, so the device path takes the tile route
+        v = anchor + rng.normal(0, 1e-3, col.shape[1])
+        return Q.VR.of(attr, v.astype(np.float32), radius)
+
+    batches = [[vk(8) for _ in range(batch)],
+               [vk(32) for _ in range(max(2, batch // 2))],
+               [vr_near(r_small) for _ in range(batch)],
+               [vr(r_large) for _ in range(max(2, batch // 2))]]
+    if num is not None:
+        nv = np.asarray(table.numeric[num], np.float64)
+        lo, hi = float(np.quantile(nv, 0.2)), float(np.quantile(nv, 0.8))
+        batches.append([Q.And.of(Q.NR(num, lo, hi), vk())
+                        for _ in range(batch)])
+        batches.append([Q.And.of(vr_near(r_small), vk(4))
+                        for _ in range(max(2, batch // 2))])
+    return batches
+
+
+def calibrate_platform(p, *, batch: int = 16, repeats: int = 2,
+                       seed: int = 0) -> CostModel:
+    """Run the calibration sweep and fit (or refresh) ``p.cost_model``.
+
+    The synthetic batches run through the host loop and the device loop,
+    each at four sizes (one sample per stage group and execution, so the
+    sizes multiply the samples past the fit floor and spread the group
+    size); the engine's stage timers fill the QBS cost rings, and one
+    ridge model is fitted per observed kind. Warm the platform's engine
+    first: its first launches carry one-off costs. ``sweep_s`` on the
+    returned (installed) model holds the seconds each loop took."""
+    rng = np.random.default_rng(seed)
+    sessions = [(p.session(device_loop=False), False),
+                (p.session(device_loop=True), True)]
+    sweep = {"host": 0.0, "device": 0.0}
+    for _ in range(max(1, repeats)):
+        batches = _calibration_batches(p, rng, batch)
+        for sess, dl in sessions:
+            t0 = time.time()
+            for qs in batches:
+                for sub in (qs, qs[::2], qs[1::2],
+                            qs[:max(1, len(qs) // 4)]):
+                    if sub:
+                        sess.plan(sub, device_loop=dl).execute()
+            if p.device.type == "cuda":
+                torch.cuda.synchronize(p.device)
+            sweep["device" if dl else "host"] += time.time() - t0
+    model = p.cost_model if p.cost_model is not None else CostModel()
+    model.fit_from_qbs(p.qbs)
+    model.host = host_fingerprint(p.device)
+    model.sweep_s = sweep
+    p.cost_model = model
+    return model

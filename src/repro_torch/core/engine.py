@@ -46,7 +46,7 @@ proves the result: the k-th exact distance among the candidates must lie
 strictly below a lower bound, net of every fp32 error, on each row left
 out (rows the kernel ranked past the candidates, rows it may have skipped
 by their tile bound, rows of tiles never scanned). The jobs that fail the
-proof take ``_widen``: one pairwise pass of their queries over the whole
+proof take ``widen_exact``: one pairwise pass of their queries over the whole
 column keeps every row that could still rank within k, and those rows
 are re-ranked exactly (``EngineStats.knn_exact_fallbacks`` counts the
 jobs). Where the expansion order is already exact the certified rows
@@ -77,7 +77,7 @@ from repro_torch.utils import quant
 
 # candidates kept past the stopping rank for the re-rank: a margin for
 # speed only, since a job whose margin is too thin to certify takes
-# ``HybridEngine._widen`` instead
+# ``widen_exact`` instead
 _RERANK_EXTRA = 8
 _INF = float("inf")
 _U32 = 2.0 ** -24   # unit roundoff of fp32
@@ -175,7 +175,7 @@ class EngineStats:
     rows_scanned: int = 0        # valid rows fed to the top-k kernel
     knn_rounds: int = 0
     knn_jobs: int = 0            # V.K jobs re-ranked (proven or widened)
-    knn_exact_fallbacks: int = 0  # V.K jobs whose re-rank took _widen
+    knn_exact_fallbacks: int = 0  # V.K jobs whose re-rank took widen_exact
     vr_tiles_scanned: int = 0    # tiles gathered by the V.R tile planner
     vr_tiles_pruned: int = 0     # tiles dropped by the V.R triangle bound
     vr_dense_fallbacks: int = 0  # V.R groups that took the dense column path
@@ -620,6 +620,61 @@ def _rerank_certified(t_k: float, m: float, next_lb: float, qq: float,
     return t_k < lo * (1 - (dim + 2) * _U32)
 
 
+def rerank_exact(x: np.ndarray, qv: np.ndarray, dist: np.ndarray,
+                 rows: np.ndarray, next_lb: float, k: int, pmax2: float,
+                 geom: LeafGeometry,
+                 refuted: Tuple[float, float] = (_INF, _INF)
+                 ) -> Tuple[np.ndarray, bool, float]:
+    """A scan's candidates (``rows`` of the column ``x``, with the
+    kernel's L2 ``dist``) re-ranked by the oracle's own formula and its
+    tie law (exactly equal distances order by row id). ``pmax2`` is the
+    column's max |row|^2 padded against its rounding, ``geom`` the
+    scanned layout. Returns (top-k rows, whether ``_rerank_certified``
+    proves them complete, the k-th exact squared distance)."""
+    cand = rows[rows >= 0]
+    d2 = np.sum((x[cand] - qv[None, :]) ** 2, axis=1)
+    order = np.lexsort((cand, d2))
+    t_k = float(d2[order[k - 1]]) if len(cand) >= k else _INF
+    q64 = qv.astype(np.float64)
+    ok = _rerank_certified(t_k, float(dist[-1]) ** 2, float(next_lb),
+                           float(q64 @ q64), len(qv), pmax2, geom.cen_max2,
+                           geom.rad_max, float(refuted[0]),
+                           float(refuted[1]))
+    return cand[order[:k]], ok, t_k
+
+
+def widen_exact(x: np.ndarray, x_dev: torch.Tensor, qs: torch.Tensor,
+                qv: np.ndarray, masks: Optional[torch.Tensor], fails,
+                pmax2: float) -> List[np.ndarray]:
+    """Exact rows for the jobs whose re-rank was not proven, from one
+    pairwise pass of their queries over the whole column (``x`` on the
+    host, ``x_dev`` on the device). Each job's k-th exact candidate
+    distance ``t_k`` bounds the oracle's k-th from above, so every oracle
+    row has an expansion distance within t_k plus the fp32 errors; the
+    rows within that threshold (and the job's mask) are re-ranked by the
+    oracle's formula. ``fails`` holds (position in ``qs``, k, t_k); one
+    row array per failure comes back."""
+    pos = [f[0] for f in fails]
+    dim = qv.shape[1]
+    q64 = qv[pos].astype(np.float64)
+    e_row = 4 * dim * _U32 * ((q64 * q64).sum(1) + pmax2)
+    t_k = np.asarray([f[2] for f in fails])
+    # the (1 + 4u) factor keeps the fp32 cast from rounding it down
+    thr = (t_k / (1 - (dim + 2) * _U32) + e_row) * (1 + 4 * _U32)
+    sel = torch.as_tensor(pos, device=x_dev.device)
+    hit = ops.pairwise_sq_l2(qs[sel], x_dev) <= torch.as_tensor(
+        thr, dtype=torch.float32, device=x_dev.device)[:, None]
+    if masks is not None:
+        hit &= masks[sel]
+    at = torch.nonzero(hit).cpu().numpy()
+    out = []
+    for j, (p, k, _) in enumerate(fails):
+        cand = at[at[:, 0] == j, 1]
+        d2 = np.sum((x[cand] - qv[p][None, :]) ** 2, axis=1)
+        out.append(cand[np.lexsort((cand, d2))[:k]])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Grouped predicate masks (one call per (type, attr) group)
 # ---------------------------------------------------------------------------
@@ -766,12 +821,16 @@ class HybridEngine:
     (``ClusterTree``, the permuted ``MMOTable``, ``LeafMeta``).
     ``precision`` selects the KNN scan ("fp32", "bf16" or "int8"; rows
     are the same); persisted planes (``quant_cache``) come with the
-    persistence slice, so it must be None."""
+    persistence slice, so it must be None. ``cost_model`` (a
+    ``cost.CostModel`` or None) steers the V.R dense-vs-tile route once
+    both V.R kinds are reliably fitted (``_vr_masks``); the owning
+    platform refreshes it on every ``engine()`` call."""
 
     def __init__(self, tree, table, meta, *, beam: int = 16,
                  tile: int = 128, device_loop: bool = True,
                  device_tile: Optional[int] = None, device=None,
-                 precision: str = "fp32", quant_cache=None):
+                 precision: str = "fp32", quant_cache=None,
+                 cost_model=None):
         if precision not in quant.PRECISIONS:
             raise ValueError(f"precision must be one of {quant.PRECISIONS},"
                              f" got {precision!r}")
@@ -779,6 +838,7 @@ class HybridEngine:
             raise NotImplementedError(
                 "quant_cache: persisted tile planes come with the port of "
                 "core/persist.py; pass None to quantize at build")
+        self.cost_model = cost_model
         # mixed-precision tile scan: both beam-loop layouts get planes
         # built here; the V.R predicate path stays fp32
         self.precision = precision
@@ -915,11 +975,14 @@ class HybridEngine:
                   ) -> Tuple[np.ndarray, int]:
         """(g, n) exact radius masks for one V.R group. tile_route=True
         (device path): the triangle bound keeps only plausible tiles and
-        distances are evaluated on their union, unless the survivors
-        cover more than ``_VR_DENSE_CUTOFF`` of the table, where the
-        dense column pass runs instead; tile_route=False (oracle path):
-        always the dense pass. Rows near the boundary are re-checked on
-        the host with the exact formula either way."""
+        distances are evaluated on their union, unless the dense column
+        pass is chosen instead: by predicted cost when ``cost_model`` is
+        reliably fitted for both "vr:dense" and "vr:tile" and predicts
+        both, else when the survivors cover more than
+        ``_VR_DENSE_CUTOFF`` of the table. tile_route=False (oracle
+        path): always the dense pass. Both routes return the same masks;
+        rows near the boundary are re-checked on the host with the exact
+        formula either way."""
         t_vr0 = time.time()
         vecs = np.stack([b.vec() for b in grp])
         r = np.asarray([b.radius for b in grp], np.float32)
@@ -935,8 +998,20 @@ class HybridEngine:
         union = np.nonzero(leaf_ok.any(axis=0))[0]
         dim = vecs.shape[1]
         col = self.vec_np[attr]
-        if not tile_route or \
-                len(union) * self.cap > _VR_DENSE_CUTOFF * max(1, self.n):
+        feats_dense = costm.vr_features("vr:dense", g, len(union),
+                                        self.cap, dim, self.n)
+        feats_tile = costm.vr_features("vr:tile", g, len(union),
+                                       self.cap, dim, self.n)
+        use_dense = len(union) * self.cap > _VR_DENSE_CUTOFF \
+            * max(1, self.n)
+        cm = self.cost_model
+        if tile_route and cm is not None \
+                and cm.reliable("vr:dense", "vr:tile"):
+            pd = cm.predict("vr:dense", feats_dense)
+            pt = cm.predict("vr:tile", feats_tile)
+            if pd is not None and pt is not None:
+                use_dense = pd <= pt
+        if not tile_route or use_dense:
             if tile_route:
                 stats.vr_dense_fallbacks += 1
             m, near = _vr_dense_masks(qs, r_t, leaf_ok_t, self.vec[attr],
@@ -947,9 +1022,7 @@ class HybridEngine:
                 exact = (((col[ris] - vecs[gis]) ** 2).sum(1) <= r2[gis])
                 m[gis, ris] = exact
             stats.stage_samples.append(
-                ("vr:dense", costm.vr_features("vr:dense", g, len(union),
-                                               self.cap, dim, self.n),
-                 time.time() - t_vr0))
+                ("vr:dense", feats_dense, time.time() - t_vr0))
             return m, touched
         stats.vr_tiles_scanned += touched
         # pad the union to a power of two (bounded shape universe, as in
@@ -977,9 +1050,7 @@ class HybridEngine:
             exact = (((col[rws] - vecs[gis]) ** 2).sum(1) <= r2[gis])
             m[gis, rws] = exact
         stats.stage_samples.append(
-            ("vr:tile", costm.vr_features("vr:tile", g, len(union),
-                                          self.cap, dim, self.n),
-             time.time() - t_vr0))
+            ("vr:tile", feats_tile, time.time() - t_vr0))
         return m, touched
 
     # --------------------------------------------------------------- stage 3
@@ -1035,55 +1106,6 @@ class HybridEngine:
     def _group_jobs(self, jobs, device_loop: bool) -> List[KnnGroupSpec]:
         specs = tuple((vk.attr, vk.k, m is not None) for vk, m in jobs)
         return list(group_job_specs(specs, device_loop))
-
-    def _rerank(self, attr: str, geom: LeafGeometry, qv: np.ndarray,
-                dist: np.ndarray, rows: np.ndarray, next_lb: float,
-                k: int, refuted: Tuple[float, float] = (_INF, _INF)
-                ) -> Tuple[np.ndarray, bool, float]:
-        """The scan's candidates re-ranked by the oracle's own formula and
-        its tie law (exactly equal distances order by row id). Returns
-        (top-k rows, whether ``_rerank_certified`` proves them complete,
-        the k-th exact squared distance)."""
-        x = self.vec_np[attr]
-        cand = rows[rows >= 0]
-        d2 = np.sum((x[cand] - qv[None, :]) ** 2, axis=1)
-        order = np.lexsort((cand, d2))
-        t_k = float(d2[order[k - 1]]) if len(cand) >= k else _INF
-        q64 = qv.astype(np.float64)
-        ok = _rerank_certified(t_k, float(dist[-1]) ** 2, float(next_lb),
-                               float(q64 @ q64), len(qv),
-                               self.vec_max2[attr], geom.cen_max2,
-                               geom.rad_max, float(refuted[0]),
-                               float(refuted[1]))
-        return cand[order[:k]], ok, t_k
-
-    def _widen(self, attr: str, qs: torch.Tensor, qv: np.ndarray,
-               masks: Optional[torch.Tensor], fails, jobs, out) -> None:
-        """Exact rows for the jobs whose re-rank was not proven, from one
-        pairwise pass of their queries over the whole column. Each job's
-        k-th exact candidate distance ``t_k`` bounds the oracle's k-th
-        from above, so every oracle row has an expansion distance within
-        t_k plus the fp32 errors; the rows within that threshold (and the
-        job's mask) are re-ranked by the oracle's formula. ``fails`` holds
-        (position in the group, job index, t_k)."""
-        pos = [f[0] for f in fails]
-        dim = qv.shape[1]
-        q64 = qv[pos].astype(np.float64)
-        e_row = 4 * dim * _U32 * ((q64 * q64).sum(1) + self.vec_max2[attr])
-        t_k = np.asarray([f[2] for f in fails])
-        # the (1 + 4u) factor keeps the fp32 cast from rounding it down
-        thr = (t_k / (1 - (dim + 2) * _U32) + e_row) * (1 + 4 * _U32)
-        sel = torch.as_tensor(pos, device=self.device)
-        hit = ops.pairwise_sq_l2(qs[sel], self.vec[attr]) <= torch.as_tensor(
-            thr, dtype=torch.float32, device=self.device)[:, None]
-        if masks is not None:
-            hit &= masks[sel]
-        at = torch.nonzero(hit).cpu().numpy()
-        x = self.vec_np[attr]
-        for j, (p, i, _) in enumerate(fails):
-            cand = at[at[:, 0] == j, 1]
-            d2 = np.sum((x[cand] - qv[p][None, :]) ** 2, axis=1)
-            out[i] = cand[np.lexsort((cand, d2))[:jobs[i][0].k]]
 
     def _run_jobs(self, jobs, stats: EngineStats, device_loop: bool,
                   groups: Optional[Sequence[KnnGroupSpec]] = None,
@@ -1157,17 +1179,22 @@ class HybridEngine:
                 precision=self.precision, seed=seed)
             stats.stage_samples.append(
                 (costm.knn_kind(device_loop), feats, time.time() - t_g0))
-            fails = []
+            fails, failed = [], []
             stats.knn_jobs += len(idxs)
             for pos, i in enumerate(idxs):
-                out[i], proven, t_k = self._rerank(
-                    attr, geom, qv[pos], dist[pos], rows[pos],
-                    next_lb[0][pos], jobs[i][0].k, refuted[0][pos])
+                out[i], proven, t_k = rerank_exact(
+                    self.vec_np[attr], qv[pos], dist[pos], rows[pos],
+                    next_lb[0][pos], jobs[i][0].k, self.vec_max2[attr],
+                    geom, refuted[0][pos])
                 if not proven:
-                    fails.append((pos, i, t_k))
+                    fails.append((pos, jobs[i][0].k, t_k))
+                    failed.append(i)
             if fails:
                 stats.knn_exact_fallbacks += len(fails)
-                self._widen(attr, qs, qv, masks, fails, jobs, out)
+                for i, r in zip(failed, widen_exact(
+                        self.vec_np[attr], self.vec[attr], qs, qv, masks,
+                        fails, self.vec_max2[attr])):
+                    out[i] = r
         return out  # type: ignore[return-value]
 
     # -------------------------------------------------------------- explain

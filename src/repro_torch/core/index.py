@@ -1,6 +1,6 @@
-"""High-dimensional learned index (paper §6): the build (Algorithm 2).
-Port of ``repro/core/index.py``; the host executor, the batched executor
-and the incremental fold come with later slices.
+"""High-dimensional learned index (paper §6). Port of
+``repro/core/index.py``: the build (Algorithm 2) and the two executors;
+the incremental fold comes with ingest.
 
 Build = divisive hierarchical clustering: DPC splits, a training-based
 stop rule (a linear CDF over distance-to-centroid keys must predict
@@ -10,17 +10,33 @@ struct-of-arrays whose leaf buckets are contiguous row ranges of the
 permuted table. The tree logic is host numpy with the reference's seeds,
 so both packages build the same tree from the same features wherever
 their fp32 distances agree; the distance blocks run on ``device``.
+
+Queries run in two executors that return the same rows:
+
+  * ``HostExecutor`` — the paper-faithful traversal in sibling order
+    with C/R pruning and model-seeded last-mile windows; it counts node
+    scans and bucket touches (CBR, Algorithm 3's input). Host numpy, as
+    in the reference, so rows, ``QueryStats`` and ``access_count`` are
+    the reference's bit for bit.
+  * ``BatchedExecutor`` — lower-bound ranking over every leaf tile with
+    the beam doubling of ``engine.batched_knn``, whose rounds launch the
+    ``topk_l2_masked`` kernel on the card.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.dpc import dpc
+from repro_torch.core.engine import (_RERANK_EXTRA, _U32, EngineStats,
+                                     LeafGeometry, batched_knn,
+                                     bucket_tiles, rerank_exact, tile_data,
+                                     widen_exact)
 from repro_torch.kernels import ops
 
 
@@ -220,3 +236,235 @@ def build_index(features: np.ndarray, *, delta: float = 0.951,
         lm_hit_ratio=float(np.mean(hit_ratios)) if hit_ratios else 1.0,
         index_bytes=tree.size_bytes())
     return tree, perm, report
+
+
+# ---------------------------------------------------------------------------
+# Host executor (paper-faithful traversal)
+# ---------------------------------------------------------------------------
+class HostExecutor:
+    """Sibling-order traversal with C/R pruning + last-mile bucket scans.
+
+    ``data`` must be the PERMUTED feature matrix (tree bucket ranges index
+    it directly); ``keys[i]`` = distance of row i to its leaf centroid.
+    """
+
+    def __init__(self, tree: ClusterTree, data: np.ndarray):
+        self.tree = tree
+        self.data = np.asarray(data, np.float32)
+        self.keys = self._row_keys()
+
+    def _row_keys(self) -> np.ndarray:
+        keys = np.zeros(len(self.data), np.float32)
+        for lid in self.tree.leaf_ids:
+            s, e = (int(self.tree.bucket_start[lid]),
+                    int(self.tree.bucket_end[lid]))
+            c = self.tree.centroid[lid]
+            keys[s:e] = np.sqrt(
+                np.maximum(((self.data[s:e] - c) ** 2).sum(1), 0))
+        return keys
+
+    def _leaf_window(self, lid: int, key_lo: float, key_hi: float
+                     ) -> Tuple[int, int]:
+        """Last-mile search: the linear CDF model predicts the position of
+        the query key; the window doubles outward until the sorted keys
+        bracket [key_lo, key_hi] (paper §6.1.1)."""
+        s, e = int(self.tree.bucket_start[lid]), int(self.tree.bucket_end[lid])
+        m = e - s
+        if m == 0:
+            return s, s
+        ks = self.keys[s:e]
+        a, b = float(self.tree.lm_a[lid]), float(self.tree.lm_b[lid])
+        # model-seeded exponential expansion, then exact tighten
+        pos_lo = int(np.clip(round((a * key_lo + b) * m - 0.5), 0, m - 1))
+        pos_hi = int(np.clip(round((a * key_hi + b) * m - 0.5), 0, m - 1))
+        w = 8
+        lo = pos_lo
+        while lo > 0 and ks[lo] >= key_lo:
+            lo = max(0, lo - w)
+            w *= 2
+        w = 8
+        hi = pos_hi + 1
+        while hi < m and ks[hi - 1] <= key_hi:
+            hi = min(m, hi + w)
+            w *= 2
+        lo_b = lo + int(np.searchsorted(ks[lo:hi], key_lo, side="left"))
+        hi_b = lo + int(np.searchsorted(ks[lo:hi], key_hi, side="right"))
+        return s + lo_b, s + hi_b
+
+    def knn(self, q: np.ndarray, k: int,
+            row_mask: Optional[np.ndarray] = None
+            ) -> Tuple[np.ndarray, QueryStats]:
+        t0 = time.time()
+        tree = self.tree
+        stats = QueryStats()
+        q = np.asarray(q, np.float32)
+        best_d = np.full(k, np.inf)
+        best_i = np.full(k, -1, np.int64)
+
+        def push(cands: np.ndarray):
+            nonlocal best_d, best_i
+            if not len(cands):
+                return
+            d2 = ((self.data[cands] - q) ** 2).sum(1)
+            if row_mask is not None:
+                d2 = np.where(row_mask[cands], d2, np.inf)
+            d = np.sqrt(np.maximum(d2, 0))
+            # carried best first, then a stable sort: equal distances
+            # keep the visit order
+            alld = np.concatenate([best_d, d])
+            alli = np.concatenate([best_i, cands])
+            sel = np.argsort(alld, kind="stable")[:k]
+            best_d, best_i = alld[sel], alli[sel]
+
+        def visit(node: int):
+            stats.nodes_scanned += 1
+            tree.access_count[node] += 1
+            cq = float(np.linalg.norm(q - tree.centroid[node]))
+            lb = max(0.0, cq - float(tree.radius[node]))
+            if lb > best_d[-1]:
+                return
+            if tree.is_leaf[node]:
+                stats.touch(node)
+                dk = best_d[-1]
+                if np.isfinite(dk):
+                    lo, hi = self._leaf_window(node, cq - dk, cq + dk)
+                else:
+                    lo, hi = (int(tree.bucket_start[node]),
+                              int(tree.bucket_end[node]))
+                stats.rows_scanned += hi - lo
+                push(np.arange(lo, hi))
+                return
+            for ch in tree.children[node]:  # sibling order (Algorithm 3)
+                visit(ch)
+
+        visit(0)
+        stats.time_s = time.time() - t0
+        stats.cbr = stats.buckets_touched / max(1, len(tree.leaf_ids))
+        valid = best_i >= 0
+        return best_i[valid], stats
+
+    def range_query(self, q: np.ndarray, radius: float,
+                    row_mask: Optional[np.ndarray] = None
+                    ) -> Tuple[np.ndarray, QueryStats]:
+        t0 = time.time()
+        tree = self.tree
+        stats = QueryStats()
+        q = np.asarray(q, np.float32)
+        out: List[np.ndarray] = []
+
+        def visit(node: int):
+            stats.nodes_scanned += 1
+            tree.access_count[node] += 1
+            cq = float(np.linalg.norm(q - tree.centroid[node]))
+            if cq - float(tree.radius[node]) > radius:
+                return
+            if tree.is_leaf[node]:
+                stats.touch(node)
+                lo, hi = self._leaf_window(node, cq - radius, cq + radius)
+                stats.rows_scanned += hi - lo
+                cands = np.arange(lo, hi)
+                d2 = ((self.data[cands] - q) ** 2).sum(1)
+                m = d2 <= radius * radius
+                if row_mask is not None:
+                    m &= row_mask[cands]
+                out.append(cands[m])
+                return
+            for ch in tree.children[node]:
+                visit(ch)
+
+        visit(0)
+        stats.time_s = time.time() - t0
+        stats.cbr = stats.buckets_touched / max(1, len(tree.leaf_ids))
+        rows = np.concatenate(out) if out else np.array([], np.int64)
+        return rows, stats
+
+
+# ---------------------------------------------------------------------------
+# Batched executor (the card's path)
+# ---------------------------------------------------------------------------
+class BatchedExecutor:
+    """Vectorized leaf-ranked KNN: lower bounds over every leaf tile and
+    beam doubling against the bound, over ``engine.batched_knn``, whose
+    rounds launch the ``topk_l2_masked`` kernel on the card (its plain
+    version on the CPU). Tiles carry the tree's leaf balls, as in the
+    reference.
+
+    Exactness: the fp32 expansion the kernel ranks by reorders near-tied
+    neighbours at high dimension, so the scan keeps ``_RERANK_EXTRA``
+    candidates past the stopping rank k (rounds, tiles and rows scanned
+    stay those of a k scan) and each query's candidates go through the
+    engine's certified exact re-rank (``engine.rerank_exact``); a query
+    whose re-rank is not proven takes the widening pass
+    (``engine.widen_exact``). Rows are the brute-force oracle's, exactly
+    equal distances by row id; distances are L2 (not squared), the exact
+    ones of the returned rows."""
+
+    def __init__(self, tree: ClusterTree, data: np.ndarray, *, device=None,
+                 tile: int = 128):
+        self.device = dev = resolve_device(device)
+        self.tree = tree
+        self.data = np.asarray(data, np.float32)
+        leaves = tree.leaf_ids
+        rows, cap, leaf_of_tile = bucket_tiles(tree.bucket_start[leaves],
+                                               tree.bucket_end[leaves], tile)
+        self.bucket_cap = cap
+        cen = np.asarray(tree.centroid[leaves][leaf_of_tile], np.float32)
+        rad = np.asarray(tree.radius[leaves][leaf_of_tile], np.float32)
+        self.geom = LeafGeometry(
+            centroid=torch.as_tensor(cen, device=dev),
+            radius=torch.as_tensor(rad, device=dev),
+            bucket_rows=torch.as_tensor(rows, dtype=torch.int64, device=dev),
+            cap=cap,
+            cen_max2=float((cen.astype(np.float64) ** 2).sum(1)
+                           .max(initial=0)),
+            rad_max=float(rad.max(initial=0)))
+        tiles = tile_data(self.data, rows)
+        self._data_tiles = torch.as_tensor(tiles, device=dev)
+        self._data_dev = torch.as_tensor(self.data, device=dev)
+        # max |row|^2, padded against its fp32 rounding (the re-rank's
+        # error scale, as the engine keeps it)
+        self._max2 = float((tiles ** 2).sum(-1).max(initial=0)) * (
+            1 + (tiles.shape[-1] + 2) * _U32)
+        self.exact_fallbacks = 0   # queries of the last knn() widened
+
+    def knn(self, qs: np.ndarray, k: int, beam: int = 8
+            ) -> Tuple[np.ndarray, np.ndarray, QueryStats]:
+        """qs: (Q, d) -> (dists (Q, k), rows (Q, k), stats); -1 / inf
+        pad slots when fewer than k rows exist. Exact."""
+        es = EngineStats()
+        qv = np.asarray(qs, np.float32)
+        q_t = torch.as_tensor(qv, device=self.device)
+        next_lb: list = []
+        dist, rows = batched_knn(self.geom, self._data_tiles, q_t,
+                                 k + _RERANK_EXTRA, beam=beam, k_stop=k,
+                                 stats=es, next_lb_out=next_lb)
+        res: List[Optional[np.ndarray]] = []
+        fails = []
+        for i in range(len(qv)):
+            r, ok, t_k = rerank_exact(self.data, qv[i], dist[i], rows[i],
+                                      next_lb[0][i], k, self._max2,
+                                      self.geom)
+            res.append(r)
+            if not ok:
+                fails.append((i, k, t_k))
+        if fails:
+            for (i, _, _), r in zip(fails, widen_exact(
+                    self.data, self._data_dev, q_t, qv, None, fails,
+                    self._max2)):
+                res[i] = r
+        out_d = np.full((len(qv), k), np.inf, np.float32)
+        out_r = np.full((len(qv), k), -1, np.int64)
+        for i, r in enumerate(res):
+            d2 = np.sum((self.data[r] - qv[i][None, :]) ** 2, axis=1)
+            out_d[i, :len(r)] = np.sqrt(np.maximum(d2, 0))
+            out_r[i, :len(r)] = r
+        self.exact_fallbacks = len(fails)
+        stats = QueryStats()
+        stats.buckets_touched = es.knn_buckets
+        stats.rows_scanned = es.rows_scanned
+        stats.time_s = es.time_s
+        # buckets_touched counts TILES: normalize by the tile count so
+        # cbr <= 1
+        stats.cbr = stats.buckets_touched / max(
+            1, len(qv) * self.geom.n_leaves)
+        return out_d, out_r, stats

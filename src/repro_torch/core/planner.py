@@ -13,11 +13,22 @@ platform: explicit > ``MQRLD_PRECISION`` > ``default_precision``) picks
 the KNN scan; the session counts the mixed-precision work over its
 lifetime and ``explain()`` reports it.
 
-Not in this slice: the calibrated cost model (no model is attached, so
-the session's loop applies, as on an uncalibrated reference platform),
-sharded topologies, the async executor, and the scalar fallback for
-queries the engine cannot plan (``execute`` raises
-``NotImplementedError`` for those).
+Queries the engine cannot plan (a V.K under an Or under an And, for
+one) take the scalar path, ``MQRLD.execute(q, record=False)``, after the
+engine's batch; ``explain()`` reports them as path "scalar".
+
+Calibrated cost model (``core/cost.py``): with a reliably fitted model
+on the platform, ``Session.plan`` picks the beam loop by the least
+predicted KNN cost (``_cost_choice``), ``_seeds`` keeps a QBS beam seed
+only where the model predicts it cheaper than none, and every executed
+plan gives the model its online refit. An explicit ``device_loop``
+always wins; without a model, or while the session's own loop kind is
+unfitted or unreliable, plans are byte-identical to the fixed
+behaviour. ``explain()["cost_model"]`` reports the calibration and how
+this plan's loop was chosen.
+
+Not ported yet: sharded topologies (ROADMAP queue 1 item 8) and the
+async executor (item 5).
 """
 from __future__ import annotations
 
@@ -106,39 +117,72 @@ def build_logical_plan(norm: Sequence[Q.Query],
         groups=group_job_specs(tuple(job_specs), device_loop))
 
 
+def _knn_group_features(eng, grp: KnnGroupSpec, device_loop: bool,
+                        beam: int, precision: str,
+                        seed: Optional[int] = None) -> Tuple[float, ...]:
+    """Plan-time cost features for one KNN group, read off the layout
+    the loop would scan: the features the engine records its observed
+    seconds against."""
+    geom = eng.geom_dev[grp.attr] if device_loop else eng.geom[grp.attr]
+    return costm.knn_plan_features(
+        device_loop=device_loop, g=len(grp.jobs), k=grp.kmax, beam=beam,
+        tiles=geom.n_leaves, cap=geom.cap,
+        dim=eng.vec_np[grp.attr].shape[1], precision=precision, seed=seed)
+
+
 class ExecutablePlan:
-    """A ``LogicalPlan`` bound to one batch of queries, ready to run."""
+    """A ``LogicalPlan`` bound to one batch of queries, ready to run.
+    ``choices`` records how its loop was decided: "explicit" (the caller
+    pinned it), "default" (the session's) or "cost_model" with each
+    candidate's prediction."""
 
     def __init__(self, session: "Session", logical: LogicalPlan,
                  queries: Sequence[Q.Query], norm: Sequence[Q.Query],
-                 cache_hit: bool):
+                 cache_hit: bool, choices: Optional[dict] = None):
         self.session = session
         self.logical = logical
         self.queries = list(queries)
         self.norm = list(norm)
         self.cache_hit = cache_hit
+        self.choices = choices or {"by": "default"}
 
     def _seeds(self) -> Dict[str, int]:
         """QBS convergence seeds for this plan's KNN groups, looked up at
-        execute time so a cached plan keeps learning between runs."""
-        qbs = self.session.platform.qbs
+        execute time so a cached plan keeps learning between runs. With a
+        reliably fitted model for the plan's loop, a seed is dropped where
+        the model predicts the unseeded widths cheaper (seeds only move
+        work between beam rounds)."""
+        sess = self.session
+        qbs = sess.platform.qbs
+        lp = self.logical
         seeds: Dict[str, int] = {}
-        for grp in self.logical.groups:
+        for grp in lp.groups:
             w = qbs.convergence_width(grp.archetype)
             if w is not None:
                 seeds[grp.archetype] = w
+        cm = sess.platform.cost_model
+        kind = costm.knn_kind(lp.device_loop)
+        if cm is not None and seeds and cm.reliable(kind):
+            eng = sess.engine()
+            for grp in lp.groups:
+                if grp.archetype not in seeds:
+                    continue
+                ps = cm.predict(kind, _knn_group_features(
+                    eng, grp, lp.device_loop, sess.beam, sess.precision,
+                    seed=seeds[grp.archetype]))
+                pn = cm.predict(kind, _knn_group_features(
+                    eng, grp, lp.device_loop, sess.beam, sess.precision))
+                if ps is not None and pn is not None and pn < ps:
+                    seeds.pop(grp.archetype)
         return seeds
 
     def execute(self) -> Tuple[List[np.ndarray], EngineStats]:
         """(results, EngineStats): one row array per query in submission
-        order — exactly the rows of the brute-force oracle."""
+        order — exactly the rows of the brute-force oracle. Engine
+        fragments run as one batch, then each unplannable query on the
+        scalar path (its work is not in the engine's counters)."""
         lp = self.logical
         p = self.session.platform
-        if lp.scalar_idx:
-            raise NotImplementedError(
-                "the scalar executor (MQRLD.execute) is not ported yet; "
-                "not plannable for the batched engine: "
-                f"{[self.norm[i] for i in lp.scalar_idx]!r}")
         t0 = time.time()
         results: List[Optional[np.ndarray]] = [None] * len(self.norm)
         if lp.engine_idx:
@@ -155,11 +199,15 @@ class ExecutablePlan:
                 p.qbs.record_convergence(arch, width)
             for kind, feats, secs in stats.stage_samples:
                 p.qbs.record_cost(kind, feats, secs)
+            if p.cost_model is not None and stats.stage_samples:
+                p.cost_model.maybe_refit(p.qbs)
             self.session.mp_scanned += stats.mp_scanned
             self.session.mp_rescued += stats.mp_rescued
         else:
             stats = EngineStats()
         stats.queries = len(self.norm)
+        for i in lp.scalar_idx:
+            results[i] = p.execute(self.norm[i], record=False)[0]
         stats.time_s = time.time() - t0
         # tuner feedback: one representative AST per signature per batch
         reps: Dict[str, list] = {}
@@ -179,7 +227,19 @@ class ExecutablePlan:
         sess = self.session
         qbs = sess.platform.qbs
         eng = sess.engine() if lp.engine_idx else None
+        cm = sess.platform.cost_model
+        # predicted (None without a model or fit) and observed (the
+        # median of the kind's QBS cost ring) seconds per KNN group
         kind = costm.knn_kind(lp.device_loop)
+        grp_cost = {}
+        for gi, grp in enumerate(lp.groups):
+            pred = None
+            if cm is not None and eng is not None:
+                pred = cm.predict(kind, _knn_group_features(
+                    eng, grp, lp.device_loop, sess.beam, sess.precision,
+                    seed=seeds.get(grp.archetype)))
+            grp_cost[gi] = {"kind": kind, "predicted_s": pred,
+                            "observed_s": qbs.cost_observed(kind)}
         job_of_group = {j: gi for gi, grp in enumerate(lp.groups)
                         for j in grp.jobs}
         frags = []
@@ -192,21 +252,12 @@ class ExecutablePlan:
                 knn.append({"attr": attr, "k": k, "masked": masked,
                             "group": gi, "archetype": grp.archetype,
                             "beam_seed": seeds.get(grp.archetype),
-                            "cost": {"kind": kind, "predicted_s": None,
-                                     "observed_s": qbs.cost_observed(kind)}})
+                            "cost": grp_cost[gi]})
             vr = []
             if eng is not None and frag.path != "scalar":
                 for b in Q.basic_queries(q):
                     if isinstance(b, Q.VR):
-                        survive, total = eng.vr_tile_estimate(b)
-                        dense = survive * eng.cap > \
-                            _VR_DENSE_CUTOFF * max(1, eng.n)
-                        route = "dense" if dense or not lp.device_loop \
-                            else "tile"
-                        vr.append({"attr": b.attr,
-                                   "tiles_surviving": survive,
-                                   "tiles_pruned": total - survive,
-                                   "tiles_total": total, "route": route})
+                        vr.append(self._vr_entry(eng, b, cm))
             frags.append({"query": frag.signature, "path": frag.path,
                           "knn": knn, "vr": vr})
         rescue = {
@@ -219,6 +270,12 @@ class ExecutablePlan:
             "cache": "hit" if self.cache_hit else "miss",
             "device_loop": lp.device_loop,
             "device": str(sess.platform.device),
+            # calibration state and how this plan's loop was chosen
+            "cost_model": {
+                "calibrated": cm is not None and cm.calibrated(),
+                "kinds": sorted(cm.kinds) if cm is not None else [],
+                "choices": self.choices,
+            },
             "precision": sess.precision,
             # fp32-rescue pressure of the mixed-precision scan, summed
             # over every batch this session executed (all zero on fp32)
@@ -234,6 +291,35 @@ class ExecutablePlan:
                 for g in lp.groups],
             "fragments": frags,
         }
+
+    def _vr_entry(self, eng, b: Q.VR, cm) -> dict:
+        """One V.R's pruned-tile estimate and route preview, mirroring
+        ``HybridEngine._vr_masks`` for this query alone (the executed
+        group unions the survivors of all its queries)."""
+        survive, total = eng.vr_tile_estimate(b)
+        dim = eng.vec_np[b.attr].shape[1]
+        pd = pt = None
+        if cm is not None and self.logical.device_loop:
+            pd = cm.predict("vr:dense", costm.vr_features(
+                "vr:dense", 1, survive, eng.cap, dim, eng.n))
+            pt = cm.predict("vr:tile", costm.vr_features(
+                "vr:tile", 1, survive, eng.cap, dim, eng.n))
+        if not self.logical.device_loop:
+            route = "dense"
+        elif pd is not None and pt is not None \
+                and cm.reliable("vr:dense", "vr:tile"):
+            route = "dense" if pd <= pt else "tile"
+        else:
+            route = "dense" if survive * eng.cap > \
+                _VR_DENSE_CUTOFF * max(1, eng.n) else "tile"
+        qbs = self.session.platform.qbs
+        return {"attr": b.attr, "tiles_surviving": survive,
+                "tiles_pruned": total - survive, "tiles_total": total,
+                "route": route,
+                "cost": {"predicted_dense_s": pd, "predicted_tile_s": pt,
+                         "route": route,
+                         "observed_dense_s": qbs.cost_observed("vr:dense"),
+                         "observed_tile_s": qbs.cost_observed("vr:tile")}}
 
 
 class Session:
@@ -264,13 +350,69 @@ class Session:
         return self.platform.engine(beam=self.beam, tile=self.tile,
                                     precision=self.precision)
 
+    def _cost_choice(self, norm: Sequence[Q.Query]
+                     ) -> Optional[Tuple[bool, dict]]:
+        """The beam loop of least predicted KNN cost for one batch, as
+        (device_loop, provenance), or None when no choice can be made: no
+        fitted model, no plannable V.K work, the session's own loop kind
+        unfitted or unreliable, or fewer than two candidates priced."""
+        cm = self.platform.cost_model
+        if cm is None or not cm.calibrated():
+            return None
+        specs: List[Tuple[str, int, bool]] = []
+        for q in norm:
+            if plannable(q):
+                _collect_job_specs(q, False, specs)
+        if not specs:
+            return None
+        if not cm.reliable(costm.knn_kind(self.device_loop)):
+            return None
+        eng = self.engine()
+        scored = []
+        for dl in (False, True):
+            kind = costm.knn_kind(dl)
+            if not cm.reliable(kind):
+                continue
+            total = 0.0
+            for grp in group_job_specs(tuple(specs), dl):
+                seed = self.platform.qbs.convergence_width(grp.archetype)
+                pred = cm.predict(kind, _knn_group_features(
+                    eng, grp, dl, self.beam, self.precision, seed=seed))
+                if pred is None:
+                    total = None
+                    break
+                total += pred
+            if total is not None:
+                scored.append((total, dl, kind))
+        if len(scored) < 2:
+            return None
+        scored.sort(key=lambda t: t[0])
+        best = scored[0]
+        return best[1], {
+            "by": "cost_model",
+            "candidates": [{"device_loop": dl, "shards": 0, "kind": kind,
+                            "predicted_s": tot}
+                           for tot, dl, kind in scored],
+            "chosen": {"device_loop": best[1], "shards": 0}}
+
     def plan(self, queries: Sequence[Q.Query], *,
              device_loop: Optional[bool] = None) -> ExecutablePlan:
         """Normalize + sign the batch and return an ``ExecutablePlan``,
         reusing the cached skeleton for a batch archetype planned before
-        under the same loop kind and index build."""
+        under the same loop kind and index build. The loop: an explicit
+        ``device_loop`` wins, then the cost model's choice
+        (``_cost_choice``), then the session's default."""
         norm = [Q.normalize(q) for q in queries]
-        dl = self.device_loop if device_loop is None else device_loop
+        choices: Optional[dict] = None
+        if device_loop is not None:
+            dl = device_loop
+            choices = {"by": "explicit"}
+        else:
+            sel = self._cost_choice(norm)
+            if sel is not None:
+                dl, choices = sel
+            else:
+                dl = self.device_loop
         if self._cache_build != self.platform.build_id:
             self._cache = {}
             self._cache_build = self.platform.build_id
@@ -284,7 +426,8 @@ class Session:
             self.cache_misses += 1
             logical = build_logical_plan(norm, dl)
             self._cache[key] = logical
-        return ExecutablePlan(self, logical, queries, norm, hit)
+        return ExecutablePlan(self, logical, queries, norm, hit,
+                              choices=choices)
 
     def execute(self, queries: Sequence[Q.Query], *,
                 device_loop: Optional[bool] = None

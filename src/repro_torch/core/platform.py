@@ -17,24 +17,37 @@ and session: an explicit ``precision`` argument, else the
 ``MQRLD_PRECISION`` environment variable, else ``default_precision``.
 Every precision returns the same rows.
 
-Not in this slice: the scalar executor (``execute``), append/fold and
-the delta region, index generations, persistence, calibration and
-sharding.
+``execute(query)`` is the paper-faithful scalar path: a host-side
+walk per query over the leaf metadata, the path that records QBS rows
+(sampled at ``qbs_sample``), per-query ``QueryStats`` and Algorithm 3's
+access counts, and the planner's fallback for queries the engine cannot
+plan. It is host numpy, as in the reference, so its rows, stats and
+counts are the reference's. ``optimize_index(workload)`` runs Algorithm
+3 on those counts. ``calibrate()`` fits the host's ``cost_model``
+(``core/cost.py``), which every engine and session of the platform then
+reads.
+
+Not ported yet: append/fold and the delta region (ROADMAP queue 1 item
+3), persistence (item 4), index generations and the optimizer's
+objectives (item 7), and sharding (item 8).
 """
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.core import query as Q
-from repro_torch.core.index import BuildReport, ClusterTree, build_index
+from repro_torch.core.index import (BuildReport, ClusterTree, QueryStats,
+                                    build_index)
 from repro_torch.core.lake import MMOTable
 from repro_torch.core.lpgf import lpgf
-from repro_torch.core.qbs import QBSTable
+from repro_torch.core.qbs import QBSTable, accuracy, recall_at_k
+from repro_torch.core.reorder import reorder_siblings
 from repro_torch.core.transform import (HyperspaceTransform, init_transform,
                                         perturb)
 from repro_torch.utils.quant import PRECISIONS
@@ -132,11 +145,12 @@ class MQRLD:
     """The platform. One instance per MMO table, on one ``device``
     (``None`` = the CUDA card; raises when there is none)."""
 
-    def __init__(self, table: MMOTable, *, seed: int = 0, device=None):
+    def __init__(self, table: MMOTable, *, qbs_sample: float = 1.0,
+                 seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.raw_table = table.validate()
         self.table: Optional[MMOTable] = None
-        self.qbs = QBSTable()
+        self.qbs = QBSTable(sample_rate=qbs_sample, seed=seed)
         self.tree: Optional[ClusterTree] = None
         self.report: Optional[BuildReport] = None
         self.transform: Optional[HyperspaceTransform] = None
@@ -148,6 +162,10 @@ class MQRLD:
         # do not pass ``precision`` use it, after the MQRLD_PRECISION
         # environment override
         self.default_precision: str = "fp32"
+        # the host's calibrated execution cost model (``core/cost.py``),
+        # or None: every consumer then keeps its fixed thresholds. Fitted
+        # by ``calibrate()``; a host property, so a rebuild keeps it
+        self.cost_model = None
         self.build_id = 0  # bumped by every installed state; keys caches
         self._oracle_cache: Dict = {}
         self._engines: Dict = {}
@@ -231,6 +249,9 @@ class MQRLD:
         elif device_loop is not None:
             eng.device_loop = device_loop
         self._engines[key] = eng      # (re-)inserted last: LRU order
+        # refreshed on every call: a cached engine may predate a
+        # calibration, and its V.R route reads the model per batch
+        eng.cost_model = self.cost_model
         return eng
 
     def session(self, *, device_loop: bool = True, beam: int = 16,
@@ -248,11 +269,186 @@ class MQRLD:
                                           precision=prec)
         return self._sessions[key]
 
+    def calibrate(self, *, batch: int = 16, repeats: int = 2,
+                  seed: int = 0):
+        """Fit (or refresh) this host's execution cost model from a
+        synthetic sweep through both beam loops
+        (``cost.calibrate_platform``) and install it as ``cost_model``:
+        from then on ``Session.plan`` picks the loop and the engine the
+        V.R route by predicted cost, and observed stage times refit it
+        online."""
+        from repro_torch.core.cost import calibrate_platform
+        return calibrate_platform(self, batch=batch, repeats=repeats,
+                                  seed=seed)
+
     def execute_batch(self, queries: Sequence[Q.Query], *,
                       device_loop: bool = True):
         """v1 shim: ``session().plan(queries).execute()``."""
         return self.session().plan(queries,
                                    device_loop=device_loop).execute()
+
+    # ------------------------------------------------------------ leaves
+    def _leaf_rows(self, leaf_pos: int) -> np.ndarray:
+        lid = self.tree.leaf_ids[leaf_pos]
+        return np.arange(int(self.tree.bucket_start[lid]),
+                         int(self.tree.bucket_end[lid]))
+
+    def _count_leaf(self, leaf_pos: int):
+        """Algorithm 3 statistics: the leaf and its ancestors were
+        scanned to reach it."""
+        node = int(self.tree.leaf_ids[leaf_pos])
+        while node >= 0:
+            self.tree.access_count[node] += 1
+            node = int(self.tree.parent[node])
+
+    # ------------------------------------------------------- scalar path
+    def _predicate_leaves(self, q) -> np.ndarray:
+        """Positions (into leaf_ids) of leaves that may contain matches."""
+        m = self.meta
+        if isinstance(q, Q.NE):
+            return np.nonzero((m.num_lo[q.attr] <= q.value + q.tol)
+                              & (m.num_hi[q.attr] >= q.value - q.tol))[0]
+        if isinstance(q, Q.NR):
+            return np.nonzero((m.num_lo[q.attr] <= q.hi)
+                              & (m.num_hi[q.attr] >= q.lo))[0]
+        if isinstance(q, Q.VR):
+            qv = q.vec()
+            d = np.sqrt(np.maximum(((m.vec_centroid[q.attr] - qv) ** 2)
+                                   .sum(1), 0))
+            return np.nonzero(d - m.vec_radius[q.attr] <= q.radius)[0]
+        raise TypeError(q)
+
+    def _mask_from_predicate(self, q, stats: QueryStats) -> np.ndarray:
+        """Exact boolean mask over physical rows for N.E / N.R / V.R."""
+        mask = np.zeros(self.table.n_rows, bool)
+        for lp in self._predicate_leaves(q):
+            stats.touch(lp)
+            self._count_leaf(lp)
+            rows = self._leaf_rows(lp)
+            stats.rows_scanned += len(rows)
+            if isinstance(q, Q.NE):
+                col = self.table.numeric[q.attr][rows]
+                mask[rows] = np.abs(col - q.value) <= q.tol
+            elif isinstance(q, Q.NR):
+                col = self.table.numeric[q.attr][rows]
+                mask[rows] = (col >= q.lo) & (col <= q.hi)
+            else:  # VR
+                col = self.table.vector[q.attr][rows]
+                d2 = ((col - q.vec()) ** 2).sum(1)
+                mask[rows] = d2 <= q.radius ** 2
+        return mask
+
+    def _knn(self, q: Q.VK, stats: QueryStats,
+             row_mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """Exact per-attribute KNN by leaf lower-bound ranking: leaves in
+        bound order until the bound passes the k-th distance, merged
+        carry first with a stable sort, so equal distances keep the
+        visit order."""
+        m = self.meta
+        qv = q.vec()
+        col = self.table.vector[q.attr]
+        dc = np.sqrt(np.maximum(((m.vec_centroid[q.attr] - qv) ** 2)
+                                .sum(1), 0))
+        lb = np.maximum(dc - m.vec_radius[q.attr], 0.0)
+        order = np.argsort(lb, kind="stable")
+        best_d = np.full(q.k, np.inf)
+        best_i = np.full(q.k, -1, np.int64)
+        for pos in order:
+            if lb[pos] > best_d[-1]:
+                break
+            stats.touch(pos)
+            self._count_leaf(pos)
+            rows = self._leaf_rows(pos)
+            stats.rows_scanned += len(rows)
+            d2 = ((col[rows] - qv) ** 2).sum(1)
+            if row_mask is not None:
+                d2 = np.where(row_mask[rows], d2, np.inf)
+            d = np.sqrt(np.maximum(d2, 0))
+            alld = np.concatenate([best_d, d])
+            alli = np.concatenate([best_i, rows])
+            sel = np.argsort(alld, kind="stable")[:q.k]
+            best_d, best_i = alld[sel], alli[sel]
+        return best_i[best_i >= 0]
+
+    def execute(self, query: Q.Query, *, task: str = "",
+                record: bool = True) -> Tuple[np.ndarray, QueryStats]:
+        """Execute a rich hybrid query through the learned index on the
+        host (the scalar path). ``record`` samples a QBS row against the
+        oracle's truth and records the query's workload signature."""
+        if self.tree is None:
+            raise RuntimeError("call prepare() first")
+        t0 = time.time()
+        stats = QueryStats()
+        rows = self._exec(query, stats, row_mask=None)
+        stats.time_s = time.time() - t0
+        stats.cbr = stats.buckets_touched / max(1, len(self.tree.leaf_ids))
+        if record:
+            truth = self.oracle(query)
+            self.qbs.maybe_record(
+                statement=repr(query), object_set=self.table.name,
+                attributes=Q.query_attrs(query), types=Q.query_types(query),
+                recall_at_k=recall_at_k(rows, truth),
+                cbr=stats.cbr, query_time_s=stats.time_s,
+                accuracy=accuracy(rows, truth), task=task)
+            self.qbs.record_workload(Q.signature(Q.normalize(query)),
+                                     query)
+        return rows, stats
+
+    def _exec(self, q, stats: QueryStats,
+              row_mask: Optional[np.ndarray]) -> np.ndarray:
+        n = self.table.n_rows
+        if isinstance(q, (Q.NE, Q.NR, Q.VR)):
+            mask = self._mask_from_predicate(q, stats)
+            if row_mask is not None:
+                mask &= row_mask
+            return np.nonzero(mask)[0]
+        if isinstance(q, Q.VK):
+            return self._knn(q, stats, row_mask)
+        if isinstance(q, Q.And):
+            preds = [p for p in q.parts if not isinstance(p, Q.VK)]
+            vks = [p for p in q.parts if isinstance(p, Q.VK)]
+            mask = row_mask
+            for p in preds:
+                rows = self._exec(p, stats, mask)
+                pm = np.zeros(n, bool)
+                pm[rows] = True
+                mask = pm if mask is None else (mask & pm)
+            if not vks:
+                return np.nonzero(mask)[0] if mask is not None else \
+                    np.arange(n)
+            result = None
+            for vk in vks:
+                rows = self._knn(vk, stats, mask)
+                rm = np.zeros(n, bool)
+                rm[rows] = True
+                result = rm if result is None else (result & rm)
+            return np.nonzero(result)[0]
+        if isinstance(q, Q.Or):
+            out = np.zeros(n, bool)
+            for p in q.parts:
+                out[self._exec(p, stats, row_mask)] = True
+            return np.nonzero(out)[0]
+        raise TypeError(q)
+
+    # -------------------------------------------------- query-aware tuning
+    def optimize_index(self, workload: Sequence[Q.Query],
+                       tie_break: bool = False) -> int:
+        """Algorithm 3: run the workload on the scalar path to collect
+        access counts, then reorder sibling lists. Returns the number of
+        child lists changed."""
+        self.tree.access_count[:] = 0
+        for q in workload:
+            self.execute(q, record=False)
+
+        cost_fn = None
+        if tie_break:
+            def cost_fn():
+                total = 0
+                for q in workload:
+                    _, st = self.execute(q, record=False)
+                    total += st.nodes_scanned
+                return total
+        return reorder_siblings(self.tree, cost_fn)
 
     # ------------------------------------------------------------- oracle
     def view(self) -> MMOTable:

@@ -1,37 +1,91 @@
 """Query Behavior Statistic (QBS) table — the query-aware mechanism
 (paper §4.3, Table 3). Port of ``repro/core/qbs.py`` (numpy only).
 
-This slice carries the rings that a planned batch records into and the
-planner reads back: per-archetype convergence widths (the beam seeds of
-``Session.plan``), per-stage cost samples and per-signature workload
-samples. The per-query row log (the scalar executor's), service
-latencies (the server's), persistence and the tuner snapshot come with
-the slices that write or read them.
+Every query the scalar executor answers with recording on appends a row
+(statement, object set, attributes, types, Recall@K, CBR, time,
+accuracy), sampled at ``sample_rate`` from ``np.random.default_rng(seed)``
+exactly as the reference draws, so both packages keep the same rows; the
+rows feed the extrinsic score S1 (§5.1.2) and the optimizer's objectives.
+Besides the rows the table holds the rings that a planned batch records
+into and the planner reads back: per-archetype convergence widths (the
+beam seeds of ``Session.plan``), per-stage cost samples (the cost
+model's fit and online refit) and per-signature workload samples.
+Service latencies (the server's), persistence and the tuner snapshot
+come with the slices that write or read them.
 """
 from __future__ import annotations
 
 import threading
+import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 
+@dataclass
+class QBSRow:
+    statement: str
+    object_set: str            # table name
+    attributes: List[str]
+    types: List[str]           # e.g. ["NR", "VK"]
+    recall_at_k: float
+    cbr: float                 # cross-bucket rate: buckets touched / total
+    query_time_s: float
+    accuracy: float
+    task: str = ""
+    ts: float = 0.0
+
+
 _CONVERGENCE_KEEP = 64  # recent widths kept per archetype (ring buffer)
 _WORKLOAD_KEEP = 16     # recent executed query ASTs kept per signature
+_ROWS_KEEP = 4096       # recent QBS rows kept: a long-lived process must
+#                         not grow the row log (and the O(n) scans of
+#                         extrinsic_score / objectives) without bound
 _COST_KEEP = 256        # recent (features, seconds) samples per stage kind
 
 
 class QBSTable:
-    def __init__(self):
+    def __init__(self, sample_rate: float = 1.0, seed: int = 0):
+        self.rows: List[QBSRow] = []
         self.convergence: Dict[str, List[int]] = {}
         self.workload: Dict[str, List] = {}
         self.mix: Dict[str, int] = {}
         self.cost: Dict[str, List] = {}
+        # monotone count of cost samples ever recorded (the rings saturate
+        # at _COST_KEEP): the cost model's refit cursor
         self.cost_total: int = 0
+        self.sample_rate = sample_rate
+        self._rng = np.random.default_rng(seed)
         # every ring append/trim and every multi-ring reader runs under
         # this lock, so recording can never interleave a trim with an
         # append or lose a ``cost_total`` increment
         self._lock = threading.RLock()
+
+    def __len__(self):
+        return len(self.rows)
+
+    def maybe_record(self, **kw) -> Optional[QBSRow]:
+        """Sampled recording (paper §7.9: Recall@K and accuracy need the
+        ground truth, so statistics are sampled)."""
+        if self._rng.random() > self.sample_rate:
+            return None
+        return self.record(**kw)
+
+    def record(self, *, statement: str, object_set: str,
+               attributes: Sequence[str], types: Sequence[str],
+               recall_at_k: float, cbr: float, query_time_s: float,
+               accuracy: float, task: str = "") -> QBSRow:
+        row = QBSRow(statement=statement, object_set=object_set,
+                     attributes=list(attributes), types=list(types),
+                     recall_at_k=float(recall_at_k), cbr=float(cbr),
+                     query_time_s=float(query_time_s),
+                     accuracy=float(accuracy), task=task, ts=time.time())
+        with self._lock:
+            self.rows.append(row)
+            if len(self.rows) > _ROWS_KEEP:
+                del self.rows[:len(self.rows) - _ROWS_KEEP]
+        return row
 
     # ------------------------------------------- plan-parameter feedback
     def record_convergence(self, archetype: str, width: int):
@@ -78,6 +132,19 @@ class QBSTable:
             if len(ring) > _COST_KEEP:
                 del ring[:len(ring) - _COST_KEEP]
 
+    def cost_samples(self, kind: str):
+        """(X, y) arrays of the kind's recorded samples, or None when it
+        was never executed (rows whose feature length differs from the
+        newest are stale and ignored)."""
+        with self._lock:
+            ring = self.cost.get(kind)
+            if not ring:
+                return None
+            f = len(ring[-1][0])
+            rows = [(x, s) for x, s in ring if len(x) == f]
+            return (np.asarray([x for x, _ in rows], np.float64),
+                    np.asarray([s for _, s in rows], np.float64))
+
     def cost_observed(self, kind: str) -> Optional[float]:
         """Median observed seconds over the kind's ring (None if never
         executed)."""
@@ -86,3 +153,50 @@ class QBSTable:
             if not ring:
                 return None
             return float(np.median([s for _, s in ring]))
+
+    # ------------------------------------------------------------ consumers
+    def extrinsic_score(self, task: Optional[str] = None,
+                        time_scale: float = 0.1) -> float:
+        """S1 (paper eq. 1): recall/accuracy up, time down, in [0, 1]."""
+        rows = [r for r in self.rows if task is None or r.task == task]
+        if not rows:
+            return 0.0
+        rec = float(np.mean([r.recall_at_k for r in rows]))
+        acc = float(np.mean([r.accuracy for r in rows]))
+        t = float(np.mean([r.query_time_s for r in rows]))
+        t_pen = 1.0 / (1.0 + t / time_scale)
+        return (rec + acc + t_pen) / 3.0
+
+    def objectives(self, task: Optional[str] = None) -> Dict[str, float]:
+        """(time, CBR, accuracy) means for the MORBO optimizer."""
+        rows = [r for r in self.rows if task is None or r.task == task]
+        if not rows:
+            return {"time": float("inf"), "cbr": 1.0, "accuracy": 0.0}
+        return {
+            "time": float(np.mean([r.query_time_s for r in rows])),
+            "cbr": float(np.mean([r.cbr for r in rows])),
+            "accuracy": float(np.mean([r.accuracy for r in rows])),
+        }
+
+    def per_task(self) -> Dict[str, Dict[str, float]]:
+        tasks = sorted({r.task for r in self.rows})
+        return {t: self.objectives(t) for t in tasks}
+
+
+def recall_at_k(result_rows, truth_rows, k: Optional[int] = None) -> float:
+    """|result ∩ truth| / |truth| over the first ``k`` truth rows
+    (``None``: all of them; ``0``: an empty truth, recalled vacuously)."""
+    truth = list(truth_rows) if k is None else list(truth_rows)[:k]
+    if not truth:
+        return 1.0
+    rset = set(int(r) for r in result_rows)
+    return sum(1 for t in truth if int(t) in rset) / len(truth)
+
+
+def accuracy(result_rows, truth_rows) -> float:
+    """Jaccard-style query accuracy: |res ∩ truth| / |res ∪ truth|."""
+    rset = set(int(r) for r in result_rows)
+    tset = set(int(t) for t in truth_rows)
+    if not rset and not tset:
+        return 1.0
+    return len(rset & tset) / max(1, len(rset | tset))

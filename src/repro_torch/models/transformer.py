@@ -23,7 +23,7 @@ Port decision (cache): ``decode_step`` writes the new K/V into the
 cache's tensors in place (the reference returns updated copies) and
 returns a ``KVCache`` over the same tensors with ``length + 1``.
 
-MoE blocks wait for ``models/moe.py`` (ROADMAP queue 1 item 1) and raise.
+MoE blocks wait for ``models/moe.py`` (ROADMAP queue 1 item 6) and raise.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ParamDef
 
-MOE_TODO = "MoE blocks are not ported yet: ROADMAP queue 1 item 1, MoE " \
+MOE_TODO = "MoE blocks are not ported yet: ROADMAP queue 1 item 6, MoE " \
            "(models/moe.py)"
 
 

@@ -13,7 +13,7 @@ VLM-backbone families:
 ``params`` is the ``transformer.Transformer`` module those return or
 ``params_from_numpy`` loads. ``device=None`` means the CUDA card and
 raises without one. The MoE, SSM, hybrid and enc-dec families wait for
-their model modules (ROADMAP queue 1 item 1); training (``loss``) for
+their model modules (ROADMAP queue 1 item 6); training (``loss``) for
 queue 1 item 9.
 """
 from __future__ import annotations
@@ -54,7 +54,7 @@ class Model:
         if todo is not None:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}) is not ported yet: ROADMAP "
-                f"queue 1 item 1, {todo}")
+                f"queue 1 item 6, {todo}")
         if cfg.is_moe:
             raise NotImplementedError(transformer.MOE_TODO)
         self.defs = transformer.model_defs(cfg)

@@ -13,7 +13,7 @@ and raises without one; on the card the prefill's attention is the
 hand-written flash kernel.
 
 ``RetrievalServer`` (micro-batched embed -> hybrid query serving) waits
-for the serving slice of the platform (ROADMAP queue 1 item 6).
+for the serving slice of the platform (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 

@@ -465,6 +465,52 @@ def test_mp_engine_rows_equal_oracle_on_card(card_platform, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 300])
+def test_batched_executor_on_card(card_platform, k):
+    """``BatchedExecutor`` on the card launches ``topk_l2_masked`` and
+    returns the brute force's rows over the enhanced features (exactly
+    equal distances by row id), and the host executor's."""
+    from repro_torch.core.index import BatchedExecutor, HostExecutor
+    p = card_platform
+    data = p.enhanced
+    qs = data[[0, 1234, 4321]]
+    before = fused_topk.topk_l2_masked_launches
+    _, rows, _ = BatchedExecutor(p.tree, data).knn(qs, k)
+    assert fused_topk.topk_l2_masked_launches > before
+    host = HostExecutor(p.tree, data)
+    for q, r in zip(qs, rows):
+        d2 = np.sum((data - q[None, :]) ** 2, axis=1)
+        np.testing.assert_array_equal(r, np.lexsort(
+            (np.arange(len(data)), d2))[:k])
+        np.testing.assert_array_equal(r, host.knn(q, k)[0])
+
+
+@pytest.mark.cuda
+def test_scalar_fallback_and_calibration_on_card(card_platform):
+    """A batch with a query the engine cannot plan takes the scalar path
+    beside the card's engine, and a calibrated model on the card leaves
+    every row the oracle's."""
+    p = card_platform
+    tab = p.table.vector["v"]
+    qs = [Q.VK.of("v", tab[3], 10),
+          Q.And.of(Q.Or.of(Q.VK.of("v", tab[5], 4), Q.NR("price", 0, 1)),
+                   Q.NR("price", 0, 60)),
+          Q.And.of(Q.VR.of("v", tab[9], 6.0), Q.NR("price", 20, 80))]
+    plan = p.session().plan(qs)
+    assert plan.explain()["n_scalar"] == 1
+    for q, g in zip(qs, plan.execute()[0]):
+        np.testing.assert_array_equal(g, p.oracle(q))
+    saved = p.cost_model
+    try:
+        model = p.calibrate(batch=4, repeats=1)
+        assert model.host["backend"] == "cuda" and model.calibrated()
+        for q, g in zip(qs, p.session().plan(qs).execute()[0]):
+            np.testing.assert_array_equal(g, p.oracle(q))
+    finally:
+        p.cost_model = saved
+
+
+@pytest.mark.cuda
 def test_small_table_prepare_goes_through_lpgf_force(cuda):
     """A table of at most 4096 rows takes LPGF's force kernel in
     prepare(); its queries still return the oracle's rows."""

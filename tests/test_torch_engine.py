@@ -253,13 +253,23 @@ def test_rerank_certificate(case, want):
                                   30.0, refuted_q, refuted_b) is want
 
 
-def test_unplannable_query_raises_not_implemented(pair):
-    _, pt, _ = pair
+def test_unplannable_query_takes_the_scalar_path(pair):
+    """A V.K under an Or under an And is not plannable for the engine:
+    the plan sends it down the scalar path, with the oracle's rows and
+    the reference planner's."""
+    p, pt, _ = pair
     v = pt.table.vector["v"][0]
-    q = TQ.And.of(TQ.NR("price", 0, 50),
-                  TQ.Or.of(TQ.VK.of("v", v, 3), TQ.NR("price", 0, 10)))
-    with pytest.raises(NotImplementedError, match="scalar executor"):
-        pt.session().plan([q]).execute()
+
+    def q(M):
+        return M.And.of(M.NR("price", 0, 50),
+                        M.Or.of(M.VK.of("v", v, 3), M.NR("price", 0, 10)))
+    plan = pt.session().plan([q(TQ)])
+    assert plan.explain()["n_scalar"] == 1
+    got, st = plan.execute()
+    want, _ = p.session().plan([q(JQ)]).execute()
+    assert st.queries == 1
+    np.testing.assert_array_equal(got[0], pt.oracle(q(TQ)))
+    np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_engine_cache_keeps_four_in_lru_order(pair):
