@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. build: every kernel compiled from ``src/repro_torch/csrc`` with nvcc
    (one process per source, all started together); ptxas must report no
-   spill in the wgmma flash kernel, nor in the kernels of the shared
+   spill in either flash kernel (wgmma at hd 64 and 128, SIMT for fp32
+   and bf16 at hd 16, 32, 64 and 128), nor in the kernels of the shared
    distance tile (``pairwise_sq_l2``, both ``topk_l2`` routes, the split
    merge) and the four of ``lpgf_force``;
 2. kernels: each CUDA kernel of the retrieval paths against its plain
@@ -56,15 +57,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``drive_generation_path``);
 8. fp32 generation path: ``ServeEngine`` on reduced llama3-8b in fp32
    (the SIMT flash kernel's route: every fp32 input, and bf16 at hd 16
-   and 32; no full-size configuration serves those on the card) on
-   prompts of 1000, 1000, 300 and 40 tokens: every flash launch held to
-   its plain version and on the SIMT kernel, tokens equal to the CPU's;
-9. ``flash_attention`` against its plain version, each kernel at its
-   path's widest shape (the kernels JSON rows), at the prefill's shape
-   on both kernels (the SIMT one launched by name on the same bf16
-   inputs) and in fp32, and at ``FLASH_CASES`` (bf16 at hd 64 and 128
-   on both kernels), timed on the card and on the host beside its plain
-   version, ``scaled_dot_product_attention`` and its bound.
+   and 32) on prompts of 1000, 1000, 300 and 40 tokens: every flash
+   launch held to its plain version and on the SIMT kernel, tokens equal
+   to the CPU's;
+9. olmo-1b fp32 serving path: ``ServeEngine(olmo-1b)`` in fp32, its
+   published type, at full width and 16 layers on prompts of 2032,
+   2032, 1000 and 1000 tokens, 16 new tokens each: the SIMT kernel held
+   to its plain version on all 32 layers of the real prefills, batched
+   against per-request generation; init, prefill and decode times, the
+   peak device memory and a traced prefill (``drive_olmo_fp32_path``);
+10. ``flash_attention`` against its plain version, each kernel at its
+   widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
+   on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
+   llama prefill's shape on both kernels (the SIMT one launched by name
+   on the same bf16 inputs) and in fp32, and at ``FLASH_CASES`` (bf16 at
+   hd 64 and 128 on both kernels), timed on the card and on the host
+   beside its plain version, ``scaled_dot_product_attention`` (with the
+   backend it took, at the first three) and its bound.
 
 Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding path runs none. The
@@ -561,6 +570,17 @@ FLASH_CASES = (((1, 512, 4, 64), "float32", True, 0, "normal"),
                ((1, 512, 8, 128), "bfloat16", True, 0, "strided"),
                ((1, 512, 8, 64), "bfloat16", False, 0, "cancel"),
                ((1, 512, 8, 128), "bfloat16", False, 0, "cancel"))
+# the SIMT kernel's times before its Hopper redesign (the first design:
+# 64-query blocks, 4 x 4 scores a thread, synchronous staging), at the
+# fp32 causal shapes its paths launch it with: two runs each of that
+# tree's own check_flash (commit 3f844f8), in turns with this tree's
+# (PERF.md section 6)
+SIMT_BEFORE_MS = {(2, 2032, 16, 128): (1.4543, 1.4577),
+                  (2, 1000, 16, 128): (0.3934, 0.3947),
+                  (2, 1000, 4, 16): (0.0588, 0.0598)}
+SIMT_BEFORE_SOURCE = ("check_flash of commit 3f844f8, the tree before the "
+                      "redesign, NVIDIA H100 80GB HBM3, 700.00 W; not "
+                      "measured in this run")
 # the JSON row of each route: (name, source)
 FLASH_ROWS = {"wgmma": ("flash_attention_wgmma",
                         "src/repro_torch/csrc/flash_attention_wgmma.cu"),
@@ -577,6 +597,17 @@ def _attn_pairs(s: int, causal: bool, window: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def _keep(torch, s: int, causal: bool, window: int, device):
+    """(S, S) bool: the (query, key) pairs the mask leaves open."""
+    pos = torch.arange(s, device=device)
+    keep = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
+    return keep
+
+
 def _score_err(torch, q, k, v, want, causal: bool, window: int):
     """First-order bound on the output error that the fp32 rounding of the
     scores causes, on both sides (kernel and plain version): a score s_j
@@ -588,12 +619,7 @@ def _score_err(torch, q, k, v, want, causal: bool, window: int):
     weight."""
     b, s, h, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = _keep(torch, s, causal, window, q.device)
     out = torch.empty_like(want)
     for i in range(b):     # one batch row at a time: (H, S, S) temporaries
         qf, kf = q[i].float(), k[i].float()
@@ -666,15 +692,31 @@ def host_ms(torch, fn, reps: int) -> float:
     return total / reps * 1e3
 
 
+def sdpa_dispatch(torch, q, k, v, causal: bool) -> str:
+    """The backend ``scaled_dot_product_attention`` took on (B, S, H, hd)
+    q, k, v: the ``aten::_scaled_dot_product_*`` operator it dispatched
+    to, read from ``torch.profiler`` over one call."""
+    from torch.profiler import ProfilerActivity, profile
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=causal)
+        torch.cuda.synchronize()
+    return ", ".join(sorted({e.key for e in prof.key_averages()
+                             if e.key.startswith("aten::_scaled_dot_product")}
+                            ))
+
 def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
-                window: int, inputs: str = "normal", kernel=None):
+                window: int, inputs: str = "normal", kernel=None,
+                sdpa_backend: bool = False):
     """``flash_attention`` at ``shape`` against its plain version
     (``flash_check``), through ``fa.flash_attention_cuda`` (the route
     ``fa.route`` gives the inputs) or, when ``kernel`` is named, on that
     kernel (``fa._launch``, to compare the two at one shape); timed on
     the card and on the host, beside the plain version and, where it
     computes the same function (no window),
-    ``scaled_dot_product_attention``."""
+    ``scaled_dot_product_attention`` (with ``sdpa_backend``, the backend
+    it took and whether TF32 was allowed)."""
     dt = getattr(torch, dtype)
     b, s, h, hd = shape
     q, k, v = _flash_inputs(torch, shape, dt, dev, gen, inputs)
@@ -720,8 +762,12 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=lib, shape=f"{shape} {dtype} {mask}, {route} kernel",
         tflops=ops / ms / 1e9, host_ms=host,
-        library="scaled_dot_product_attention" if lib is not None
-        else "none (no window in one call)")
+        library=("scaled_dot_product_attention" + (
+            f"; backend {sdpa_dispatch(torch, q, k, v, causal)}, "
+            f"allow_tf32 (matmul) "
+            f"{torch.backends.cuda.matmul.allow_tf32}, (cudnn) "
+            f"{torch.backends.cudnn.allow_tf32}" if sdpa_backend else ""))
+        if lib is not None else "none (no window in one call)")
 
 
 # -------------------------------------------------------------- main path
@@ -1124,12 +1170,15 @@ def _resident_gib(torch, dev) -> float:
         if dev.type == "cuda" else 0.0
 
 
-def _trace(torch, fn, steps: int):
+def _trace(torch, fn, steps: int, classes=None):
     """``fn`` under ``torch.profiler`` (CPU and CUDA activity): the host
     wall time and the summed device time of its kernels, per step, the
     device's busy share of the wall time, and the six kernels with the
-    most device time. The tracer slows the host side, so the busy share
-    here is a lower bound; set it against the untraced times."""
+    most device time; with ``classes`` ({class: regex on the kernel's
+    name}, first match wins, the rest "other"), each class's device ms per
+    step and share of the device time. The tracer slows the host side, so
+    the busy share here is a lower bound; set it against the untraced
+    times."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                      # warm
     torch.cuda.synchronize()
@@ -1146,21 +1195,90 @@ def _trace(torch, fn, steps: int):
     dev_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
-    return dict(
+    out = dict(
         wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step=dev_us / 1e3 / steps if events else None,
         device_busy_share=dev_us / 1e6 / wall if events else None,
         top=[(e.key[:60], e.self_device_time_total / 1e3 / steps,
               e.count / steps) for e in top])
+    if classes is not None:
+        us = dict.fromkeys([*classes, "other"], 0.0)
+        for e in events:
+            c = next((c for c, rx in classes.items()
+                      if re.search(rx, e.key)), "other")
+            us[c] += e.self_device_time_total
+        out["by_class"] = {c: dict(ms_per_step=u / 1e3 / steps,
+                                   share=u / dev_us if dev_us else None)
+                           for c, u in us.items()}
+    return out
+
+
+def _vs_fp64(torch, ref, q, k, v, got, causal: bool, window: int):
+    """The errors against the exact (fp64) result, one batch row at a
+    time, of the kernel's output ``got``, of the plain version, and of the
+    plain version on q and k with the hd axis shuffled (the same exact
+    function, another fp32 summation order: how far the plain version's
+    own rounding spreads): {name: (max |error|, root mean square)}, and
+    under "reordered_vs_plain" the same of their difference."""
+    hd = q.shape[3]
+    mask = _keep(torch, q.shape[1], causal, window, q.device)
+    perm = torch.randperm(hd, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(q.device)
+    top = {n: 0.0 for n in ("kernel", "plain", "reordered",
+                            "reordered_vs_plain")}
+    sq = dict(top)
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q[sl].double(),
+                          k[sl].double()) / math.sqrt(hd)
+        w = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+        del sc
+        exact = torch.einsum("bhqk,bkhd->bqhd", w, v[sl].double())
+        del w
+        outs = {"kernel": got[sl],
+                "plain": ref.flash_attention(q[sl], k[sl], v[sl],
+                                             causal=causal, window=window),
+                "reordered": ref.flash_attention(
+                    q[sl][..., perm].contiguous(),
+                    k[sl][..., perm].contiguous(), v[sl],
+                    causal=causal, window=window)}
+        diffs = {n: o.double() - exact for n, o in outs.items()}
+        diffs["reordered_vs_plain"] = diffs["reordered"] - diffs["plain"]
+        for n, d in diffs.items():
+            top[n] = max(top[n], float(d.abs().max()))
+            sq[n] += float(d.square().sum())
+        del exact, outs, diffs
+    return {n: (top[n], math.sqrt(sq[n] / got.numel())) for n in top}
+
+
+# fp32 launches of a real prefill are held to the exact (fp64) result:
+# each launch's root mean square error within FP64_RATIO times the plain
+# version's, and each launch's largest error within FP64_RATIO times the
+# plain version's largest over the path plus 2e-5 (see held_flash)
+FP64_RATIO = 1.25
 
 
 @contextlib.contextmanager
 def held_flash(torch, fa, ref, route: str, score_err: bool):
     """Inside the block every call of ``fa.flash_attention_cuda`` is held
     to the plain version (``flash_check``) and must launch the ``route``
-    kernel. Yields the list it fills, one (shape, type, ok, max |error|,
-    entries over the tolerance without the scores' term, routed) per
-    call."""
+    kernel. ``score_err`` marks a real prefill's random-weight scores,
+    which reach hundreds: bf16 adds the scores' fp32 rounding term to its
+    tolerance; fp32 is held to the exact (fp64) result instead
+    (``_vs_fp64``), since at such scores that rounding alone moves the
+    plain version from the exact result by more than 2e-5, and from
+    itself when only its summation order changes, so no fp32
+    implementation can meet 2e-5 against it. A launch then passes here
+    when its root mean square error is within ``FP64_RATIO`` times the
+    plain version's (a statistic over millions of entries, steady from
+    launch to launch); ``_generation_runs`` adds the largest error's
+    rule over the path, since one launch's largest error is a few
+    entries' and scatters widely, the plain version's against its
+    reordered self as much (``_vs_fp64``'s "reordered"). Yields the
+    list it fills, one (shape, type, ok, max |error| against the plain
+    version, entries over the type's tolerance without the scores' term,
+    routed, for fp32 with ``score_err`` ``_vs_fp64``'s errors, else None)
+    per call."""
     checks, launch = [], fa.flash_attention_cuda
 
     def checked(q, k, v, *, causal=True, window=0):
@@ -1169,7 +1287,12 @@ def held_flash(torch, fa, ref, route: str, score_err: bool):
         routed = fa.launches_by_route[route] == before + 1
         ok, err, over = flash_check(torch, ref, q, k, v, out, causal,
                                     window, score_err=score_err)
-        checks.append((tuple(q.shape), str(q.dtype), ok, err, over, routed))
+        exact = None
+        if q.dtype == torch.float32 and score_err:
+            exact = _vs_fp64(torch, ref, q, k, v, out, causal, window)
+            ok = exact["kernel"][1] <= FP64_RATIO * exact["plain"][1]
+        checks.append((tuple(q.shape), str(q.dtype), ok, err, over, routed,
+                       exact))
         return out
     fa.flash_attention_cuda = checked
     try:
@@ -1184,64 +1307,58 @@ def _first_divergence(a, b):
     return int(d[0]) if len(d) else None
 
 
-def drive_generation_path(args, dev, fa, ref):
-    """``ServeEngine(llama3-8b, max_len=2080, batch_size=4)`` at full width
-    and depth, random weights from ``--seed``, on 4 requests with prompts
-    of 2048, 2048, 1000 and 1000 tokens and max_new = 16.
-
-    Run 1 holds the flash kernel, on every layer of each real prefill, to
-    its plain version (a hook on ``flash_attention_cuda``; tolerance
-    ``flash_check`` with the scores' term), requires each of those 64
-    launches to have taken the wgmma kernel, and records every step's
-    logits. Run 2 is timed (host clock, each batch's prefill and decode
-    ending in a synchronize), with the peak device memory. Then each
-    request alone (check 3: the batched tokens equal them, or the step
-    where they part has a top-2 margin below twice the logit difference
-    there), and the 1000-token bucket's prefill against
-    ``Model.forward(mode="train")`` (check 2: the greedy token equal
-    wherever the dense top-2 margin exceeds 4x the largest logit
-    difference). Returns (ok, info)."""
+def _generation_runs(torch, eng, reqs, fa, ref, route: str,
+                     score_err: bool):
+    """Three generations of ``reqs`` on ``eng``. Run 1 holds the flash
+    kernel on every layer of each real prefill to its plain version
+    (``held_flash`` on ``route``) and records every step's logits; run 2
+    is timed (host clock, each batch's prefill and decode ending in a
+    synchronize), with the peak device memory; then each request alone
+    (check 3: the batched tokens equal them, or the step where they part
+    has a top-2 margin below twice the logit difference there). Returns
+    (ok: checks 1 and 3, every launch routed, info, the buckets in
+    generate's order)."""
     import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.serve.engine import GenRequest, ServeEngine
-
-    cfg = get_config("llama3-8b")
-    vocab, max_new = cfg.vocab_size, 16
-    info = {"resident_gib_before": _resident_gib(torch, dev)}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
-                      max_len=2080, batch_size=4, seed=args.seed)
-    _sync(torch, dev)
-    info["init_s"] = time.time() - t0
-    info["n_params"] = eng.model.n_params()
-    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
-                              eng.params.parameters()) / 2 ** 30
-    info["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    rng = np.random.default_rng(args.seed + 5)
-    lens = (2048, 2048, 1000, 1000)
-    reqs = [GenRequest(rng.integers(0, vocab, n).astype(np.int32), max_new)
-            for n in lens]
+    vocab, max_new = eng.cfg.vocab_size, reqs[0].max_new
+    lens = [len(r.prompt) for r in reqs]
     buckets = [[i for i, n in enumerate(lens) if n == m]
                for m in sorted(set(lens))]       # generate's batch order
-
-    # run 1: the kernel on every layer's (q, k, v), each launch on the
-    # wgmma route; every step's logits
+    info = {}
     logits, greedy = [], eng._greedy
     eng._greedy = lambda lg: logits.append(lg.float().cpu()) or greedy(lg)
     try:
-        with held_flash(torch, fa, ref, "wgmma", True) as checks:
+        with held_flash(torch, fa, ref, route, score_err) as checks:
             first = eng.generate(reqs)
     finally:
-        eng._greedy = greedy
+        del eng._greedy     # the class's method again: no cycle holds eng
     info["flash_checked_launches"] = len(checks)
-    info["flash_wgmma_launches"] = sum(c[5] for c in checks)
-    info["flash_failed"] = sum(not c[2] for c in checks)
+    info[f"flash_{route}_launches"] = sum(c[5] for c in checks)
+    failed = [not c[2] for c in checks]
     info["flash_max_abs_err"] = max(c[3] for c in checks)
-    info["flash_over_bf16_tol_without_score_term"] = sum(c[4]
-                                                         for c in checks)
+    if score_err:
+        info["flash_over_tol_without_score_term"] = sum(c[4] for c in checks)
     info["flash_shape"] = max(checks, key=lambda c: math.prod(c[0]))[:2]
+    if all(c[6] is not None for c in checks):
+        ex = [c[6] for c in checks]
+        worst = {n: max(e[n][0] for e in ex) for n in ex[0]}
+        bound = FP64_RATIO * worst["plain"] + 2e-5
+        failed = [f or e["kernel"][0] > bound for f, e in zip(failed, ex)]
+        info["vs_fp64"] = dict(
+            max_abs_err=worst, max_rule=bound,
+            worst_launch_ratio_max={n: max(e[n][0] / e["plain"][0]
+                                           for e in ex)
+                                    for n in ("kernel", "reordered")},
+            worst_launch_ratio_rms={n: max(e[n][1] / e["plain"][1]
+                                           for e in ex)
+                                    for n in ("kernel", "reordered")},
+            # how many launches a rule of FP64_RATIO on each launch's own
+            # largest error would fail, for the kernel and for the plain
+            # version reordered
+            launches_over_ratio_max={
+                n: sum(e[n][0] > FP64_RATIO * e["plain"][0] + 2e-5
+                       for e in ex) for n in ("kernel", "reordered")},
+            launches_within_2e_5_of_plain=sum(c[4] == 0 for c in checks))
+    info["flash_failed"] = sum(failed)
     step = {}                                 # (request, t) -> logits row
     for bi, rows in enumerate(buckets):
         for t in range(max_new):
@@ -1269,7 +1386,7 @@ def drive_generation_path(args, dev, fa, ref):
         try:
             solo = eng.generate([r])[0]
         finally:
-            eng._greedy = greedy
+            del eng._greedy
         t = _first_divergence(first[i].tokens, solo.tokens)
         entry = {"request": i, "diverges_at": t}
         if t is not None:
@@ -1280,6 +1397,48 @@ def drive_generation_path(args, dev, fa, ref):
             if not entry["margin"] < 2 * entry["logit_diff"]:
                 ok3 = False
         info["per_request"].append(entry)
+    routed = info[f"flash_{route}_launches"] == len(checks) == \
+        len(buckets) * eng.cfg.num_layers
+    info["tokens_ok"] = all(r.tokens.shape == (max_new,) for r in first)
+    ok = info["flash_failed"] == 0 and routed and ok3 and info["tokens_ok"]
+    return ok, info, buckets
+
+
+def drive_generation_path(args, dev, fa, ref):
+    """``ServeEngine(llama3-8b, max_len=2080, batch_size=4)`` at full width
+    and depth, random weights from ``--seed``, on 4 requests with prompts
+    of 2048, 2048, 1000 and 1000 tokens and max_new = 16.
+
+    ``_generation_runs`` with the wgmma kernel held on every layer of
+    each real prefill (tolerance ``flash_check`` with the scores' term),
+    each of those 64 launches on the wgmma kernel, then the 1000-token
+    bucket's prefill against ``Model.forward(mode="train")`` (check 2:
+    the greedy token equal wherever the dense top-2 margin exceeds 4x the
+    largest logit difference). Returns (ok, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = get_config("llama3-8b")
+    vocab, max_new = cfg.vocab_size, 16
+    info = {"resident_gib_before": _resident_gib(torch, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=2080, batch_size=4, seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    info["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(args.seed + 5)
+    reqs = [GenRequest(rng.integers(0, vocab, n).astype(np.int32), max_new)
+            for n in (2048, 2048, 1000, 1000)]
+    ok13, runs, buckets = _generation_runs(torch, eng, reqs, fa, ref,
+                                           "wgmma", True)
+    info.update(runs)
 
     # check 2: prefill (flash) against the dense forward, 1000-token bucket
     toks = np.stack([reqs[i].prompt for i in buckets[0]])
@@ -1327,13 +1486,8 @@ def drive_generation_path(args, dev, fa, ref):
     big = np.stack([reqs[i].prompt for i in buckets[1]])
     info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
         eng.params, {"tokens": big}, eng.max_len), 1)
-    tokens_ok = all(r.tokens.shape == (max_new,) for r in first)
-    # every layer of both real prefills, each through the wgmma kernel
-    routed = info["flash_wgmma_launches"] == len(checks) == \
-        len(buckets) * cfg.num_layers
-    ok = info["flash_failed"] == 0 and routed and ok2 and ok3 and tokens_ok
     del eng
-    return ok, info
+    return ok13 and ok2, info
 
 
 def drive_fp32_generation_path(args, dev, fa, ref):
@@ -1376,6 +1530,61 @@ def drive_fp32_generation_path(args, dev, fa, ref):
         flash_max_abs_err=max((c[3] for c in checks), default=None),
         flash_shape=max(checks, key=lambda c: math.prod(c[0]))[:2]
         if checks else None, tokens_equal_cpu=equal)
+
+
+# the kernels of an fp32 prefill by class, for its trace
+PREFILL_CLASSES = {"flash (SIMT)": r"flash_fwd",
+                   "GEMM": r"gemm|Gemm|GEMM|cutlass|nvjet|xmma|matmul"}
+
+
+def drive_olmo_fp32_path(args, dev, fa, ref):
+    """``ServeEngine(olmo-1b in fp32, max_len=2048, batch_size=4)`` at
+    full width and depth (16 layers, d_model 2048, 16 heads of 128, d_ff
+    8192, vocab 50304; published in fp32), random weights from
+    ``--seed``, on 4 requests with prompts of 2032, 2032, 1000 and 1000
+    tokens and 16 new tokens each (two buckets of batch 2; 2048 is the
+    model's context). fp32 takes the SIMT flash kernel at hd 128.
+
+    ``_generation_runs`` with the SIMT kernel held on every layer of each
+    real prefill, each of the 32 launches on the SIMT kernel: these
+    scores reach ~650, where their fp32 rounding alone moves the plain
+    version ~5e-3 from the exact result, so each launch is held to the
+    exact (fp64) result beside the plain version (``held_flash``,
+    ``FP64_RATIO``), and the launches within the bare 2e-5 of the plain
+    version are counted; then one 2 x 2032 prefill traced, its
+    device time split into GEMMs, the flash kernel and the rest
+    (``PREFILL_CLASSES``). A token check against the CPU is out of reach
+    at this size (about 10 TFLOP of fp32 prefill); path (e) keeps one.
+    Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32")
+    info = {"resident_gib_before": _resident_gib(torch, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=2048, batch_size=4, seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    rng = np.random.default_rng(args.seed + 11)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       16) for n in (2032, 2032, 1000, 1000)]
+    ok, runs, buckets = _generation_runs(torch, eng, reqs, fa, ref, "simt",
+                                         True)
+    info.update(runs)
+    big = np.stack([reqs[i].prompt for i in buckets[-1]])
+    info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
+        eng.params, {"tokens": big}, eng.max_len), 1, PREFILL_CLASSES)
+    del eng
+    return ok, info
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -1474,6 +1683,13 @@ def main() -> int:
         f"({len(tile)} kernels)")
     if len(tile) != 8 or any(tile.values()):
         return fail(f"distance-tile kernels: ptxas reports spills {tile}")
+    # the SIMT flash kernel: two types at four head dims, none spilling
+    simt = {f: b for f, b in build.spill_bytes(
+        logs["flash_attention"]).items() if "flash_fwd" in f}
+    log(f"flash_attention (SIMT): ptxas spill bytes {sorted(simt.values())} "
+        f"({len(simt)} kernels)")
+    if len(simt) != 8 or any(simt.values()):
+        return fail(f"flash_attention (SIMT): ptxas reports spills {simt}")
 
     # -------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
@@ -1730,6 +1946,7 @@ def main() -> int:
     _reset(kmods)
     ok, gen_info = drive_generation_path(args, dev, flash_attention, ref)
     gen_launches = _counters(kmods)
+    gc.collect()
     torch.cuda.empty_cache()
     log("generation path (llama3-8b, 32 layers, prompts 2048, 2048, 1000, "
         "1000, max_new 16): " + json.dumps(gen_info))
@@ -1766,14 +1983,63 @@ def main() -> int:
         return fail(f"the fp32 generation path's flash launches did not all "
                     f"take the SIMT kernel: {f32_launches}")
 
-    # flash_attention at each path's widest shape on the kernel of its
-    # route: the two kernels' rows. Then at the prefill's shape the SIMT
-    # kernel on the same bf16 inputs (launched by name) and in fp32, and
-    # the further cases; bf16 at hd 64 and 128 on both kernels
+    # ------------------------------------ olmo-1b fp32 serving path
+    _reset(kmods)
+    ok, olmo = drive_olmo_fp32_path(args, dev, flash_attention, ref)
+    olmo_launches = _counters(kmods)
+    torch.cuda.empty_cache()
+    log("olmo-1b fp32 serving path (16 layers, prompts 2032, 2032, 1000, "
+        "1000, max_new 16): " + json.dumps(olmo))
+    for b in olmo["buckets"]:
+        log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
+            f"{b['prefill_s']:.3f} s, decode {b['decode_ms_per_token']:.2f} "
+            f"ms per token")
+    log("  prefill_trace (torch.profiler): "
+        + json.dumps(olmo["prefill_trace"]))
+    fx = olmo["vs_fp64"]
+    log(f"  init {olmo['init_s']:.1f} s, peak device memory "
+        f"{olmo['peak_gib']:.2f} GiB (weights {olmo['weights_gib']:.2f} "
+        f"GiB); SIMT launches {olmo['flash_simt_launches']} of "
+        f"{olmo['flash_checked_launches']} checked, worst error "
+        f"{olmo['flash_max_abs_err']:.3g} against the plain version; "
+        f"against the exact (fp64) result the kernel "
+        f"{fx['max_abs_err']['kernel']:.3g}, the plain version "
+        f"{fx['max_abs_err']['plain']:.3g}, it with hd shuffled "
+        f"{fx['max_abs_err']['reordered']:.3g} (each launch's largest "
+        f"error held to {fx['max_rule']:.3g}); worst launch's ratio to "
+        f"the plain version, largest error: kernel "
+        f"{fx['worst_launch_ratio_max']['kernel']:.3f}, reordered "
+        f"{fx['worst_launch_ratio_max']['reordered']:.3f} (over "
+        f"{FP64_RATIO} in {fx['launches_over_ratio_max']['kernel']} and "
+        f"{fx['launches_over_ratio_max']['reordered']} launches); root mean "
+        f"square (held to {FP64_RATIO}): kernel "
+        f"{fx['worst_launch_ratio_rms']['kernel']:.3f}, reordered "
+        f"{fx['worst_launch_ratio_rms']['reordered']:.3f}; "
+        f"{fx['launches_within_2e_5_of_plain']} launches within "
+        f"2e-5 + 2e-5|b| of the plain version; the plain version "
+        f"reordered against itself: largest difference "
+        f"{fx['max_abs_err']['reordered_vs_plain']:.3g}")
+    log("launches on the olmo-1b fp32 serving path: "
+        + json.dumps(olmo_launches))
+    if not ok:
+        return fail(f"olmo-1b fp32 serving path: {olmo}")
+    if olmo["flash_checked_launches"] != 32 or \
+            olmo_launches["flash_attention_wgmma"] != 0:
+        return fail(f"the olmo-1b fp32 path's prefills did not make 32 "
+                    f"checked launches, all on the SIMT kernel: "
+                    f"{olmo_launches}")
+
+    # flash_attention at each kernel's widest path launch: the two
+    # kernels' rows (wgmma: llama3-8b's prefill; SIMT: olmo-1b's fp32
+    # prefill). Then the fp32 path (e)'s shape, at the llama prefill's
+    # shape the SIMT kernel on the same bf16 inputs (launched by name) and
+    # in fp32, and the further cases; bf16 at hd 64 and 128 on both kernels
     shape, dtype = gen_info["flash_shape"]
+    olmo_shape = olmo["flash_shape"][0]
     f32_shape = f32_info["flash_shape"][0]
     dtype = dtype.replace("torch.", "")
     cases = [(shape, dtype, True, 0, "normal", None),
+             (olmo_shape, "float32", True, 0, "normal", None),
              (f32_shape, "float32", True, 0, "normal", None),
              (shape, dtype, True, 0, "normal", "simt"),
              (shape, "float32", True, 0, "normal", None)]
@@ -1782,14 +2048,25 @@ def main() -> int:
         if flash_attention.route(getattr(torch, dt), shp[3]) == "wgmma":
             cases.append((shp, dt, causal, window, inputs, "simt"))
     labels = (" on the generation path's shape",
+              " on the olmo-1b fp32 path's shape",
               " on the fp32 generation path's shape",
               " at the prefill's shape", " at the prefill's shape")
     for i, (shp, dt, causal, window, inputs, kern) in enumerate(cases):
         ok, row = check_flash(torch, flash_attention, ref, dev, gen, shp, dt,
-                              causal, window, inputs, kern)
+                              causal, window, inputs, kern,
+                              sdpa_backend=i < 3)
         torch.cuda.synchronize()
         log_kernel(row["name"] + (labels[i] if i < len(labels) else ""),
                    ok, row)
+        before = SIMT_BEFORE_MS.get(tuple(shp)) if i in (1, 2) else None
+        if before is not None:
+            log(f"kernel {row['name']} at {tuple(shp)} float32 causal: "
+                f"{row['ms']:.4f} ms; the SIMT kernel before its Hopper "
+                f"redesign (64-query blocks, synchronous staging): "
+                f"{' and '.join(map(str, before))} ms "
+                f"({SIMT_BEFORE_SOURCE}); bound {row['bound_ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, "
+                f"scaled_dot_product_attention {row['library_ms']:.4f} ms")
         if not ok:
             return fail(f"kernel {row['name']} disagrees with its plain "
                         f"version at {row['shape']}")
@@ -1800,7 +2077,7 @@ def main() -> int:
     launches = {**path_launches, "quant_lb2": mp_launches["quant_lb2"],
                 "lpgf_force": small_launches["lpgf_force"],
                 "flash_attention_wgmma": gen_launches["flash_attention_wgmma"],
-                "flash_attention": f32_launches["flash_attention"]}
+                "flash_attention": olmo_launches["flash_attention"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(json.dumps({"kernels": [

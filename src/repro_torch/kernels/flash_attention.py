@@ -19,8 +19,11 @@ Two kernels, and the route is chosen by type and head dim alone
   ``sm_90a`` and the driver's ``cuTensorMapEncodeTiled``; strides a
   multiple of 8 elements and bases 16-byte aligned.
 - ``"simt"`` (``csrc/flash_attention.cu``), every fp32 input and bf16 at
-  hd 16 and 32: fp32 products on the SIMT cores; strides and bases
-  aligned to 4 elements.
+  hd 16 and 32: IEEE fp32 products on the SIMT cores, K and V staged by
+  ``cp.async`` into a ring; strides and bases aligned to 4 elements. Its
+  C dispatch picks the query block by hd (``SIMT_BLOCK_Q``): 128 queries
+  at hd 64 and 128, 64 at hd 16 and 32 (twice the blocks where a row's
+  work is small).
 
 A launch that fails raises; nothing takes the other kernel or the plain
 version instead. Layout: q, k and v keep their (B, S, H, hd) layout and
@@ -48,6 +51,9 @@ WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 # each route's stride and base alignment, in elements
 _ALIGN = {"wgmma": 8, "simt": 4}
+# the SIMT kernel's queries a block, by head dim, as its C dispatch picks
+# them (one instantiation each); read by the tests' model of its walk
+SIMT_BLOCK_Q = {16: 64, 32: 64, 64: 128, 128: 128}
 
 
 def route(dtype: torch.dtype, hd: int) -> str:

@@ -242,8 +242,9 @@ def test_every_kernel_source_is_built_and_bound():
 
 def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
     """A library's name carries the hash of its source and of every
-    ``csrc/`` header it includes, so an edited header rebuilds the three
-    libraries that include it and no other."""
+    ``csrc/`` header it includes, so an edited header rebuilds the four
+    libraries that include it (the SIMT flash kernel takes its
+    ``cp.async`` helpers) and no other."""
     import shutil
     from repro_torch.kernels import build
     csrc = tmp_path / "csrc"
@@ -254,7 +255,8 @@ def test_shared_header_enters_the_build_hash(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     after = {n: build._target(n) for n in build.SOURCES}
     changed = sorted(n for n in build.SOURCES if before[n] != after[n])
-    assert changed == ["fused_topk", "lpgf_force", "pairwise_l2"]
+    assert changed == ["flash_attention", "fused_topk", "lpgf_force",
+                       "pairwise_l2"]
 
 
 def test_spill_bytes_reads_each_entry_function():

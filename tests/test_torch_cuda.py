@@ -23,7 +23,9 @@ the pairwise kernel's bit for bit, its weights equal the plain law's on
 those distances bit for bit, and F and W are held to the plain formula
 fed the same distances, to the same tolerances; two calls give the same
 bits.
-``flash_attention`` (both routes, the SIMT kernel and the wgmma one):
+``flash_attention`` (both routes, the SIMT kernel and the wgmma one;
+the SIMT kernel also at its block edges, windows inside a tile, strided
+rows, bf16 widened and olmo-1b's width, ``SIMT_CASES``):
 fp32 outputs within 2e-5 (rtol and atol, the
 reference's ``test_flash_sweep`` tolerance: summation order and the
 scale applied to q before the dot instead of to the scores after it);
@@ -595,6 +597,61 @@ def test_flash_kernel_ragged_lengths(cuda, route, dtype, hd, s):
         got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
                                                    window=window)
         assert_flash_close(got, q, k, v, causal, window)
+
+
+# the SIMT kernel's edges: (B, S, H, hd), type, causal, window, inputs.
+# Its query block is 128 at hd 64 / 128 and 64 at hd 16 / 32, its key
+# tile 64: S below one block and S no multiple of either; windows whose
+# edge falls inside a tile; "rows": views with rows hd + 4 elements apart
+# and a base 4 elements in (the 4-element rule, read in place); bf16 at
+# hd 16 and 32, widened on load; olmo-1b's prefill width.
+SIMT_CASES = [
+    ((1, 17, 3, 128), torch.float32, True, 0, "normal"),
+    ((1, 100, 3, 128), torch.float32, False, 0, "normal"),
+    ((2, 129, 2, 128), torch.float32, True, 0, "normal"),
+    ((1, 191, 2, 64), torch.float32, True, 0, "normal"),
+    ((1, 33, 3, 16), torch.float32, True, 0, "normal"),
+    ((2, 191, 2, 16), torch.float32, False, 0, "normal"),
+    ((1, 65, 2, 32), torch.float32, True, 0, "normal"),
+    ((1, 300, 2, 128), torch.float32, True, 37, "normal"),
+    ((1, 300, 2, 128), torch.float32, False, 100, "normal"),
+    ((1, 300, 2, 16), torch.float32, True, 5, "normal"),
+    ((1, 300, 2, 32), torch.float32, False, 70, "normal"),
+    ((1, 300, 4, 128), torch.float32, True, 0, "rows"),
+    ((1, 200, 4, 16), torch.float32, True, 24, "rows"),
+    ((2, 300, 3, 16), torch.bfloat16, True, 0, "normal"),
+    ((2, 300, 3, 32), torch.bfloat16, False, 40, "normal"),
+    ((1, 100, 3, 32), torch.bfloat16, True, 0, "rows"),
+    ((1, 2032, 16, 128), torch.float32, True, 0, "normal")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal,window,inputs", SIMT_CASES)
+def test_flash_simt_kernel_edges(cuda, shape, dtype, causal, window,
+                                 inputs):
+    assert flash_attention.route(dtype, shape[3]) == "simt"
+    b, s, h, hd = shape
+    pad = 4 if inputs == "rows" else 0
+    rng = np.random.default_rng(s + hd + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, hd + pad))
+                                .astype(np.float32)).to(cuda).to(dtype)
+               [..., pad:] for _ in range(3))
+    before = flash_attention.launches_by_route["simt"]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    assert flash_attention.launches_by_route["simt"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_flash_close(got, q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+def test_flash_simt_kernels_do_not_spill(cuda):
+    """Every SIMT flash instantiation (fp32 and bf16 at hd 16, 32, 64 and
+    128) compiles with no spill."""
+    report = build.build_all()["flash_attention"]
+    spills = {f: n for f, n in build.spill_bytes(report).items()
+              if "flash_fwd" in f}
+    assert len(spills) == 8 and not any(spills.values()), spills
 
 
 @pytest.mark.cuda

@@ -7,8 +7,11 @@ dispatch of a CUDA tensor to the kernel; the attention layers
 against the reference's; a numeric model of the wgmma kernel's
 arithmetic (unscaled bf16 Q.K^T in fp32, the fp32 scale, the online
 softmax over 128-key tiles, P split into two bf16 products) against
-both, and the case that shows the split is needed; which kernel a CUDA
-call routes to, with the library faked. The CUDA kernels themselves are
+both, and the case that shows the split is needed; a numeric model of
+the SIMT kernel's tile walk (its query blocks, the 64-key tiles it skips,
+the tiles it masks) and arithmetic against the Pallas kernel and the
+reference; which kernel a CUDA call routes to, and with which query
+block, with the library faked (olmo-1b's fp32 prefill included). The CUDA kernels themselves are
 held to the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 
@@ -20,6 +23,8 @@ same inputs (``flash_check``'s tolerance in chip_smoke.py). Attention
 layers: rtol=1e-5, atol=1e-5 (fp32 sum order).
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -302,6 +307,63 @@ def test_cuda_call_routes_by_type_and_head_dim(fake_card, dtype, hd, want):
     assert args[4:8] == (1, 8, 2, hd)      # B, S, H, hd after the pointers
 
 
+@pytest.mark.parametrize("shape,dtype,bq", [
+    ((2, 2032, 16, 128), torch.float32, 128),   # olmo-1b fp32, 2032 bucket
+    ((2, 1000, 16, 128), torch.float32, 128),   # olmo-1b fp32, 1000 bucket
+    ((2, 1000, 4, 16), torch.float32, 64),      # reduced llama3-8b fp32
+    ((1, 200, 3, 32), torch.bfloat16, 64),
+    ((1, 200, 3, 64), torch.float32, 128)])
+def test_simt_query_block_at_the_paths_shapes(fake_card, shape, dtype, bq):
+    """The SIMT kernel's query block at the fp32 serving paths' launches
+    and the route's other inputs: its C dispatch instantiates RQ = bq / 16
+    rows a lane for the head dim (read from the source), which
+    ``SIMT_BLOCK_Q`` mirrors for the model of the walk, and the launch
+    receives B, S, H, hd and the type, nothing that could pick another
+    block."""
+    hd = shape[3]
+    src = (Path(flash_attention.__file__).parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    rq = re.findall(rf"if \(hd == {hd}\)\s*return launch<T, {hd}, (\d+)>",
+                    src)
+    assert [16 * int(r) for r in rq] == [bq]
+    assert flash_attention.SIMT_BLOCK_Q[hd] == bq
+    q = torch.zeros(shape, dtype=dtype)
+    flash_attention.flash_attention_cuda(q, q, q)
+    (route, args), = fake_card.calls
+    assert route == "simt"
+    assert args[4:9] == (*shape, int(dtype == torch.bfloat16))
+    assert args[9:11] == (1, 0)               # causal, no window
+
+
+def test_olmo_fp32_prefill_routes_every_layer_to_simt(fake_card,
+                                                      monkeypatch):
+    """olmo-1b in fp32 (its published type) at its depth (16 layers) and
+    head dim (128), narrowed to 2 heads: with the prefill's attention
+    handed to the CUDA wrapper (the libraries faked; the layer then
+    takes the plain version's output), every layer's launch takes the
+    SIMT kernel at hd 128 (128-query blocks) in fp32, causal."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32",
+                              d_model=256, num_heads=2, num_kv_heads=2,
+                              d_ff=512, vocab_size=512,
+                              head_pad_multiple=1)
+    assert (cfg.num_layers, cfg.hd()) == (16, 128)
+    eng = ServeEngine(cfg, device="cpu", max_len=48, batch_size=2, seed=0)
+    toks = np.random.default_rng(3).integers(0, 512, (2, 40))
+
+    def on_card(q, k, v, *, causal=True, window=0, chunk=1024):
+        flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window)
+        return tref.flash_attention(q, k, v, causal=causal, window=window)
+    monkeypatch.setattr(TL, "attention_stream", on_card)
+    logits, _ = eng.model.prefill(eng.params, {"tokens": toks}, 48)
+    assert logits.shape == (2, 1, 512) and bool(logits.isfinite().all())
+    assert [c[0] for c in fake_card.calls] == ["simt"] * 16
+    assert {c[1][4:10] for c in fake_card.calls} == {(2, 40, 2, 128, 0,
+                                                      1)}
+    assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 16}
+
+
 @pytest.mark.parametrize("err", [1, 9000, 10001])
 def test_failing_wgmma_launch_raises(fake_card, err):
     """A launch error of the wgmma kernel (a CUDA error, no tensor-map
@@ -371,6 +433,157 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _qkv((1, 16, 2, 16), seed=0))
     with pytest.raises(ValueError, match="CUDA kernels take CUDA tensors"):
         flash_attention.flash_attention_cuda(q, k, v)
+
+
+# --------------------------------------------------- the SIMT kernel
+def _simt_walk(s, bq, causal, window, bk=64):
+    """The SIMT kernel's walk for a length-``s`` sequence: per query
+    block (q0), the key tiles walked, each with whether the mask is
+    applied on it (``csrc/flash_attention.cu``: j_begin, j_end, cut)."""
+    nkt = -(-s // bk)
+    for q0 in range(0, s, bq):
+        j_end = min(nkt - 1, (q0 + bq - 1) // bk) if causal else nkt - 1
+        lo = q0 - window
+        j_begin = (lo - (bk - 1)) // bk + 1 if window and lo >= bk - 1 \
+            else 0
+        yield q0, [(j, (causal and j * bk + bk - 1 > q0)
+                    or (window > 0 and j * bk <= q0 + bq - 1 - window)
+                    or j * bk + bk > s)
+                   for j in range(j_begin, j_end + 1)]
+
+
+def _keep(qpos, kpos, causal, window):
+    keep = torch.ones((len(qpos), len(kpos)), dtype=torch.bool)
+    if causal:
+        keep &= kpos[None, :] <= qpos[:, None]
+    if window:
+        keep &= kpos[None, :] > qpos[:, None] - window
+    return keep
+
+
+def _simt_model(q, k, v, *, causal=True, window=0, bq=128, bk=64):
+    """The SIMT kernel's arithmetic in plain torch (fp32, or bf16
+    widened): per query block of ``bq``, the 64-key tiles of
+    ``_simt_walk``; scores (q * scale) . k in fp32; on a cut tile masked
+    scores -1e30 and positions past S -inf; the online softmax (m, l,
+    corr) and O = O * corr + P.V, skipped for a warp's bq / 8 rows on a
+    tile the mask covers for all of them; out = O / max(l, 1e-30) in q's
+    type. It asserts the walk's claims as it goes: every tile not walked
+    is masked for every query of the block, every tile a warp skips for
+    all of its rows, and no score of a walked tile that is not cut is
+    masked or past S."""
+    b, s, h, hd = q.shape
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    out = torch.zeros((b, h, s, hd))
+    allk = torch.arange(-(-s // bk) * bk)
+    for q0, tiles in _simt_walk(s, bq, causal, window, bk):
+        qpos = torch.arange(q0, min(q0 + bq, s))
+        walked = {j for j, _ in tiles}
+        for j in set(range(-(-s // bk))) - walked:
+            assert not _keep(qpos, allk[j * bk:(j + 1) * bk], causal,
+                             window).any()
+        qs = qf[:, :, q0:q0 + bq] * scale
+        m = torch.full((b, h, len(qpos), 1), -torch.inf)
+        l = torch.zeros((b, h, len(qpos), 1))
+        acc = torch.zeros((b, h, len(qpos), hd))
+        for j, cut in tiles:
+            kpos = allk[j * bk:(j + 1) * bk]
+            kt = torch.zeros((b, h, bk, hd))
+            vt = torch.zeros((b, h, bk, hd))
+            n = min(bk, s - j * bk)
+            kt[:, :, :n] = kf[:, :, j * bk:j * bk + n]
+            vt[:, :, :n] = vf[:, :, j * bk:j * bk + n]
+            sc = qs @ kt.transpose(-1, -2)
+            keep = _keep(qpos, kpos, causal, window)
+            if cut:
+                sc = torch.where(keep, sc, torch.tensor(-1e30))
+                sc = torch.where(kpos < s, sc, torch.tensor(-torch.inf))
+            else:
+                assert keep.all() and bool((kpos < s).all())
+            # a warp (bq / 8 rows) skips a tile the mask covers for all
+            # of its rows
+            w = bq // 8
+            run = torch.ones((len(qpos), 1), dtype=torch.bool)
+            for wq0 in range(q0, q0 + len(qpos), w):
+                if (causal and j * bk > wq0 + w - 1) or \
+                        (window and j * bk + bk - 1 <= wq0 - window):
+                    assert not keep[wq0 - q0:wq0 - q0 + w].any()
+                    run[wq0 - q0:wq0 - q0 + w] = False
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = torch.where(run, l * corr + p.sum(-1, keepdim=True), l)
+            acc = torch.where(run, acc * corr + p @ vt, acc)
+            m = torch.where(run, m_new, m)
+        out[:, :, q0:q0 + bq] = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 37),
+                                           (False, 0), (False, 100)])
+def test_simt_model_matches_pallas_and_ref(hd, causal, window):
+    """The SIMT kernel's walk and arithmetic (``_simt_model``, with its
+    wrapper's query block) against the Pallas kernel in interpret mode
+    and the reference's plain version, fp32, S = 256; windows that start
+    and end inside a 64-key tile."""
+    q, k, v = _qkv((1, 256, 2, hd), seed=hd + window)
+    pallas = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=64, bk=64, interpret=True))
+    want = np.asarray(jref.flash_attention(q, k, v, causal=causal,
+                                           window=window))
+    got = _simt_model(*(torch.from_numpy(x) for x in (q, k, v)),
+                      causal=causal, window=window,
+                      bq=flash_attention.SIMT_BLOCK_Q[hd]).numpy()
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("s", [1, 17, 63, 65, 127, 129, 200])
+@pytest.mark.parametrize("bq", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 0), (False, 70)])
+def test_simt_model_ragged_lengths_match_ref(s, bq, causal, window):
+    """S that is no multiple of the query or key block, and S below one
+    block: the walk, the cut tiles and the ragged tail against the
+    reference's plain version (fp32)."""
+    q, k, v = _qkv((2, s, 2, 32), seed=s + bq + window)
+    want = np.asarray(jref.flash_attention(q, k, v, causal=causal,
+                                           window=window))
+    got = _simt_model(*(torch.from_numpy(x) for x in (q, k, v)),
+                      causal=causal, window=window, bq=bq).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_simt_model_bf16_widened_matches_ref():
+    """bf16 at hd 16 and 32 (the SIMT route's bf16 inputs): widened on
+    load, fp32 arithmetic, one rounding to bf16 at the end."""
+    for hd in (16, 32):
+        q, k, v = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16),
+                              np.float32)
+                   for x in _qkv((1, 150, 3, hd), seed=hd))
+        exact = np.asarray(jref.flash_attention(q, k, v, window=20))
+        tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+        got = _simt_model(tq, tk, tv, window=20,
+                          bq=flash_attention.SIMT_BLOCK_Q[hd])
+        assert got.dtype == torch.bfloat16
+        assert (np.abs(got.float().numpy() - exact)
+                <= _bf16_tol(exact, v)).all()
+
+
+def test_simt_walk_keeps_longest_causal_blocks_whole():
+    """Under the causal mask the last query block walks every tile up to
+    its diagonal and the first only its own; only the diagonal tiles are
+    cut (olmo-1b's 2032-token prefill at hd 128)."""
+    walk = dict(_simt_walk(2032, 128, True, 0))
+    assert [j for j, _ in walk[0]] == [0, 1]
+    assert [c for _, c in walk[0]] == [True, True]
+    last = walk[15 * 128]
+    assert [j for j, _ in last] == list(range(32))
+    assert [j for j, c in last if c] == [30, 31]
+    assert sum(len(t) for t in walk.values()) == 272
 
 
 # ----------------------------------------------------- attention layers
