@@ -21,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the exact distance, ``lpgf_force``'s stored distances equal to
    ``pairwise_sq_l2``'s and its calls bit-identical — and timed beside
    its plain version, a PyTorch library yardstick and its roofline
-   bound;
+   bound; then ``pairwise_sq_l2`` and ``topk_l2`` with NaN rows (the
+   ingest path's unused delta capacity) held to their plain versions:
+   NaN exactly where the plain version has NaN, the same bits elsewhere
+   (``check_nan_rows``);
 3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
    then timed) and one batch of V.K queries at k = 300 and 1000, every
@@ -41,6 +44,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    skewed workload, the scalar path's rows and work unchanged; and
    ``calibrate(batch=16)``, then the hybrid batch again under the fitted
    model, every row the oracle's;
+   Then ingest on that platform (``drive_ingest_path``): 8 appends of
+   2,500 rows (20,000 in a delta capacity of 32,768, so 12,768 NaN pad
+   rows), each followed by ``sync_delta`` and the hybrid batch on the
+   fp32 device loop, every row equal to the oracle's over ``view()``
+   (all 256 queries after the first and last append, 64 after the
+   others); after the last the host loop, int8 and bf16 too; then
+   ``fold()``, the engines rebuilt, and the batch on both loops and in
+   all three precisions; append, sync, batch, fold and rebuild times;
 5. small-table path: ``prepare()`` with its defaults on a 4,096-row
    table (LPGF's force kernel), then a 64-query batch, every row equal to
    the oracle's;
@@ -200,6 +211,71 @@ def check_pairwise(torch, pw, ref, lpgf, dev, gen, rows: int, dim: int):
         # point) and the dense V.R mask's (a 256-query batch)
         lpgf_chunk=_pairwise_call(torch, pw, ref, x, lpgf._ROW_CHUNK),
         vr_dense=_pairwise_call(torch, pw, ref, x, 256))
+
+
+def _nan_equal(torch, a, b) -> bool:
+    """Equal values, and NaN in the same places."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def check_nan_rows(torch, pw, ft, ref, dev, gen, rows: int, dim: int,
+                   capacity: int = 32768, live: int = 20000):
+    """``pairwise_sq_l2`` with NaN rows, at the dense V.R pass's shape on
+    the ingest path: a 256-query batch against the base rows plus a delta
+    of ``capacity`` rows of which ``live`` hold data and the rest are
+    NaN, one query row NaN and one point NaN in one coordinate. On an
+    integer grid (every sum exact) the kernel must give NaN exactly where
+    the plain version does and its bits everywhere else; on Gaussian
+    inputs the entries off the NaN rows must equal the kernel's output
+    without them, bit for bit. ``topk_l2`` on the same grid and on 40
+    points of which 15 are NaN, k = 40: NaN rows rank last, ids and
+    distances the plain version's. Returns (ok, info)."""
+    n = rows + capacity
+    pad = list(range(rows + live, n))
+    info = {"shape": f"(256, {n}, {dim})", "nan_point_rows": len(pad) + 1,
+            "nan_query_rows": 1}
+
+    def with_nan(x, full, one):
+        x[full] = float("nan")
+        x[one, dim // 2] = float("nan")
+        return x
+    gq = with_nan(torch.randint(-3, 4, (256, dim), generator=gen,
+                                device=dev).float(), [7], 200)
+    gp = with_nan(torch.randint(-3, 4, (n, dim), generator=gen,
+                                device=dev).float(), pad, rows + 5)
+    got = pw.pairwise_sq_l2_cuda(gq, gp)
+    want = ref.pairwise_sq_l2(gq, gp)
+    info["grid_equal_to_plain"] = _nan_equal(torch, got, want)
+    info["nan_entries"] = int(torch.isnan(got).sum())
+    info["ms"] = time_ms(torch, lambda: pw.pairwise_sq_l2_cuda(gq, gp), 3)
+    info["plain_ms"] = time_ms(torch, lambda: ref.pairwise_sq_l2(gq, gp), 3)
+    topk = True
+    for k in (2, 300):
+        gd, gi = ft.topk_l2_cuda(gq, gp, k)
+        wd, wi = ref.topk_l2(gq, gp, k)
+        topk &= torch.equal(gi, wi) and _nan_equal(torch, gd, wd)
+    small = with_nan(gp[:40].clone(), list(range(0, 40, 3)), 38)
+    gd, gi = ft.topk_l2_cuda(gq[:64].contiguous(), small, 40)
+    wd, wi = ref.topk_l2(gq[:64], small, 40)
+    topk &= torch.equal(gi, wi) and _nan_equal(torch, gd, wd) and bool(
+        torch.isnan(gd[:, -15:]).all())
+    info["topk_l2_equal_to_plain"] = topk
+    del gq, gp, got, want
+    q = with_nan(torch.randn((256, dim), generator=gen, device=dev), [7], 200)
+    p = with_nan(torch.randn((n, dim), generator=gen, device=dev), pad,
+                 rows + 5)
+    got = pw.pairwise_sq_l2_cuda(q, p)
+    qok, pok = ~torch.isnan(q).any(1), ~torch.isnan(p).any(1)
+    clean = pw.pairwise_sq_l2_cuda(q[qok].contiguous(), p[pok].contiguous())
+    info["gaussian_bits_unchanged"] = torch.equal(got[qok][:, pok], clean)
+    info["gaussian_nan_rows_all_nan"] = bool(
+        torch.isnan(got[~qok]).all() and torch.isnan(got[:, ~pok]).all())
+    ok = (info["grid_equal_to_plain"] and topk
+          and info["gaussian_bits_unchanged"]
+          and info["gaussian_nan_rows_all_nan"])
+    return ok, info
 
 
 def check_topk_l2(torch, ft, pw, ref, build, dev, gen, rows: int, dim: int):
@@ -1101,6 +1177,155 @@ def drive_calibration(args, dev, p, batch, truths, t_uncal: float, kmods):
     return None, info
 
 
+# ------------------------------------------------------------ ingest path
+INGEST_APPENDS, INGEST_ROWS = 8, 2500
+FULL_CHECK_AFTER = (0, INGEST_APPENDS - 1)   # appends checked on all queries
+SLICE = 64        # queries checked after the other appends
+
+
+def blob_centers(args):
+    """The 12 centres ``build_platform`` draws its blobs around (the first
+    draw of its generator)."""
+    import numpy as np
+    rng = np.random.default_rng(args.seed)
+    return rng.normal(size=(12, args.dim)).astype(np.float32) * 6
+
+
+def drive_ingest_path(args, dev, p, batch, kmods):
+    """Ingest on the prepared platform of the fp32 path: the hybrid batch
+    on the fp32 device loop as the baseline, then ``INGEST_APPENDS``
+    appends of ``INGEST_ROWS`` rows each (blobs around the same centres,
+    ``fold=False``; the first holds a row 1e-3 from the vector of the
+    batch's first query, which must answer it), each followed by the
+    engine's ``sync_delta`` and the batch on the fp32 device loop, every
+    row the oracle's over ``view()`` (all queries after the first and the
+    last append, the first ``SLICE`` after the others). After the last
+    append the batch also runs on the host loop and in int8 and bf16;
+    then ``fold()``, the engines rebuilt, and the batch again on both
+    loops and in all three precisions. Each run is timed four times (the
+    first, and the median of the rest). Every KNN width recorded while
+    the delta is live must carry the ``:delta`` suffix. Returns (error or
+    None, info)."""
+    import numpy as np
+    import torch
+
+    info = {"appends": [], "checks": []}
+    rng = np.random.default_rng(args.seed + 8)
+    centers = blob_centers(args)
+    nb = p.n_base
+    sess = p.session()
+
+    def run(label, session, device_loop=True, queries=None):
+        """The batch on ``session`` four times: the first run's seconds,
+        and the median of the other three (the host clock spreads between
+        calls); the first run's rows checked against the oracle (on
+        ``queries`` of them). Returns (error or None, rows, stats)."""
+        times = []
+        for i in range(4):
+            t0 = time.time()
+            out, st = session.plan(batch, device_loop=device_loop).execute()
+            _sync(torch, dev)
+            times.append(time.time() - t0)
+            if i == 0:
+                res = out
+        secs = sorted(times[1:])[1]
+        n = len(batch) if queries is None else queries
+        t0 = time.time()
+        bad, _ = oracle_mismatches(p, batch[:n], res[:n])
+        info["checks"].append({
+            "run": label, "first_s": times[0], "batch_s": secs,
+            "qps": len(batch) / secs, "checked": n, "mismatches": len(bad),
+            "oracle_s": time.time() - t0})
+        if bad:
+            return f"ingest {label}: query {bad[0]} differs from the " \
+                   f"oracle", res, st
+        return None, res, st
+
+    _reset(kmods)
+    t_path = time.time()
+    err, _, _ = run("base, before any append", sess)
+    if err:
+        return err, info
+    for j in range(INGEST_APPENDS):
+        lab = rng.integers(0, 12, INGEST_ROWS)
+        vec = (centers[lab] + rng.normal(size=(INGEST_ROWS, args.dim))
+               ).astype(np.float32)
+        if j == 0:
+            vec[0] = batch[0].vec() + np.float32(1e-3)
+        price = rng.uniform(0, 100, INGEST_ROWS).astype(np.float32)
+        t0 = time.time()
+        p.append(numeric={"price": price}, vector={"v": vec}, fold=False)
+        t_app = time.time() - t0
+        t0 = time.time()
+        eng = sess.engine()              # sync_delta: the union, uploaded
+        _sync(torch, dev)
+        t_sync = time.time() - t0
+        full = j in FULL_CHECK_AFTER
+        err, res, st = run(f"append {j + 1}", sess,
+                           queries=None if full else SLICE)
+        info["appends"].append({
+            "rows": p.n_delta, "capacity": p.delta.capacity,
+            "append_ms": t_app * 1e3, "sync_ms": t_sync * 1e3,
+            "delta_tiles": eng.delta_tiles,
+            "delta_tiles_device_layout": eng.geom_dev["v"].n_leaves
+            - eng._base["geom_dev"]["v"].n_leaves,
+            "widths": sorted({a for a, _ in st.knn_group_widths})})
+        if err:
+            return err, info
+        if j == 0 and nb not in res[0].tolist():
+            return (f"ingest: the row appended 1e-3 from query 0's vector "
+                    f"(id {nb}) is not in its answer {res[0][:5]}"), info
+        if not st.knn_group_widths or not all(
+                a.endswith(":delta") for a, _ in st.knn_group_widths):
+            return (f"ingest: widths recorded during the delta without "
+                    f"the :delta suffix: {st.knn_group_widths}"), info
+        if max(int(r.max(initial=-1)) for r in res) >= nb + p.n_delta:
+            return "ingest: a row id at or past n_base + m", info
+    info["delta_stats"] = {k: v for k, v in vars(st).items()
+                           if k not in ("stage_samples", "knn_group_widths")}
+    # the grouping's share of a sync at the full delta (deterministic:
+    # the same groups the last sync cut)
+    t0 = time.time()
+    eng._delta_groups(p.delta)
+    _sync(torch, dev)
+    info["delta_groups_s"] = time.time() - t0
+    info["n_pad_rows"] = p.delta.capacity - p.n_delta
+    err, _, _ = run("delta, host loop", sess, device_loop=False)
+    if err:
+        return err, info
+    for prec in ("int8", "bf16"):
+        t0 = time.time()
+        ps = p.session(precision=prec)
+        ps.engine()
+        _sync(torch, dev)
+        info[f"{prec}_sync_s"] = time.time() - t0
+        err, _, st = run(f"delta, {prec}", ps)
+        if err:
+            return err, info
+    t0 = time.time()
+    info["folded"] = p.fold()
+    info["fold_s"] = time.time() - t0
+    info["rows_after_fold"] = p.n_base
+    for prec in ("fp32", "int8", "bf16"):
+        t0 = time.time()
+        p.session(precision=prec).engine()
+        _sync(torch, dev)
+        info[f"rebuild_{prec}_s"] = time.time() - t0
+    for label, session, dl in (
+            ("folded", sess, True), ("folded, host loop", sess, False),
+            ("folded, int8", p.session(precision="int8"), True),
+            ("folded, bf16", p.session(precision="bf16"), True)):
+        err, res, st = run(label, session, device_loop=dl)
+        if err:
+            return err, info
+        if any(a.endswith(":delta") for a, _ in st.knn_group_widths):
+            return f"ingest {label}: a :delta width after the fold", info
+    info["path_s"] = time.time() - t_path
+    info["launches"] = _counters(kmods)
+    info["oracle_s"] = sum(c["oracle_s"] for c in info["checks"])
+    return None, info
+
+
 # ------------------------------------------------------------ model paths
 def _rel(torch, a, b) -> float:
     """||a - b|| / ||b|| over all rows (Frobenius)."""
@@ -1724,6 +1949,17 @@ def main() -> int:
             kernels.append(row)
         torch.cuda.empty_cache()
 
+    # NaN rows (the delta's unused capacity) through the distance tile
+    ok, nan_info = check_nan_rows(torch, pairwise_l2, fused_topk, ref, dev,
+                                  gen, args.rows, args.dim)
+    torch.cuda.synchronize()
+    log("kernel pairwise_sq_l2 / topk_l2 with NaN rows: ok=" + str(ok)
+        + " " + json.dumps(nan_info))
+    if not ok:
+        return fail("pairwise_sq_l2 / topk_l2 with NaN rows disagree with "
+                    "their plain versions")
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------- fp32 path
     torch.cuda.reset_peak_memory_stats()
     _reset(kmods)
@@ -1889,6 +2125,28 @@ def main() -> int:
     if err:
         return fail(err)
     log(f"planner paths: {time.time() - t_planner:.1f} s")
+
+    # --------------------------------------------------- ingest path
+    err, ing = drive_ingest_path(args, dev, p, batch, kmods)
+    for j, a in enumerate(ing["appends"]):
+        log(f"ingest: append {j + 1} of {INGEST_ROWS} rows: append "
+            f"{a['append_ms']:.1f} ms, sync_delta {a['sync_ms']:.1f} ms; "
+            f"{a['rows']} live rows in a capacity of {a['capacity']}; "
+            f"delta_tiles {a['delta_tiles']} (device layout "
+            f"{a['delta_tiles_device_layout']}); widths {a['widths']}")
+    for c in ing["checks"]:
+        log(f"ingest: {c['run']}: first batch {c['first_s']:.3f} s, then "
+            f"median of 3 {c['batch_s']:.3f} s, qps {c['qps']:.1f}; oracle "
+            f"{c['oracle_s']:.1f} s over {c['checked']} queries, mismatches "
+            f"{c['mismatches']}")
+    log("ingest: " + json.dumps({k: v for k, v in ing.items()
+                                 if k not in ("appends", "checks")}))
+    if err:
+        return fail(err)
+    if min(ing["launches"][n] for n in ("pairwise_sq_l2", "topk_l2_masked",
+                                        "quant_lb2")) <= 0:
+        return fail(f"a kernel of the ingest path never launched: "
+                    f"{ing['launches']}")
 
     del p, batch, res, truths, mp_rows, sess, eng
     gc.collect()            # the platform's reference cycles hold GiBs

@@ -31,6 +31,17 @@ rest in fp32 (``ops.topk_l2_masked_mp``). Rows are the fp32 path's;
 ``EngineStats.mp_scanned``/``mp_rescued`` count the work. The V.R path
 stays fp32, as in the reference.
 
+Ingest: ``sync_delta`` splices the platform's ``DeltaRegion`` into the
+device state. Delta rows get their own tiles in both layouts, with exact
+per-tile balls and boxes and their own int8/bf16 planes, appended after
+the base tiles, so both beam loops, the V.R planner and the predicate
+masks see one tile universe over base plus delta. The delta's unused
+capacity rows are NaN, which fails every predicate (the distance
+kernels keep NaN through their clamp); their tile slots carry row id -1
+and zeroed data, and empty delta tiles radius -inf. Only the delta is
+uploaded; the union is a ``torch.cat`` onto the resident base, rebuilt
+once per write epoch.
+
 Certified exact re-rank (a port decision the reference does not make):
 the fused kernels compute squared distances by the quadratic expansion
 |q|^2 + |p|^2 - 2 q.p in fp32, whose error is at most
@@ -824,7 +835,8 @@ class HybridEngine:
     persistence slice, so it must be None. ``cost_model`` (a
     ``cost.CostModel`` or None) steers the V.R dense-vs-tile route once
     both V.R kinds are reliably fitted (``_vr_masks``); the owning
-    platform refreshes it on every ``engine()`` call."""
+    platform refreshes it on every ``engine()`` call, and unions its
+    un-folded appends in through ``sync_delta``."""
 
     def __init__(self, tree, table, meta, *, beam: int = 16,
                  tile: int = 128, device_loop: bool = True,
@@ -892,6 +904,7 @@ class HybridEngine:
         rows_dev, cap_dev, _ = bucket_tiles(starts, ends, self.device_tile)
         br_dev = torch.as_tensor(rows_dev, dtype=torch.int64, device=dev)
         self.bucket_rows_dev = br_dev
+        self.cap_dev = cap_dev
         self.vec_tiles_dev = {}
         for a, c in table.vector.items():
             tiles_d = tile_data(c, rows_dev)
@@ -911,6 +924,17 @@ class HybridEngine:
             self.num_hi[a] = torch.as_tensor(
                 np.where(valid, cv, -np.inf).max(axis=1),
                 dtype=torch.float32, device=dev)
+        # the base state: sync_delta switches the attributes above between
+        # it and the base (+) delta union
+        self._base = {k: getattr(self, k) for k in (
+            "n", "n_tiles", "bucket_rows", "bucket_rows_np", "row_leaf",
+            "vec", "vec_np", "vec_tiles", "vec_tile_pp", "vec_max2", "num",
+            "num_lo", "num_hi", "geom", "geom_dev", "vec_tiles_dev",
+            "vec_planes", "vec_planes_dev")}
+        self.n_base = self.n
+        self.delta_epoch = 0
+        self.delta_rows = 0
+        self.delta_tiles = 0
 
     def _make_planes(self, tiles_np: np.ndarray,
                      valid: np.ndarray) -> quant.TilePlanes:
@@ -918,6 +942,187 @@ class HybridEngine:
         so the planes are its bit for bit) and move it to the device."""
         planes = quant.plan_tiles(tiles_np, valid, self.precision)
         return quant.TilePlanes(*(x.to(self.device) for x in planes))
+
+    # ----------------------------------------------------------- delta union
+    def _delta_group_count(self, delta) -> int:
+        """One grouping centre per device tile of capacity: fixed by the
+        capacity, so tile budgets never depend on the data."""
+        return max(1, delta.capacity // self.cap_dev)
+
+    def _delta_groups(self, delta) -> List[np.ndarray]:
+        """Cluster the live delta rows (four k-means steps over the first
+        vector attribute, k = ``_delta_group_count``) and sort each group
+        by distance to its centre, so delta tiles are cut within groups
+        and their balls prune as tightly as base tiles'. The distances
+        run on the device, the steps are the reference's host numpy. Only
+        tile membership depends on it, never a result."""
+        m = delta.m
+        k = self._delta_group_count(delta)
+        a = next(iter(delta.vector_dims), None)
+        if a is None or m <= 1 or k <= 1:
+            return [np.arange(m, dtype=np.int64)]
+        pts_np = delta.vector[a][:m]
+        pts = torch.as_tensor(pts_np, dtype=torch.float32, device=self.device)
+        cen = pts_np[np.linspace(0, m - 1, k).astype(int)].copy()
+        for _ in range(4):
+            d2 = ops.pairwise_sq_l2(pts, torch.as_tensor(
+                cen, device=self.device)).cpu().numpy()
+            asg = d2.argmin(axis=1)
+            sums = np.zeros_like(cen)
+            np.add.at(sums, asg, pts_np)
+            cnt = np.bincount(asg, minlength=k)
+            nz = cnt > 0
+            cen[nz] = sums[nz] / cnt[nz][:, None]
+        dist = d2[np.arange(m), asg]
+        groups = []
+        for j in range(k):
+            sel = np.nonzero(asg == j)[0]
+            if len(sel):
+                groups.append(sel[np.argsort(dist[sel], kind="stable")]
+                              .astype(np.int64))
+        return groups
+
+    def _delta_layout(self, delta, cap: int, groups: List[np.ndarray]):
+        """Delta tiles of ``cap`` rows: (global row ids (Td, cap), clipped
+        local index, validity, per-row tile map). Chunks align to group
+        boundaries, with one slack tile per group in the budget, so Td is
+        fixed by the capacity alone."""
+        td = delta.n_tiles(cap) + self._delta_group_count(delta)
+        slots = np.full((td, cap), -1, np.int64)
+        row_tile = np.zeros(delta.capacity, np.int64)
+        t = 0
+        for g in groups:
+            for c0 in range(0, len(g), cap):
+                chunk = g[c0:c0 + cap]
+                slots[t, :len(chunk)] = chunk
+                row_tile[chunk] = t
+                t += 1
+        assert t <= td, (t, td)
+        valid = slots >= 0
+        rows = np.where(valid, self.n_base + slots, -1)
+        # pad rows keep tile 0: their NaN columns fail every predicate
+        return rows, np.maximum(slots, 0), valid, row_tile
+
+    @staticmethod
+    def _delta_geom(pts: np.ndarray, valid: np.ndarray):
+        """Exact per-tile balls over the live slots (host numpy, the
+        reference's); empty tiles get radius -inf (lower bound +inf)."""
+        cnt = valid.sum(1)
+        cen = pts.sum(1) / np.maximum(cnt, 1)[:, None]
+        d2 = ((pts - cen[:, None, :]) ** 2).sum(2)
+        rad = np.where(cnt > 0,
+                       np.sqrt(np.max(np.where(valid, d2, 0.0), axis=1)),
+                       -np.inf)
+        return (np.where(cnt[:, None] > 0, cen, 0.0).astype(np.float32),
+                rad.astype(np.float32))
+
+    def _union_geom(self, g0: LeafGeometry, cen: np.ndarray,
+                    rad: np.ndarray, bucket_rows: torch.Tensor
+                    ) -> LeafGeometry:
+        """A base layout's balls with the delta tiles' appended; the
+        re-rank's error scales cover both (empty tiles' centres are 0 and
+        their radii -inf)."""
+        dev = self.device
+        return LeafGeometry(
+            centroid=torch.cat([g0.centroid, torch.as_tensor(cen, device=dev)]),
+            radius=torch.cat([g0.radius, torch.as_tensor(rad, device=dev)]),
+            bucket_rows=bucket_rows, cap=g0.cap,
+            cen_max2=max(g0.cen_max2, float(
+                (cen.astype(np.float64) ** 2).sum(1).max(initial=0))),
+            rad_max=max(g0.rad_max, float(rad.max(initial=0))))
+
+    def sync_delta(self, delta, epoch: int):
+        """Bring the device state to the platform's write epoch: nothing
+        while it is unchanged, the base state when the delta is empty,
+        else the base (+) delta union, uploading only the delta."""
+        if epoch == self.delta_epoch:
+            return
+        self.delta_epoch = epoch
+        live = 0 if delta is None else delta.m
+        base = self._base
+        if live == 0:
+            for k, v in base.items():
+                setattr(self, k, v)
+            self.delta_rows = 0
+            self.delta_tiles = 0
+            return
+        dev = self.device
+        nb = self.n_base
+        self.n = nb + delta.capacity      # pad rows included: NaN columns
+        #                                   fail every predicate, -1 tile
+        #                                   slots never reach a kernel
+        self.delta_rows = live
+        groups = self._delta_groups(delta)
+        rows_h, local_h, valid_h, row_tile_h = self._delta_layout(
+            delta, self.cap, groups)
+        self.delta_tiles = len(rows_h)
+        self.n_tiles = base["n_tiles"] + len(rows_h)
+        self.bucket_rows_np = np.concatenate(
+            [base["bucket_rows_np"], rows_h.astype(np.int32)])
+        self.bucket_rows = torch.cat(
+            [base["bucket_rows"], torch.as_tensor(rows_h, device=dev)])
+        self.row_leaf = torch.cat(
+            [base["row_leaf"],
+             torch.as_tensor(base["n_tiles"] + row_tile_h, device=dev)])
+        rows_d, local_d, valid_d, _ = self._delta_layout(
+            delta, self.cap_dev, groups)
+        br_dev_u = torch.cat([self.bucket_rows_dev,
+                              torch.as_tensor(rows_d, device=dev)])
+        vec, vec_np, vt, vpp, vmax2, geom = {}, {}, {}, {}, {}, {}
+        vt_dev, geom_dev, vpl, vpl_dev = {}, {}, {}, {}
+        for a in delta.vector_dims:
+            dcol = delta.vector[a]                       # (capn, d), NaN pads
+            vec_np[a] = np.concatenate([base["vec_np"][a], dcol])
+            vec[a] = torch.cat([base["vec"][a],
+                                torch.as_tensor(dcol, device=dev)])
+            # tile gathers clip to live data and zero the pad slots: tiles
+            # stay NaN-free (pads are excluded by -1 row ids anyway)
+            pts_h = np.where(valid_h[:, :, None], dcol[local_h], 0.0
+                             ).astype(np.float32)
+            pp_h = (pts_h ** 2).sum(-1)
+            vt[a] = torch.cat([base["vec_tiles"][a],
+                               torch.as_tensor(pts_h, device=dev)])
+            vpp[a] = torch.cat([base["vec_tile_pp"][a],
+                                torch.as_tensor(pp_h, device=dev)])
+            vmax2[a] = max(base["vec_max2"][a], float(pp_h.max(initial=0))
+                           * (1 + (pts_h.shape[-1] + 2) * _U32))
+            cen, rad = self._delta_geom(pts_h, valid_h)
+            geom[a] = self._union_geom(base["geom"][a], cen, rad,
+                                       self.bucket_rows)
+            pts_d = np.where(valid_d[:, :, None], dcol[local_d], 0.0
+                             ).astype(np.float32)
+            vt_dev[a] = torch.cat([base["vec_tiles_dev"][a],
+                                   torch.as_tensor(pts_d, device=dev)])
+            cen_d, rad_d = self._delta_geom(pts_d, valid_d)
+            geom_dev[a] = self._union_geom(base["geom_dev"][a], cen_d, rad_d,
+                                           br_dev_u)
+            # delta tiles get their own quantization scales, concatenated
+            # tile-major like the fp32 tiles
+            if self.precision != "fp32":
+                for out, key, pts, ok in (
+                        (vpl, "vec_planes", pts_h, valid_h),
+                        (vpl_dev, "vec_planes_dev", pts_d, valid_d)):
+                    dpl = self._make_planes(pts, ok)
+                    out[a] = quant.TilePlanes(*(
+                        torch.cat([b, x]) for b, x in zip(base[key][a], dpl)))
+        self.vec, self.vec_np, self.vec_max2 = vec, vec_np, vmax2
+        self.vec_tiles, self.vec_tile_pp, self.geom = vt, vpp, geom
+        self.vec_tiles_dev, self.geom_dev = vt_dev, geom_dev
+        if self.precision != "fp32":
+            self.vec_planes, self.vec_planes_dev = vpl, vpl_dev
+        num, num_lo, num_hi = {}, {}, {}
+        for a in delta.numeric_keys:
+            dcol = delta.numeric[a]
+            num[a] = torch.cat([base["num"][a],
+                                torch.as_tensor(dcol, device=dev)])
+            dval = dcol[local_h]
+            num_lo[a] = torch.cat([base["num_lo"][a], torch.as_tensor(
+                np.where(valid_h, dval, np.inf).min(axis=1),
+                dtype=torch.float32, device=dev)])
+            num_hi[a] = torch.cat([base["num_hi"][a], torch.as_tensor(
+                np.where(valid_h, dval, -np.inf).max(axis=1),
+                dtype=torch.float32, device=dev)])
+        self.num, self.num_lo, self.num_hi = num, num_lo, num_hi
 
     def plane_bytes(self) -> int:
         """Device bytes held by the quantized planes of both layouts."""
@@ -1122,11 +1327,16 @@ class HybridEngine:
         out: List[Optional[np.ndarray]] = [None] * len(jobs)
         if groups is None:
             groups = self._group_jobs(jobs, device_loop)
+        # while un-folded delta tiles are unioned in, scans converge wider:
+        # their widths key on the archetype with a ":delta" suffix, so the
+        # base seed that post-fold batches read stays clean
+        suffix = ":delta" if self.delta_tiles else ""
         for grp in groups:
             t_g0 = time.time()
             idxs = list(grp.jobs)
             attr, kmax, n_masked = grp.attr, grp.kmax, grp.n_masked
-            seed = seeds.get(grp.archetype) if seeds else None
+            arch = grp.archetype + suffix
+            seed = seeds.get(arch) if seeds else None
             conv: list = []
             next_lb: list = []
             refuted: list = []
@@ -1172,7 +1382,7 @@ class HybridEngine:
             signal = np.maximum(conv[0] - w_base, 0)
             width = int(np.ceil(np.quantile(signal, 0.9))) \
                 if len(signal) else 0
-            stats.knn_group_widths.append((grp.archetype, width))
+            stats.knn_group_widths.append((arch, width))
             feats = costm.knn_plan_features(
                 device_loop=device_loop, g=len(idxs), k=kmax,
                 beam=self.beam, tiles=l, cap=geom.cap, dim=qv.shape[1],

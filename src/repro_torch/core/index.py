@@ -1,6 +1,7 @@
 """High-dimensional learned index (paper §6). Port of
-``repro/core/index.py``: the build (Algorithm 2) and the two executors;
-the incremental fold comes with ingest.
+``repro/core/index.py``: the build (Algorithm 2), the incremental fold
+that merges ingested rows into the tree (``fold_into_tree``) and the two
+executors.
 
 Build = divisive hierarchical clustering: DPC splits, a training-based
 stop rule (a linear CDF over distance-to-centroid keys must predict
@@ -236,6 +237,81 @@ def build_index(features: np.ndarray, *, delta: float = 0.951,
         lm_hit_ratio=float(np.mean(hit_ratios)) if hit_ratios else 1.0,
         index_bytes=tree.size_bytes())
     return tree, perm, report
+
+
+# ---------------------------------------------------------------------------
+# Incremental fold (the ingest merge path)
+# ---------------------------------------------------------------------------
+def fold_into_tree(tree: ClusterTree, enhanced: np.ndarray,
+                   delta_enh: np.ndarray, *, device=None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Merge delta rows into an existing tree's leaf buckets in place.
+
+    Each delta row goes to its nearest leaf centroid in the enhanced
+    space (one ``pairwise_sq_l2`` pass on ``device``), leaf and ancestor
+    radii widen to cover it, and each leaf that gained rows is re-sorted
+    by distance to its centroid (stable) with its last-mile fit refitted.
+    The walk, the splice and the fits are the reference's host numpy, so
+    the folded tree is its bit for bit wherever the nearest-leaf pass
+    agrees. Exactness of every query path never depends on the
+    assignment: leaf metadata and engine tiles are rebuilt from the
+    merged table.
+
+    ``enhanced`` is the PERMUTED base feature matrix (tree bucket ranges
+    index it), ``delta_enh`` the delta rows in the same space. Mutates
+    ``tree`` (bucket ranges, radii, last-mile fits) and returns ``(perm,
+    bucket_id, bucket_starts)`` over the combined [base-physical; delta]
+    row order, ready for ``MMOTable.apply_permutation``."""
+    dev = resolve_device(device)
+    nb, m = len(enhanced), len(delta_enh)
+    leaves = tree.leaf_ids
+    cen = tree.centroid[leaves].astype(np.float32)
+    d2 = ops.pairwise_sq_l2(
+        torch.as_tensor(np.asarray(delta_enh, np.float32), device=dev),
+        torch.as_tensor(cen, device=dev))
+    assign = d2.argmin(dim=1).cpu().numpy()       # leaf position per row
+    del d2
+    # widen ancestor balls so C/R pruning stays conservative
+    for j in range(m):
+        node = int(leaves[assign[j]])
+        x = delta_enh[j]
+        while node >= 0:
+            dist = float(np.linalg.norm(x - tree.centroid[node]))
+            if dist > tree.radius[node]:
+                tree.radius[node] = dist
+            node = int(tree.parent[node])
+    comb = np.concatenate([np.asarray(enhanced, np.float32),
+                           np.asarray(delta_enh, np.float32)])
+    # splice per leaf, walking leaves in their current physical order
+    order = np.argsort(tree.bucket_start[leaves], kind="stable")
+    segs: List[np.ndarray] = []
+    cursor = 0
+    for pos in order:
+        lid = int(leaves[pos])
+        s, e = int(tree.bucket_start[lid]), int(tree.bucket_end[lid])
+        extra = np.nonzero(assign == pos)[0]
+        rows = np.concatenate([np.arange(s, e, dtype=np.int64),
+                               nb + extra.astype(np.int64)])
+        if len(extra) and len(rows):
+            keys = np.sqrt(np.maximum(
+                ((comb[rows] - tree.centroid[lid][None]) ** 2).sum(1),
+                0.0)).astype(np.float32)
+            srt = np.argsort(keys, kind="stable")
+            rows = rows[srt]
+            a, b = _fit_last_mile(keys[srt])
+            tree.lm_a[lid], tree.lm_b[lid] = a, b
+        tree.bucket_start[lid] = cursor
+        tree.bucket_end[lid] = cursor + len(rows)
+        segs.append(rows)
+        cursor += len(rows)
+    perm = np.concatenate(segs) if segs else np.array([], np.int64)
+    bucket_id = np.zeros(len(perm), np.int32)
+    for b, lid in enumerate(leaves):
+        s, e = int(tree.bucket_start[lid]), int(tree.bucket_end[lid])
+        bucket_id[s:e] = b
+    bucket_starts = np.concatenate(
+        [tree.bucket_start[leaves], [len(perm)]]).astype(np.int32)
+    return perm, bucket_id, bucket_starts
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ Per batch: ``Q.normalize`` -> ``Q.signature`` -> a ``LogicalPlan``
 signatures, loop kind, scan precision, platform build id) -> an
 ``ExecutablePlan`` bound to this batch's constants, which runs through
 ``HybridEngine`` with beam seeds read from the QBS convergence rings and
-records its widths, stage costs and workload back.
+records its widths, stage costs and workload back. An append does not
+invalidate a cached plan (only a fold or ``prepare`` bumps the build
+id): the engine unions the delta in at execute time, widths recorded
+while it is live key on the archetype plus ``:delta``, and
+``explain()["delta"]`` reports it.
 
 The session's ``precision`` ("fp32", "bf16", "int8"; resolved by the
 platform: explicit > ``MQRLD_PRECISION`` > ``default_precision``) picks
@@ -117,6 +121,12 @@ def build_logical_plan(norm: Sequence[Q.Query],
         groups=group_job_specs(tuple(job_specs), device_loop))
 
 
+def _delta_suffix(platform) -> str:
+    """The QBS key suffix of KNN archetypes while un-folded delta rows
+    are unioned in (``HybridEngine._run_jobs`` records under it)."""
+    return ":delta" if platform.n_delta else ""
+
+
 def _knn_group_features(eng, grp: KnnGroupSpec, device_loop: bool,
                         beam: int, precision: str,
                         seed: Optional[int] = None) -> Tuple[float, ...]:
@@ -148,32 +158,37 @@ class ExecutablePlan:
 
     def _seeds(self) -> Dict[str, int]:
         """QBS convergence seeds for this plan's KNN groups, looked up at
-        execute time so a cached plan keeps learning between runs. With a
-        reliably fitted model for the plan's loop, a seed is dropped where
-        the model predicts the unseeded widths cheaper (seeds only move
-        work between beam rounds)."""
+        execute time so a cached plan keeps learning between runs. While
+        un-folded delta rows exist, the engine records (and this looks
+        up) each archetype's ``:delta`` variant, so delta-widened widths
+        never reach the base seed. With a reliably fitted model for the
+        plan's loop, a seed is dropped where the model predicts the
+        unseeded widths cheaper (seeds only move work between beam
+        rounds)."""
         sess = self.session
         qbs = sess.platform.qbs
         lp = self.logical
+        suffix = _delta_suffix(sess.platform)
         seeds: Dict[str, int] = {}
         for grp in lp.groups:
-            w = qbs.convergence_width(grp.archetype)
+            w = qbs.convergence_width(grp.archetype + suffix)
             if w is not None:
-                seeds[grp.archetype] = w
+                seeds[grp.archetype + suffix] = w
         cm = sess.platform.cost_model
         kind = costm.knn_kind(lp.device_loop)
         if cm is not None and seeds and cm.reliable(kind):
             eng = sess.engine()
             for grp in lp.groups:
-                if grp.archetype not in seeds:
+                key = grp.archetype + suffix
+                if key not in seeds:
                     continue
                 ps = cm.predict(kind, _knn_group_features(
                     eng, grp, lp.device_loop, sess.beam, sess.precision,
-                    seed=seeds[grp.archetype]))
+                    seed=seeds[key]))
                 pn = cm.predict(kind, _knn_group_features(
                     eng, grp, lp.device_loop, sess.beam, sess.precision))
                 if ps is not None and pn is not None and pn < ps:
-                    seeds.pop(grp.archetype)
+                    seeds.pop(key)
         return seeds
 
     def execute(self) -> Tuple[List[np.ndarray], EngineStats]:
@@ -221,11 +236,14 @@ class ExecutablePlan:
     def explain(self) -> dict:
         """Structured plan description (no execution): path per query,
         cache hit/miss, per-V.K group/archetype/beam seed, per-V.R
-        surviving-tile estimate and route."""
+        surviving-tile estimate and route, and the un-folded delta the
+        execution would union in (epoch, live rows, host-layout tiles),
+        read at explain time so a cached plan reports fresh writes."""
         lp = self.logical
         seeds = self._seeds()
         sess = self.session
         qbs = sess.platform.qbs
+        suffix = _delta_suffix(sess.platform)
         eng = sess.engine() if lp.engine_idx else None
         cm = sess.platform.cost_model
         # predicted (None without a model or fit) and observed (the
@@ -237,7 +255,7 @@ class ExecutablePlan:
             if cm is not None and eng is not None:
                 pred = cm.predict(kind, _knn_group_features(
                     eng, grp, lp.device_loop, sess.beam, sess.precision,
-                    seed=seeds.get(grp.archetype)))
+                    seed=seeds.get(grp.archetype + suffix)))
             grp_cost[gi] = {"kind": kind, "predicted_s": pred,
                             "observed_s": qbs.cost_observed(kind)}
         job_of_group = {j: gi for gi, grp in enumerate(lp.groups)
@@ -250,8 +268,8 @@ class ExecutablePlan:
                 grp = lp.groups[gi]
                 attr, k, masked = lp.job_specs[slot]
                 knn.append({"attr": attr, "k": k, "masked": masked,
-                            "group": gi, "archetype": grp.archetype,
-                            "beam_seed": seeds.get(grp.archetype),
+                            "group": gi, "archetype": grp.archetype + suffix,
+                            "beam_seed": seeds.get(grp.archetype + suffix),
                             "cost": grp_cost[gi]})
             vr = []
             if eng is not None and frag.path != "scalar":
@@ -265,6 +283,14 @@ class ExecutablePlan:
             "rescued": sess.mp_rescued,
             "ratio": (sess.mp_rescued / sess.mp_scanned
                       if sess.mp_scanned else 0.0),
+        }
+        p = sess.platform
+        delta = {
+            "epoch": p.delta_epoch,
+            "rows": p.n_delta,
+            "tiles": (eng.delta_tiles if eng is not None
+                      else (0 if p.delta is None
+                            else p.delta.n_tiles(sess.tile))),
         }
         return {
             "cache": "hit" if self.cache_hit else "miss",
@@ -281,13 +307,14 @@ class ExecutablePlan:
             # over every batch this session executed (all zero on fp32)
             "rescue": rescue,
             "build_id": sess.platform.build_id,
+            "delta": delta,
             "n_queries": len(self.norm),
             "n_engine": len(lp.engine_idx),
             "n_scalar": len(lp.scalar_idx),
             "knn_groups": [
                 {"attr": g.attr, "kmax": g.kmax, "jobs": len(g.jobs),
-                 "masked": g.n_masked, "archetype": g.archetype,
-                 "beam_seed": seeds.get(g.archetype)}
+                 "masked": g.n_masked, "archetype": g.archetype + suffix,
+                 "beam_seed": seeds.get(g.archetype + suffix)}
                 for g in lp.groups],
             "fragments": frags,
         }
@@ -368,6 +395,7 @@ class Session:
         if not cm.reliable(costm.knn_kind(self.device_loop)):
             return None
         eng = self.engine()
+        suffix = _delta_suffix(self.platform)
         scored = []
         for dl in (False, True):
             kind = costm.knn_kind(dl)
@@ -375,7 +403,8 @@ class Session:
                 continue
             total = 0.0
             for grp in group_job_specs(tuple(specs), dl):
-                seed = self.platform.qbs.convergence_width(grp.archetype)
+                seed = self.platform.qbs.convergence_width(
+                    grp.archetype + suffix)
                 pred = cm.predict(kind, _knn_group_features(
                     eng, grp, dl, self.beam, self.precision, seed=seed))
                 if pred is None:

@@ -27,9 +27,23 @@ counts are the reference's. ``optimize_index(workload)`` runs Algorithm
 (``core/cost.py``), which every engine and session of the platform then
 reads.
 
-Not ported yet: append/fold and the delta region (ROADMAP queue 1 item
-3), persistence (item 4), index generations and the optimizer's
-objectives (item 7), and sharding (item 8).
+Ingest (freshness-exact writes): ``append(...)`` lands new rows in a
+``DeltaRegion`` (pow2-capacity, NaN-padded buffers) without rebuilding
+the index or invalidating cached plans, and every path answers over base
+plus delta (``view()``) from the next execution on: the scalar path scans
+the delta after its leaf walk, and the engine splices delta tiles into
+both beam loops, the V.R planner and the predicate masks
+(``HybridEngine.sync_delta``, called by every ``engine()``). ``fold()``
+(or the auto-fold past ``auto_fold_ratio``, or the next ``prepare()``)
+merges the delta into the learned index through
+``index.fold_into_tree`` and bumps ``build_id``; an append only advances
+``delta_epoch``, which the oracle's and the view's caches key on. Under
+``fold_mode = "background"`` the auto-fold trigger only marks
+``fold_due``.
+
+Not ported yet: persistence (ROADMAP queue 1 item 4), index generations,
+the controller that consumes ``fold_due`` and the optimizer's objectives
+(item 7), and sharding (item 8).
 """
 from __future__ import annotations
 
@@ -44,7 +58,7 @@ from repro_torch import resolve_device
 from repro_torch.core import query as Q
 from repro_torch.core.index import (BuildReport, ClusterTree, QueryStats,
                                     build_index)
-from repro_torch.core.lake import MMOTable
+from repro_torch.core.lake import DeltaRegion, MMOTable
 from repro_torch.core.lpgf import lpgf
 from repro_torch.core.qbs import QBSTable, accuracy, recall_at_k
 from repro_torch.core.reorder import reorder_siblings
@@ -167,6 +181,17 @@ class MQRLD:
         # by ``calibrate()``; a host property, so a rebuild keeps it
         self.cost_model = None
         self.build_id = 0  # bumped by every installed state; keys caches
+        # ingest: un-folded appends live in the delta region; delta_epoch
+        # advances on every append and fold and never resets, so state
+        # keyed on it cannot alias
+        self.delta: Optional[DeltaRegion] = None
+        self.delta_epoch = 0
+        self.auto_fold_ratio = 0.5   # fold when delta rows > ratio * base
+        # "inline" folds inside append(); "background" only marks
+        # ``fold_due`` for a controller to fold beside the serving state
+        self.fold_mode: str = "inline"
+        self._fold_requested = False
+        self._view_cache: Optional[Tuple[Tuple[int, int], MMOTable]] = None
         self._oracle_cache: Dict = {}
         self._engines: Dict = {}
         self._sessions: Dict = {}
@@ -181,7 +206,14 @@ class MQRLD:
                 dpc_sample: int = 4096,
                 delta_scales: Optional[Sequence[float]] = None
                 ) -> BuildReport:
-        """Feature representation + index build + physical re-layout."""
+        """Feature representation + index build + physical re-layout. A
+        pending delta region joins ``raw_table`` first, so ``prepare()``
+        is the full-rebuild end of append -> union -> fold."""
+        if self.delta is not None and self.delta.m:
+            self.raw_table = self._merged_raw()
+            self.delta = None
+            self.delta_epoch += 1
+            self._view_cache = None
         st = _build_state(
             self.raw_table, seed=self.seed, device=self.device,
             columns=columns, use_transform=use_transform,
@@ -203,9 +235,143 @@ class MQRLD:
         self.layout = st["layout"]
         self.enhanced = st["enhanced"]
         self.meta = st["meta"]
+        self._view_cache = None
         self._oracle_cache.clear()
         self._engines.clear()
         self.build_id += 1
+
+    # ------------------------------------------------------------ ingest
+    @property
+    def n_base(self) -> int:
+        return self.table.n_rows
+
+    @property
+    def n_delta(self) -> int:
+        return 0 if self.delta is None else self.delta.m
+
+    def append(self, *, numeric: Optional[Dict] = None,
+               vector: Optional[Dict] = None,
+               raw_uri: Optional[Sequence[str]] = None,
+               fold: Optional[bool] = None) -> int:
+        """Ingest new rows into the delta region (freshness-exact).
+
+        The rows answer from the very next execution on every path, with
+        ids ``n_base + j`` (j = delta position) until a fold re-lays them.
+        Columns must cover the table schema exactly; everything is
+        validated before any state changes, so a failed append changes
+        nothing. Cached plans stay valid (only ``delta_epoch`` advances).
+        ``fold``: None = auto (fold once delta rows exceed
+        ``auto_fold_ratio`` x base rows; under ``fold_mode =
+        "background"`` mark ``fold_due`` instead), False = never, True =
+        fold now. Returns the live delta rows after the call."""
+        if self.tree is None:
+            raise RuntimeError("call prepare() first")
+        delta = self.delta
+        if delta is None:
+            delta = DeltaRegion.for_table(self.table)
+        delta.append(dict(numeric or {}), dict(vector or {}), raw_uri)
+        self.delta = delta
+        self.delta_epoch += 1
+        self._view_cache = None
+        if fold is True:
+            self.fold()
+        elif (fold is None and self.auto_fold_ratio
+              and self.delta.m > self.auto_fold_ratio * self.table.n_rows):
+            if self.fold_mode == "background":
+                self._fold_requested = True
+            else:
+                self.fold()
+        return self.n_delta
+
+    @property
+    def fold_due(self) -> bool:
+        """True when a background fold is wanted: the auto-fold trigger
+        fired under ``fold_mode = "background"``, or the delta is past the
+        ratio right now in that mode. Cleared by a fold or ``prepare``
+        that drains the delta."""
+        if self.delta is None or self.delta.m == 0:
+            return False
+        if self._fold_requested:
+            return True
+        return bool(self.fold_mode == "background" and self.auto_fold_ratio
+                    and self.delta.m
+                    > self.auto_fold_ratio * self.table.n_rows)
+
+    def _concat_delta(self, t: MMOTable,
+                      row_ids: Optional[np.ndarray] = None) -> MMOTable:
+        """``t`` with the live delta rows appended column-wise: the one
+        recipe behind ``view()`` (over the physical table) and
+        ``_merged_raw`` (over ``raw_table``)."""
+        d = self.delta
+        m = d.m
+        uri = None
+        if t.raw_uri is not None:
+            extra = d.raw_uri if d.raw_uri is not None else [""] * m
+            uri = np.concatenate([t.raw_uri,
+                                  np.asarray(list(extra)[:m], dtype=object)])
+        return MMOTable(
+            name=t.name,
+            numeric={k: np.concatenate([v, d.live_numeric(k)])
+                     for k, v in t.numeric.items()},
+            vector={k: np.concatenate([v, d.live_vector(k)])
+                    for k, v in t.vector.items()},
+            raw_uri=uri, embed_model=dict(t.embed_model), row_ids=row_ids)
+
+    def _merged_raw(self) -> MMOTable:
+        """``raw_table`` with the live delta rows appended (raw order)."""
+        return self._concat_delta(self.raw_table)
+
+    def _delta_feats(self) -> np.ndarray:
+        """The live delta rows through the FROZEN feature representation:
+        the transform applied, no re-fit, and no LPGF (a build-time
+        movement that shapes layout quality, never exactness), in the
+        column order ``prepare()`` used (``self.layout``)."""
+        d = self.delta
+        parts = []
+        for c in self.layout:
+            a = (d.live_vector(c) if c in d.vector_dims
+                 else d.live_numeric(c)[:, None])
+            parts.append(a.astype(np.float32))
+        feats = np.concatenate(parts, axis=1)
+        if self.transform is not None:
+            feats = self.transform.apply(feats)
+        return feats
+
+    def fold(self) -> int:
+        """Merge the delta region into the learned index incrementally:
+        the rows go through the frozen feature representation
+        (``_delta_feats``), join their nearest leaf
+        (``index.fold_into_tree``: splice, key re-sort, last-mile refit,
+        radius widening) and the table is re-laid physically; leaf
+        metadata and engine tiles are rebuilt exactly from the merged
+        table. Bumps ``build_id`` (cached plans and engines invalidate)
+        and ``delta_epoch``. Returns the rows folded (0: nothing to
+        do)."""
+        from repro_torch.core.index import fold_into_tree
+        if self.delta is None or self.delta.m == 0:
+            self._fold_requested = False
+            return 0
+        if self.enhanced is None or self.layout is None:
+            raise RuntimeError(
+                "fold() needs the prepared state's enhanced features and "
+                "column layout")
+        m = self.delta.m
+        comb = self.view()           # before the raw merge: ids agree
+        self.raw_table = self._merged_raw()
+        feats = self._delta_feats()
+        perm, bucket_id, bucket_starts = fold_into_tree(
+            self.tree, self.enhanced, feats, device=self.device)
+        self.table = comb.apply_permutation(perm, bucket_id, bucket_starts)
+        self.enhanced = np.concatenate([self.enhanced, feats])[perm]
+        self.meta = build_leaf_meta(self.tree, self.table)
+        self.delta = None
+        self._fold_requested = False
+        self.delta_epoch += 1
+        self._view_cache = None
+        self._oracle_cache.clear()
+        self._engines.clear()        # device tiles are stale
+        self.build_id += 1           # cached plans invalidate
+        return m
 
     # ------------------------------------------------------- batched engine
     def _resolve_precision(self, precision: Optional[str]) -> str:
@@ -252,6 +418,9 @@ class MQRLD:
         # refreshed on every call: a cached engine may predate a
         # calibration, and its V.R route reads the model per batch
         eng.cost_model = self.cost_model
+        # union un-folded appends into the device state (a no-op while
+        # the write epoch is unchanged)
+        eng.sync_delta(self.delta, self.delta_epoch)
         return eng
 
     def session(self, *, device_loop: bool = True, beam: int = 16,
@@ -319,8 +488,22 @@ class MQRLD:
         raise TypeError(q)
 
     def _mask_from_predicate(self, q, stats: QueryStats) -> np.ndarray:
-        """Exact boolean mask over physical rows for N.E / N.R / V.R."""
-        mask = np.zeros(self.table.n_rows, bool)
+        """Exact boolean mask over physical rows for N.E / N.R / V.R. Live
+        delta rows occupy the tail ``n_base..n_base+m-1`` and are scanned
+        directly (the delta has no leaf metadata)."""
+        nb = self.table.n_rows
+        mask = np.zeros(nb + self.n_delta, bool)
+        if self.n_delta:
+            stats.rows_scanned += self.n_delta
+            if isinstance(q, Q.NE):
+                col = self.delta.live_numeric(q.attr)
+                mask[nb:] = np.abs(col - q.value) <= q.tol
+            elif isinstance(q, Q.NR):
+                col = self.delta.live_numeric(q.attr)
+                mask[nb:] = (col >= q.lo) & (col <= q.hi)
+            else:  # VR
+                col = self.delta.live_vector(q.attr)
+                mask[nb:] = ((col - q.vec()) ** 2).sum(1) <= q.radius ** 2
         for lp in self._predicate_leaves(q):
             stats.touch(lp)
             self._count_leaf(lp)
@@ -343,10 +526,13 @@ class MQRLD:
         """Exact per-attribute KNN by leaf lower-bound ranking: leaves in
         bound order until the bound passes the k-th distance, merged
         carry first with a stable sort, so equal distances keep the
-        visit order."""
+        visit order. Live delta rows merge in after the leaf scan by the
+        same stable sort, so base rows stay ahead of delta rows on exact
+        ties."""
         m = self.meta
         qv = q.vec()
         col = self.table.vector[q.attr]
+        nb = self.table.n_rows
         dc = np.sqrt(np.maximum(((m.vec_centroid[q.attr] - qv) ** 2)
                                 .sum(1), 0))
         lb = np.maximum(dc - m.vec_radius[q.attr], 0.0)
@@ -368,6 +554,17 @@ class MQRLD:
             alli = np.concatenate([best_i, rows])
             sel = np.argsort(alld, kind="stable")[:q.k]
             best_d, best_i = alld[sel], alli[sel]
+        if self.n_delta:
+            dcol = self.delta.live_vector(q.attr)
+            d2 = ((dcol - qv) ** 2).sum(1)
+            if row_mask is not None:
+                d2 = np.where(row_mask[nb:], d2, np.inf)
+            stats.rows_scanned += self.n_delta
+            alld = np.concatenate([best_d, np.sqrt(np.maximum(d2, 0))])
+            alli = np.concatenate([best_i, nb + np.arange(self.n_delta)])
+            sel = np.argsort(alld, kind="stable")[:q.k]
+            keep = np.isfinite(alld[sel])
+            best_d, best_i = alld[sel], np.where(keep, alli[sel], -1)
         return best_i[best_i >= 0]
 
     def execute(self, query: Q.Query, *, task: str = "",
@@ -396,7 +593,7 @@ class MQRLD:
 
     def _exec(self, q, stats: QueryStats,
               row_mask: Optional[np.ndarray]) -> np.ndarray:
-        n = self.table.n_rows
+        n = self.table.n_rows + self.n_delta
         if isinstance(q, (Q.NE, Q.NR, Q.VR)):
             mask = self._mask_from_predicate(q, stats)
             if row_mask is not None:
@@ -452,14 +649,30 @@ class MQRLD:
 
     # ------------------------------------------------------------- oracle
     def view(self) -> MMOTable:
-        """The queryable table (the delta region is not ported yet, so
-        it is the physical base table)."""
-        return self.table
+        """The queryable table: the physical base rows plus the live
+        delta rows at ids ``n_base..n_base+m-1``, which every path and
+        the oracle answer over. The base table itself while the delta is
+        empty; cached per (build, write epoch)."""
+        if self.delta is None or self.delta.m == 0:
+            return self.table
+        key = (self.build_id, self.delta_epoch)
+        if self._view_cache is not None and self._view_cache[0] == key:
+            return self._view_cache[1]
+        row_ids = None
+        if self.table.row_ids is not None:
+            # delta rows take the raw ids they will hold once folded
+            row_ids = np.concatenate([
+                self.table.row_ids,
+                self.raw_table.n_rows + np.arange(self.delta.m)]
+            ).astype(np.int64)
+        v = self._concat_delta(self.table, row_ids=row_ids)
+        self._view_cache = (key, v)
+        return v
 
     def oracle(self, query: Q.Query) -> np.ndarray:
-        """Brute-force truth over the queryable view, cached per (query,
-        build)."""
-        key = (repr(query), self.build_id)
+        """Brute-force truth over the queryable view (base + live delta),
+        cached per (query, build, write epoch)."""
+        key = (repr(query), self.build_id, self.delta_epoch)
         if key not in self._oracle_cache:
             self._oracle_cache[key] = Q.execute_bruteforce(self.view(),
                                                            query)
@@ -479,6 +692,9 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *, seed: int = 0,
         ``tree/children_idx`` (CSR)
       ``meta/<vec_centroid|vec_radius|num_lo|num_hi>/<col>``
       ``transform/r``, ``transform/s``, ``transform/mean`` (optional)
+      ``enhanced`` (optional) the permuted enhanced features (N, F)
+      ``layout/<col>`` (optional) each prepared column's (start, end)
+        slice of the enhanced features (``fold()`` needs both)
       ``name`` (optional, a 0-d string array)
     """
     def cols(prefix: str) -> Dict[str, np.ndarray]:
@@ -494,18 +710,20 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *, seed: int = 0,
         row_ids=np.asarray(arrays["table/row_ids"]))
     ptr = np.asarray(arrays["tree/children_ptr"])
     cidx = np.asarray(arrays["tree/children_idx"])
+    # copies: fold() and Algorithm 3 update the tree in place, which
+    # must not reach the caller's arrays
     tree = ClusterTree(
-        centroid=np.asarray(arrays["tree/centroid"]),
-        radius=np.asarray(arrays["tree/radius"]),
-        parent=np.asarray(arrays["tree/parent"]),
+        centroid=np.array(arrays["tree/centroid"]),
+        radius=np.array(arrays["tree/radius"]),
+        parent=np.array(arrays["tree/parent"]),
         children=[[int(c) for c in cidx[ptr[i]:ptr[i + 1]]]
                   for i in range(len(ptr) - 1)],
-        is_leaf=np.asarray(arrays["tree/is_leaf"], bool),
-        bucket_start=np.asarray(arrays["tree/bucket_start"]),
-        bucket_end=np.asarray(arrays["tree/bucket_end"]),
-        lm_a=np.asarray(arrays["tree/lm_a"]),
-        lm_b=np.asarray(arrays["tree/lm_b"]),
-        depth=np.asarray(arrays["tree/depth"]))
+        is_leaf=np.array(arrays["tree/is_leaf"], bool),
+        bucket_start=np.array(arrays["tree/bucket_start"]),
+        bucket_end=np.array(arrays["tree/bucket_end"]),
+        lm_a=np.array(arrays["tree/lm_a"]),
+        lm_b=np.array(arrays["tree/lm_b"]),
+        depth=np.array(arrays["tree/depth"]))
     meta = LeafMeta(vec_centroid=cols("meta/vec_centroid/"),
                     vec_radius=cols("meta/vec_radius/"),
                     num_lo=cols("meta/num_lo/"), num_hi=cols("meta/num_hi/"))
@@ -515,6 +733,13 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *, seed: int = 0,
             r=np.asarray(arrays["transform/r"]),
             s=np.asarray(arrays["transform/s"]),
             mean=np.asarray(arrays["transform/mean"]))
+    layout = None
+    spans = cols("layout/")
+    if spans:     # the prepared column order is the slices' order
+        layout = {c: (int(v[0]), int(v[1]))
+                  for c, v in sorted(spans.items(), key=lambda e: e[1][0])}
+    enhanced = (np.asarray(arrays["enhanced"], np.float32)
+                if "enhanced" in arrays else None)
     p = MQRLD(raw, seed=seed, device=device)
     leaves = tree.leaf_ids
     report = BuildReport(
@@ -525,6 +750,6 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *, seed: int = 0,
         build_s=0.0, lm_hit_ratio=float("nan"),
         index_bytes=tree.size_bytes())
     p._install_state(dict(table=table, tree=tree, report=report,
-                          transform=transform, layout=None, enhanced=None,
-                          meta=meta))
+                          transform=transform, layout=layout,
+                          enhanced=enhanced, meta=meta))
     return p

@@ -13,7 +13,10 @@
 // Ranking: every candidate becomes one unique 64-bit key
 // (fp32 bits of its clamped non-negative distance << 32) | index, whose
 // integer order is the (distance, index) order, so "ties keep the lower
-// index" is plain integer order. A chunk of keys merges into the sorted
+// index" is plain integer order. A NaN distance (a row with a NaN
+// coordinate) keys as the positive quiet NaN 0x7fc00000, which sorts after
+// +inf and before the padding keys (high word 0xFFFFFFFF): NaN rows rank
+// last and keep their index order, as in ref.stable_topk and lax.top_k. A chunk of keys merges into the sorted
 // running buffer of K keys by rank: each key's output slot is its rank in
 // its own list plus its rank in the other, and slots >= K fall off. A
 // chunk with no key below the running kth skips the merge.
@@ -51,7 +54,11 @@ typedef unsigned long long u64;
 
 constexpr u64 kInfHi = 0x7f800000ull;
 
+constexpr u64 kNanHi = 0x7fc00000ull;
+constexpr unsigned kPadHi = 0xFFFFFFFFu;
+
 __device__ __forceinline__ u64 pack_key(float d, unsigned idx) {
+  if (d != d) return (kNanHi << 32) | (u64)idx;
   d = (d > 0.f) ? d : 0.f;  // clamp, and -0.0 -> +0.0
   return ((u64)__float_as_uint(d) << 32) | (u64)idx;
 }
@@ -60,15 +67,24 @@ __device__ __forceinline__ u64 inf_key(unsigned idx) {
   return (kInfHi << 32) | (u64)idx;
 }
 
-// Empty buffer slots sort after every candidate and stay unique.
+// Empty buffer slots, and columns past N, sort after every candidate and
+// stay unique (a slot is below K <= N, a column at or past N).
 __device__ __forceinline__ u64 empty_key(int slot) {
-  return 0xFFFFFFFF00000000ull | (u64)slot;
+  return ((u64)kPadHi << 32) | (u64)(unsigned)slot;
 }
 
+// The running kth as a bound for the early-out: NaN and padding read +inf.
 __device__ __forceinline__ float key_dist(u64 key) {
   const unsigned hi = (unsigned)(key >> 32);
   return hi >= (unsigned)kInfHi ? __int_as_float(0x7f800000)
                                 : __uint_as_float(hi);
+}
+
+// The distance a key reports: its own bits (NaN stays NaN), +inf for a
+// padding key.
+__device__ __forceinline__ float out_dist(u64 key) {
+  const unsigned hi = (unsigned)(key >> 32);
+  return hi == kPadHi ? __int_as_float(0x7f800000) : __uint_as_float(hi);
 }
 
 __device__ __forceinline__ int count_lt(const u64* s, int n, u64 key) {
@@ -109,15 +125,13 @@ __device__ void merge_chunk(const u64* s, int ns, const u64* b, u64* t, int K,
 __device__ __forceinline__ void write_out(const u64* b, int K, float* outd,
                                           long long* outi, int tid, int nthr) {
   for (int i = tid; i < K; i += nthr) {
+    // exhausted, invalid (+inf) and NaN slots carry index -1, as the
+    // plain version's isfinite test gives them
     const u64 key = b[i];
     const unsigned hi = (unsigned)(key >> 32);
-    if (hi >= (unsigned)kInfHi) {
-      outd[i] = __int_as_float(0x7f800000);
-      outi[i] = -1;
-    } else {
-      outd[i] = __uint_as_float(hi);
-      outi[i] = (long long)(unsigned)(key & 0xFFFFFFFFull);
-    }
+    outd[i] = out_dist(key);
+    outi[i] = hi < (unsigned)kInfHi
+                  ? (long long)(unsigned)(key & 0xFFFFFFFFull) : -1;
   }
 }
 
@@ -344,7 +358,7 @@ topk_l2_split_kernel(const float* __restrict__ q, const float* __restrict__ p,
               srow[L.col(j)] =
                   n < N ? pack_key(sq_dist(qv, pn[L.col(j)], acc[i][j]),
                                    (unsigned)n)
-                        : inf_key((unsigned)n);
+                        : empty_key(n);
             }
           }
         }
@@ -374,8 +388,10 @@ topk_l2_split_kernel(const float* __restrict__ q, const float* __restrict__ p,
 // key's output slot is its place in its own split plus, in every other
 // split, the keys below it: each column lies in one split, so real keys
 // are unique and the slots a permutation. Padding keys (empty slots, and
-// columns past N) sort after every real key and K <= N real keys exist, so
-// none can take a slot below K; they are skipped.
+// columns past N) sort after every real key, NaN ones included, and
+// K <= N real keys exist, so none can take a slot below K; they are
+// skipped. A real key reports its own distance (+inf or NaN too) and
+// index, as the plain version does.
 __global__ void topk_merge_kernel(const u64* __restrict__ part,
                                   float* __restrict__ outd,
                                   long long* __restrict__ outi, int splits,
@@ -385,7 +401,7 @@ __global__ void topk_merge_kernel(const u64* __restrict__ part,
   const long long total = (long long)splits * K;
   for (long long e = threadIdx.x; e < total; e += blockDim.x) {
     const u64 key = rowp[e];
-    if ((unsigned)(key >> 32) >= (unsigned)kInfHi) continue;
+    if ((unsigned)(key >> 32) == kPadHi) continue;
     const int s = (int)(e / K);
     long long slot = e - (long long)s * K;
     for (int t = 0; t < splits && slot < K; ++t) {
@@ -393,7 +409,7 @@ __global__ void topk_merge_kernel(const u64* __restrict__ part,
       slot += lower_bound(rowp + (size_t)t * K, K, key);
     }
     if (slot < K) {
-      outd[(size_t)m * K + slot] = key_dist(key);
+      outd[(size_t)m * K + slot] = out_dist(key);
       outi[(size_t)m * K + slot] = (long long)(unsigned)(key & 0xFFFFFFFFull);
     }
   }

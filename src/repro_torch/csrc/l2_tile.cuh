@@ -75,9 +75,13 @@ __device__ __forceinline__ Lane lane_of(int tid) {
   return Lane{tid, warp >> 1, warp & 1, lane >> 3, lane & 7};
 }
 
-// The expansion and its clamp, in the plain version's order.
+// The expansion and its clamp, in the plain version's order. The clamp
+// keeps NaN, as torch.clamp_min and jnp.maximum do (fmaxf alone would
+// turn a NaN row's distance into 0); every other value's bits are
+// fmaxf's.
 __device__ __forceinline__ float sq_dist(float qn, float pn, float dot) {
-  return fmaxf((qn + pn) - 2.f * dot, 0.f);
+  const float d = (qn + pn) - 2.f * dot;
+  return d != d ? d : fmaxf(d, 0.f);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

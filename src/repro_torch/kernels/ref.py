@@ -16,16 +16,20 @@ import torch
 
 
 def stable_topk(d: torch.Tensor, k: int):
-    """The k smallest entries of each row of ``d`` (non-negative fp32 or
-    +inf, no NaN), ascending; equal values order by the lower column.
+    """The k smallest entries of each row of ``d`` (non-negative fp32,
+    +inf or NaN), ascending; equal values order by the lower column, and
+    NaN ranks after +inf (as ``lax.top_k`` of the negated distances ranks
+    a row with a NaN coordinate: last).
 
     The fp32 bit pattern of a non-negative float is order-preserving as
     an integer, so (bits << 32) | column is a unique int64 key whose
     order is the (value, column) order: one ``torch.topk`` over the keys
-    has no ties left to break."""
+    has no ties left to break. Every NaN keys as the positive quiet NaN
+    0x7fc00000, which lies above +inf's 0x7f800000."""
     d = d.float().contiguous() + 0.0          # -0.0 -> +0.0: one key for 0
     n = d.shape[-1]
     bits = d.view(torch.int32).to(torch.int64)
+    bits = torch.where(torch.isnan(d), 0x7FC00000, bits)
     cols = torch.arange(n, device=d.device, dtype=torch.int64)
     key = (bits << 32) | cols
     kv, _ = torch.topk(key, k, dim=-1, largest=False, sorted=True)

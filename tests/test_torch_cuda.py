@@ -413,6 +413,169 @@ def test_lpgf_force_kernels_do_not_spill(cuda):
     assert not any(spills.values()), spills
 
 
+def _nan_equal(a, b) -> bool:
+    """Equal values (-0 equal to 0) and NaN in the same places."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def _with_nan_rows(x, rows, one_coordinate=None):
+    """A copy of ``x`` with the given rows all NaN, and one more row NaN
+    in a single coordinate (the delta's pad rows, a corrupt value)."""
+    x = x.clone()
+    x[rows] = float("nan")
+    if one_coordinate is not None:
+        x[one_coordinate, x.shape[1] // 2] = float("nan")
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(17, 33, 5), (300, 1000, 512),
+                                   (64, 4100, 130)])
+def test_pairwise_kernel_keeps_nan(cuda, m, n, d):
+    """Rows with a NaN coordinate give NaN distances, as the plain
+    version's clamp keeps them (``fmaxf`` alone would read 0 there: the
+    engine's dense V.R pass would then take the delta's NaN pad rows as
+    matches). Every other entry keeps its bits: equal to the kernel's
+    output without the NaN rows, and on an integer grid equal to the
+    plain version."""
+    q = _with_nan_rows(_gauss((m, d), m, cuda), [0, m // 2], m - 1)
+    p = _with_nan_rows(_gauss((n, d), n, cuda), [1, n - 1], n // 3)
+    got = pairwise_l2.pairwise_sq_l2_cuda(q, p)
+    want = tref.pairwise_sq_l2(q, p)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    qr = ~torch.isnan(q).any(1)
+    pr = ~torch.isnan(p).any(1)
+    assert bool(torch.isnan(got[~qr]).all()) and \
+        bool(torch.isnan(got[:, ~pr]).all())
+    clean = pairwise_l2.pairwise_sq_l2_cuda(q[qr].contiguous(),
+                                            p[pr].contiguous())
+    assert torch.equal(got[qr][:, pr], clean)
+    gq, gp = torch.round(q * 2), torch.round(p * 2)
+    assert _nan_equal(pairwise_l2.pairwise_sq_l2_cuda(gq, gp),
+                      tref.pairwise_sq_l2(gq, gp))
+
+
+@pytest.mark.cuda
+def test_nan_rows_leave_self_distances_and_symmetry(cuda):
+    """The distance tile's laws hold beside NaN rows: a Gaussian row
+    against itself is exactly 0, d2(x, x) is symmetric bit for bit, and
+    the NaN rows are NaN across; LPGF's stored distances are the pairwise
+    kernel's."""
+    x = _with_nan_rows(_gauss((1000, 512), 13, cuda), [5, 600], 999)
+    d2 = pairwise_l2.pairwise_sq_l2_cuda(x, x)
+    ok = ~torch.isnan(x).any(1)
+    assert bool((d2.diagonal()[ok] == 0).all())
+    assert _nan_equal(d2, d2.T)
+    assert bool(torch.isnan(d2[~ok]).all())
+    _, _, s = lpgf_force._launch(x, 1.0, 1.0, keep=True)
+    assert _nan_equal(s["d2"], d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(40, 2), (40, 40), (5003, 2), (5003, 300),
+                                 (5003, 1000)])
+def test_topk_l2_ranks_nan_rows_last(cuda, n, k):
+    """Points with a NaN coordinate rank after every number, in index
+    order, and report NaN with their index, as ``ref.topk_l2`` (and
+    ``lax.top_k`` of the negated distances) rank them; on both routes,
+    and where k reaches into the NaN rows. Half-integer inputs make every
+    distance exact, so the plain version's ids and distances are the
+    kernel's bit for bit."""
+    nan_rows = list(range(0, n, 3)) if n == 40 else [2, 77, 4000]
+    q = torch.round(_gauss((65, 64), k, cuda) * 2) / 2
+    p = _with_nan_rows(torch.round(_gauss((n, 64), n, cuda) * 2) / 2,
+                       nan_rows, n - 2)
+    gd, gi = fused_topk.topk_l2_cuda(q, p, k)
+    wd, wi = tref.stable_topk(pairwise_l2.pairwise_sq_l2_cuda(q, p), k)
+    assert torch.equal(gi, wi) and _nan_equal(gd, wd)
+    pd, pi = tref.topk_l2(q, p, k)
+    assert torch.equal(gi, pi) and _nan_equal(gd, pd)
+    if n == 40 and k == 40:
+        assert bool(torch.isnan(gd[:, -len(nan_rows) - 1:]).all())
+
+
+@pytest.mark.cuda
+def test_topk_masked_nan_candidates_match_plain(cuda):
+    """A valid candidate with a NaN coordinate ranks after the invalid
+    ones and reports (NaN, -1), as the plain version's ``isfinite``
+    test gives it."""
+    q, p, valid, _ = _masked_case("plain")
+    p[:, 3] = np.nan
+    p[2, 10:20, 4] = np.nan
+    valid[:, 3] = True
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    vt = torch.from_numpy(valid).to(cuda)
+    k = 700
+    gd, gi = fused_topk.topk_l2_masked_cuda(qt, pt, vt, k)
+    wd, wi = tref.topk_l2_masked(qt, pt, vt, k)
+    assert torch.equal(gi, wi)
+    assert torch.equal(torch.isnan(gd), torch.isnan(wd))
+    assert bool(torch.isnan(gd).any())
+
+
+@pytest.mark.cuda
+def test_ingest_on_card():
+    """Append, query and fold on the card: the delta's NaN pad rows answer
+    nothing (no row id at or past ``n_base + m``), every row of both
+    loops in all three precisions is the oracle's, the union's re-rank
+    scales cover the delta's tiles, and after the fold the same holds
+    over the merged index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    centers = rng.normal(size=(12, 32)).astype(np.float32) * 6
+    vec = (centers[rng.integers(0, 12, 6000)]
+           + rng.normal(size=(6000, 32))).astype(np.float32)
+    price = rng.uniform(0, 100, 6000).astype(np.float32)
+    p = MQRLD(MMOTable("t").add_vector("v", vec).add_numeric("price", price),
+              seed=0)
+    p.prepare(min_leaf=32, max_leaf=256)
+    nb = p.n_base
+    m = 700          # capacity 1024: 324 NaN pad rows
+    new = (centers[rng.integers(0, 12, m)] * 1.5
+           + rng.normal(size=(m, 32))).astype(np.float32)
+    new[0] = p.table.vector["v"][11] + 1e-3
+    p.append(numeric={"price": rng.uniform(0, 100, m).astype(np.float32)},
+             vector={"v": new}, fold=False)
+    view = p.view()
+    tab = view.vector["v"]
+    radius = float(np.sqrt(((tab[:64] - tab[64:128]) ** 2).sum(1)).min())
+
+    def batch():
+        out = []
+        for i in (11, 500, nb, nb + 350):
+            v = tab[i]
+            out += [Q.VK.of("v", v, 20),
+                    Q.And.of(Q.NR("price", 25, 75), Q.VK.of("v", v, 20)),
+                    Q.And.of(Q.VR.of("v", v, radius), Q.NR("price", 5, 95)),
+                    Q.VR.of("v", v, 4 * radius)]
+        return out
+    qs = batch()
+    for prec in ("fp32", "int8", "bf16"):
+        eng = p.engine(precision=prec)
+        assert eng.n == nb + 1024 and eng.delta_rows == m
+        assert eng.vec_max2["v"] >= float(
+            (new.astype(np.float64) ** 2).sum(1).max())
+        for geom in (eng.geom["v"], eng.geom_dev["v"]):
+            dr = geom.radius[-eng.delta_tiles:]
+            assert geom.rad_max >= float(dr.max())
+        for dl in (True, False):
+            got, _ = p.session(precision=prec).plan(
+                qs, device_loop=dl).execute()
+            for q, g in zip(qs, got):
+                np.testing.assert_array_equal(g, p.oracle(q))
+                assert g.max(initial=-1) < nb + m
+            assert nb in got[0].tolist()
+    assert p.fold() == m and p.table.n_rows == nb + m
+    for dl in (True, False):
+        got, _ = p.session().plan(qs, device_loop=dl).execute()
+        for q, g in zip(qs, got):
+            np.testing.assert_array_equal(g, p.oracle(q))
+
+
 @pytest.fixture(scope="module")
 def card_platform():
     """A small platform prepared on the card (N above LPGF's 4096-point

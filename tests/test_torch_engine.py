@@ -10,6 +10,8 @@
 
 Rows and counters are compared exactly.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from repro.core import query as JQ
 from repro.core.lake import MMOTable as JTable
 from repro.core.platform import MQRLD as JMQRLD
+from repro.core.platform import _copy_tree
 from repro_torch.core import engine as teng
 from repro_torch.core import query as TQ
 from repro_torch.core.engine import HybridEngine
@@ -81,6 +84,9 @@ def ref_state_arrays(p) -> dict:
             a[f"meta/{f}/{k}"] = v
     for k in ("r", "s", "mean"):
         a[f"transform/{k}"] = getattr(p.transform, k)
+    a["enhanced"] = p.enhanced
+    for c, span in p.layout.items():
+        a[f"layout/{c}"] = np.asarray(span, np.int64)
     return a
 
 
@@ -294,3 +300,41 @@ def test_engine_cache_keeps_four_in_lru_order(pair):
     assert pt.engine(precision="fp32") is not first
     for a, b in zip(rows, again):
         np.testing.assert_array_equal(a, b)
+
+
+def test_carried_state_folds_like_reference(pair):
+    """A platform carried across by ``state_from_numpy`` (its enhanced
+    features and column layout included) folds the same appended rows
+    into the reference's tree, layout and leaf metadata, array for array,
+    and its scalar path then answers as the reference's and the
+    oracle."""
+    p, _, _ = pair
+    jp = copy.copy(p)            # the module's reference stays unfolded
+    jp.tree = _copy_tree(p.tree)
+    jp._engines, jp._sessions, jp._oracle_cache = {}, {}, {}
+    pt = state_from_numpy(ref_state_arrays(p), device="cpu")
+    rng = np.random.default_rng(7)
+    tab = p.table.vector["v"]
+    new = {"numeric": {"price": rng.uniform(0, 100, 40).astype(np.float32)},
+           "vector": {"v": (tab[rng.integers(0, N, 40)] + 0.5 * rng.normal(
+               size=(40, D))).astype(np.float32)}}
+    for plat in (jp, pt):
+        plat.append(numeric=new["numeric"], vector=new["vector"], fold=False)
+    assert jp.fold() == pt.fold() == 40
+    for k in ("bucket_start", "bucket_end", "radius", "lm_a", "lm_b"):
+        np.testing.assert_array_equal(getattr(pt.tree, k),
+                                      getattr(jp.tree, k), err_msg=k)
+    np.testing.assert_array_equal(pt.table.row_ids, jp.table.row_ids)
+    np.testing.assert_array_equal(pt.table.vector["v"], jp.table.vector["v"])
+    np.testing.assert_array_equal(pt.enhanced, jp.enhanced)
+    for f in ("vec_centroid", "vec_radius", "num_lo", "num_hi"):
+        for k, v in getattr(jp.meta, f).items():
+            np.testing.assert_array_equal(getattr(pt.meta, f)[k], v)
+    for i in (0, 2400, 2439):
+        tq = TQ.And.of(TQ.NR("price", 10, 90),
+                       TQ.VK.of("v", pt.table.vector["v"][i], 9))
+        jq = JQ.And.of(JQ.NR("price", 10, 90),
+                       JQ.VK.of("v", pt.table.vector["v"][i], 9))
+        got, _ = pt.execute(tq, record=False)
+        np.testing.assert_array_equal(got, jp.execute(jq, record=False)[0])
+        np.testing.assert_array_equal(got, pt.oracle(tq))
