@@ -52,9 +52,33 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    others); after the last the host loop, int8 and bf16 too; then
    ``fold()``, the engines rebuilt, and the batch on both loops and in
    all three precisions; append, sync, batch, fold and rebuild times;
+   Then persistence on that platform (``drive_persist_path``, path
+   (h)): ``default_precision = "int8"``, 2,500 rows appended (a live
+   delta), ``save_platform`` into a temporary directory and
+   ``load_platform``; the loaded int8 engine must take the persisted
+   planes (no base layout quantized, its planes the loaded arrays,
+   equal to the live engine's bit for bit); the batch on the loaded
+   platform in fp32 and int8 row-equal to the live platform's, its first
+   64 queries to the oracle's; the enqueue half of the engine's dispatch
+   under ``set_sync_debug_mode("error")`` in fp32 and int8; save, load
+   and engine seconds and the bytes on disk;
+   Then retrieval serving on the loaded platform
+   (``drive_serving_path``, path (i)): ``RetrievalServer(batch_size=64)``
+   with ``EmbeddingServer(mqrld-embedder-100m)`` at full size in bf16 (on
+   its own stream) and a seeded 768 -> 512 projection, 1,024 requests
+   (prompts of 16, 32, 64 and 128 tokens; V.K k = 20, V.K k = 100 and
+   N.R + V.K k = 20 in turn) at pipeline depth 1 in fp32 and at depth 1
+   and 3 in int8: rows identical request by request, 128 sampled
+   requests equal to the oracle of their own query; then 64 prompts
+   appended by token and served, each answered by its own row first;
+   requests per second, per-chunk stage seconds and a traced depth-3
+   window of 192 requests;
 5. small-table path: ``prepare()`` with its defaults on a 4,096-row
    table (LPGF's force kernel), then a 64-query batch, every row equal to
-   the oracle's;
+   the oracle's; then generations on it (``drive_rollback``): two saves
+   around an append and fold, ``rollback_platform`` and
+   ``MQRLD.rollback()``, each giving the first generation's rows, and
+   ``CURRENT`` flipped back;
 6. embedding path: ``EmbeddingServer(mqrld-embedder-100m)`` at full size
    on 64 token rows of 128, (64, 768) and finite, and 4 rows again on the
    CPU with the same weights (``drive_embedding_path`` states the
@@ -1326,6 +1350,385 @@ def drive_ingest_path(args, dev, p, batch, kmods):
     return None, info
 
 
+# ------------------------------------------------------- persistence path
+PERSIST_ROWS = 2500      # rows appended before the save: a live delta
+PERSIST_CHECK = 64       # queries of the loaded platform held to the oracle
+
+
+def _dir_bytes(root: str) -> dict:
+    """Bytes on disk under ``root``, by file (relative paths) and total."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            out[os.path.relpath(path, root)] = os.path.getsize(path)
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_sync_free_dispatch(torch, p, batch, precision: str):
+    """The enqueue half of the engine's ``_dispatch_jobs`` on the device
+    loop for ``batch`` (its predicate masks taken first: host numpy, a
+    sync of their own) under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any host sync; then its finish, whose rows must be
+    ``execute_batch``'s. Returns (error or None, seconds of the
+    enqueue)."""
+    import numpy as np
+    from repro_torch.core.engine import EngineStats
+    eng = p.engine(precision=precision)
+    want, _ = eng.execute_batch(batch, device_loop=True)
+    stats = EngineStats(queries=len(batch))
+    pred = eng._stage_batch(batch, stats, True, None)
+    jobs, groups, _ = eng._plan_jobs(batch, pred, None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.time()
+    try:
+        pend = eng._dispatch_jobs(jobs, stats, True, eager=False)
+    except RuntimeError as e:
+        return f"{precision}: the enqueue half synced: {e}", 0.0
+    finally:
+        t_enq = time.time() - t0
+        torch.cuda.set_sync_debug_mode(0)
+    got = eng._finish_walk(batch, pred, jobs, pend.finish())
+    if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+        return f"{precision}: the dispatched batch's rows differ", t_enq
+    return None, t_enq
+
+
+def drive_persist_path(args, dev, p, batch, kmods):
+    """Path (h), on (g)'s folded platform with ``default_precision =
+    "int8"``: ``PERSIST_ROWS`` rows appended (a live delta), the fp32 and
+    int8 batches on the live platform, ``save_platform`` into a temporary
+    directory, ``load_platform`` on the card, and the batch in fp32 and
+    int8 on the loaded platform: every row the live platform's, the first
+    ``PERSIST_CHECK`` queries the oracle's. The loaded int8 engine must
+    take the persisted planes as they are (no ``plan_tiles`` call for a
+    base layout; its planes the loaded arrays themselves, equal to the
+    live engine's bit for bit). Then the enqueue half of the engine's
+    dispatch under the sync guard, in fp32 and int8
+    (``check_sync_free_dispatch``). Returns (error or None, info, the
+    loaded platform)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import persist
+    from repro_torch.utils import quant
+
+    info = {}
+    rng = np.random.default_rng(args.seed + 9)
+    centers = blob_centers(args)
+    p.default_precision = "int8"
+    p.engine(precision="int8")   # (g) rebuilt it: the planes to persist
+    lab = rng.integers(0, 12, PERSIST_ROWS)
+    vec = (centers[lab] + rng.normal(size=(PERSIST_ROWS, args.dim))
+           ).astype(np.float32)
+    price = rng.uniform(0, 100, PERSIST_ROWS).astype(np.float32)
+    p.append(numeric={"price": price}, vector={"v": vec}, fold=False)
+    _reset(kmods)
+    live = {}
+    for prec in ("fp32", "int8"):
+        live[prec], _, _, info[f"live_{prec}_batch_s"] = run_batch(
+            args, dev, p.session(precision=prec), batch)
+    live_planes = p.engine(precision="int8").snapshot_planes()
+    calls = []
+    real = quant.plan_tiles
+
+    def counted(tiles, valid, precision):
+        calls.append(tuple(np.asarray(tiles).shape))
+        return real(tiles, valid, precision)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        persist.save_platform(p, d)
+        info["save_s"] = time.time() - t0
+        info["bytes"] = _dir_bytes(d)
+        info["current"] = persist.current_generation(d)
+        t0 = time.time()
+        p2 = persist.load_platform(
+            d, device=None if dev.type == "cuda" else dev)
+        info["load_s"] = time.time() - t0
+    quant.plan_tiles = counted
+    try:
+        t0 = time.time()
+        eng = p2.engine(precision="int8")
+        _sync(torch, dev)
+        info["int8_engine_s"] = time.time() - t0
+    finally:
+        quant.plan_tiles = real
+    base = {tuple(eng._base[k]["v"].shape) for k in ("vec_tiles",
+                                                     "vec_tiles_dev")}
+    info["plan_tiles_calls"] = calls
+    cache = p2._quant_cache
+    taken = all(np.shares_memory(eng._planes_np[(lay, "v")].data,
+                                 cache[f"{lay}__v__data"])
+                for lay in ("host", "dev"))
+    snap = eng.snapshot_planes()
+    bits = snap.keys() == live_planes.keys() and all(
+        np.array_equal(v, live_planes[k]) for k, v in snap.items())
+    info.update(planes_taken=taken, planes_equal_live=bits,
+                n_delta_loaded=p2.n_delta,
+                generation=(p.generation, p2.generation))
+    if any(c in base for c in calls) or not taken or not bits:
+        return (f"persistence: the loaded int8 engine did not take the "
+                f"persisted planes (plan_tiles on {calls}, taken {taken}, "
+                f"equal to the live engine's {bits})"), info, p2
+    if p2.n_delta != PERSIST_ROWS:
+        return f"persistence: {p2.n_delta} delta rows after the load", \
+            info, p2
+    t0 = time.time()
+    p2.engine(precision="fp32")
+    _sync(torch, dev)
+    info["fp32_engine_s"] = time.time() - t0
+    for prec in ("fp32", "int8"):
+        got, st, tw, te = run_batch(args, dev, p2.session(precision=prec),
+                                    batch)
+        info[f"loaded_{prec}_batch_s"] = te
+        bad = [i for i, (a, b) in enumerate(zip(got, live[prec]))
+               if not np.array_equal(a, b)]
+        if bad:
+            return (f"persistence {prec}: query {bad[0]} of the loaded "
+                    f"platform differs from the live platform's"), info, p2
+        t0 = time.time()
+        bad, _ = oracle_mismatches(p2, batch[:PERSIST_CHECK],
+                                   got[:PERSIST_CHECK])
+        info["oracle_s"] = info.get("oracle_s", 0.0) + time.time() - t0
+        if bad:
+            return f"persistence {prec}: query {bad[0]} differs from the " \
+                   f"oracle", info, p2
+    info["launches"] = _counters(kmods)
+    for prec in ("fp32", "int8"):
+        err, info[f"sync_free_enqueue_{prec}_s"] = check_sync_free_dispatch(
+            torch, p2, batch, prec)
+        if err:
+            return f"persistence: {err}", info, p2
+    return None, info, p2
+
+
+def drive_rollback(args, dev, sp, sbatch):
+    """Generations on path (b)'s small platform: a save, then 500 rows
+    appended and folded (the next generation) and a second save; the
+    batch's rows differ between them. ``rollback_platform`` gives a fresh
+    platform on the card with the first generation's rows and flips
+    ``CURRENT`` back; ``MQRLD.rollback()`` of the live platform does the
+    same through ``snapshot_dir``. Returns (error or None, info)."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import persist
+
+    rng = np.random.default_rng(args.seed + 10)
+    centers = blob_centers(args)
+    first, _ = sp.session().plan(sbatch).execute()
+    info = {}
+    with tempfile.TemporaryDirectory() as d:
+        persist.save_platform(sp, d)
+        lab = rng.integers(0, 12, 500)
+        sp.append(numeric={"price": rng.uniform(0, 100, 500).astype(
+            np.float32)}, vector={"v": (centers[lab] + rng.normal(
+                size=(500, args.dim))).astype(np.float32)}, fold=False)
+        sp.fold()
+        second, _ = sp.session().plan(sbatch).execute()
+        persist.save_platform(sp, d)
+        info["generations"] = persist.list_generations(d)
+        info["current_before"] = persist.current_generation(d)
+        info["second_differs"] = sum(
+            not np.array_equal(a, b) for a, b in zip(first, second))
+        t0 = time.time()
+        back = persist.rollback_platform(
+            d, device=None if dev.type == "cuda" else dev)
+        info["rollback_s"] = time.time() - t0
+        info["current_after"] = persist.current_generation(d)
+        got, _ = back.session().plan(sbatch).execute()
+        same = all(np.array_equal(a, b) for a, b in zip(got, first))
+        persist._set_current(d, info["current_before"])
+        info["platform_rollback_generation"] = sp.rollback()
+        got2, _ = sp.session().plan(sbatch).execute()
+        same2 = all(np.array_equal(a, b) for a, b in zip(got2, first))
+        info["current_after_platform_rollback"] = \
+            persist.current_generation(d)
+    info.update(first_rows_again=same, platform_rows_again=same2)
+    if not (same and same2) or info["second_differs"] == 0 \
+            or info["current_after"] != info["current_before"] - 1:
+        return f"rollback: {info}", info
+    return None, info
+
+
+# -------------------------------------------------------- serving path
+SERVE_REQUESTS = 1024
+SERVE_LENGTHS = (16, 32, 64, 128)
+SERVE_SAMPLE = 128       # served requests held to the oracle
+SERVE_APPEND = 64        # prompts appended by token, then served
+SERVE_TRACED = 192       # requests of the traced depth-3 window: three
+#                          full chunks in flight (the trace's own cost
+#                          grows with its events)
+
+
+def _serve_requests(np, Q, RetrievalRequest, vocab: int, seed: int):
+    """``SERVE_REQUESTS`` requests, prompts of ``SERVE_LENGTHS`` tokens in
+    turn and three archetypes in turn: V.K k = 20, V.K k = 100 and
+    N.R(price) + V.K k = 20."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        toks = rng.integers(0, vocab, SERVE_LENGTHS[i % 4]).astype(np.int32)
+        kind = i % 3
+        out.append(RetrievalRequest(
+            tokens=toks, attr="v", k=100 if kind == 1 else 20,
+            predicate=Q.NR("price", 25, 75) if kind == 2 else None))
+    return out
+
+
+@contextlib.contextmanager
+def _stage_clock(cls, name: str, out: list):
+    """Time every call of ``cls.name`` into ``out`` while inside."""
+    real = getattr(cls, name)
+
+    def timed(self, *a, **kw):
+        t0 = time.time()
+        try:
+            return real(self, *a, **kw)
+        finally:
+            out.append(time.time() - t0)
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
+
+
+def drive_serving_path(args, dev, p2, kmods):
+    """Path (i): ``RetrievalServer(batch_size=64)`` over (h)'s loaded
+    platform, ``EmbeddingServer(mqrld-embedder-100m)`` at full size in
+    bf16 (its forward on its own stream) and a fixed ``--seed`` 768 ->
+    512 projection, scaled once so that projected queries of the first
+    64 prompts have the table's mean row norm. ``SERVE_REQUESTS`` requests
+    (``_serve_requests``) served at pipeline depth 1 in fp32 and at depth
+    1 and 3 in int8: rows identical request by request across the three,
+    and ``SERVE_SAMPLE`` sampled requests equal to the oracle of the
+    server's own query. Then ``append(tokens=...)`` of
+    ``SERVE_APPEND`` prompts, served as queries in the same order: each
+    returns its own appended row first. Reports the sustained requests
+    per second, per-chunk embed / dispatch / epilogue seconds, and a
+    ``torch.profiler`` trace of a depth-3 window of ``SERVE_TRACED``
+    requests. Returns (error or None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import query as Q
+    from repro_torch.core.planner import ExecutablePlan, PendingExecution
+    from repro_torch.serve.engine import (EmbeddingServer, RetrievalRequest,
+                                          RetrievalServer)
+
+    info = {}
+    cfg = get_config("mqrld-embedder-100m")
+    t0 = time.time()
+    emb = EmbeddingServer(cfg, seed=args.seed,
+                          device=None if dev.type == "cuda" else dev)
+    _sync(torch, dev)
+    info["embedder_init_s"] = time.time() - t0
+    reqs = _serve_requests(np, Q, RetrievalRequest, cfg.vocab_size,
+                           args.seed + 11)
+    rng = np.random.default_rng(args.seed + 12)
+    w = (rng.normal(size=(cfg.d_model, args.dim))
+         / math.sqrt(cfg.d_model)).astype(np.float32)
+    calib = np.concatenate([emb.embed(np.stack([r.tokens for r in reqs[j::4][
+        :16]])) for j in range(4)])
+    table_norm = float(np.linalg.norm(p2.view().vector["v"], axis=1).mean())
+    w *= np.float32(table_norm / np.linalg.norm(calib @ w, axis=1).mean())
+    info["table_mean_norm"] = table_norm
+
+    def project(e):
+        return np.asarray(e, np.float32) @ w
+
+    def server(prec, depth):
+        return RetrievalServer(p2, emb, batch_size=64, project=project,
+                               precision=prec, pipeline_depth=depth)
+
+    # warm: the embedder at each prompt length and one chunk of each
+    # archetype per precision
+    for prec in ("fp32", "int8"):
+        server(prec, 1).serve(reqs[:192])
+    _sync(torch, dev)
+    _reset(kmods)
+    runs = {}
+    for label, prec, depth in (("fp32 depth 1", "fp32", 1),
+                               ("int8 depth 1", "int8", 1),
+                               ("int8 depth 3", "int8", 3)):
+        stages = {"embed": [], "execute": [], "dispatch": [], "epilogue": []}
+        srv = server(prec, depth)
+        with _stage_clock(RetrievalServer, "_embed_tokens",
+                          stages["embed"]), \
+                _stage_clock(ExecutablePlan, "execute", stages["execute"]), \
+                _stage_clock(ExecutablePlan, "execute_async",
+                             stages["dispatch"]), \
+                _stage_clock(PendingExecution, "materialize",
+                             stages["epilogue"]):
+            t0 = time.time()
+            res = srv.serve(reqs)
+            _sync(torch, dev)
+            wall = time.time() - t0
+        st = srv.stats()
+        runs[label] = res
+        info[label] = dict(
+            wall_s=wall, requests_per_s=len(reqs) / wall,
+            chunks=st["batches"], served=st["served"], shed=st["shed"],
+            **{f"{k}_s_per_chunk": (float(np.median(v)) if v else None)
+               for k, v in stages.items()},
+            **{f"{k}_s_total": float(sum(v)) for k, v in stages.items()})
+        if st["served"] != len(reqs) or st["shed"]:
+            return f"serving {label}: {st}", info
+    info["launches"] = _counters(kmods)
+    base = runs["fp32 depth 1"]
+    for label in ("int8 depth 1", "int8 depth 3"):
+        bad = [i for i, (a, b) in enumerate(zip(runs[label], base))
+               if not np.array_equal(a.rows, b.rows)]
+        info[f"{label} rows differ from fp32 depth 1"] = len(bad)
+        if bad:
+            return f"serving {label}: request {bad[0]}'s rows differ " \
+                   f"from fp32 at depth 1", info
+    sample = np.random.default_rng(args.seed + 13).choice(
+        len(reqs), SERVE_SAMPLE, replace=False)
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        truths = list(ex.map(p2.oracle, [base[i].query for i in sample]))
+    # a top-level V.K comes back in the oracle's order; the server ranks
+    # the rows of a predicate request by distance itself, so those are
+    # held to the oracle as sets
+    bad = [int(i) for i, t in zip(sample, truths)
+           if not (np.array_equal(base[i].rows, t)
+                   if reqs[i].predicate is None else
+                   np.array_equal(np.sort(base[i].rows), np.sort(t)))]
+    info["oracle_s"] = time.time() - t0
+    info["oracle_mismatches"] = len(bad)
+    if bad:
+        return f"serving: request {bad[0]} differs from the oracle", info
+
+    def traced():
+        server("int8", 3).serve(reqs[:SERVE_TRACED])
+    t0 = time.time()
+    info["depth3_trace"] = _trace(torch, traced, 1, cpu=False)
+    info["depth3_trace"]["trace_s"] = time.time() - t0
+
+    srv = server("int8", 3)
+    toks = list(np.random.default_rng(args.seed + 14).integers(
+        0, cfg.vocab_size, (SERVE_APPEND, 32)).astype(np.int32))
+    m0 = p2.n_base + p2.n_delta
+    t0 = time.time()
+    srv.append(tokens=toks, attr="v", numeric={"price": np.full(
+        SERVE_APPEND, 50.0, np.float32)}, fold=False)
+    info["append_s"] = time.time() - t0
+    got = srv.serve([RetrievalRequest(tokens=t, attr="v", k=20)
+                     for t in toks])
+    first = [int(r.rows[0]) for r in got]
+    info["appended_first"] = sum(f == m0 + j for j, f in enumerate(first))
+    if first != list(range(m0, m0 + SERVE_APPEND)):
+        return f"serving: appended rows are not their prompts' first " \
+               f"rows: {first[:8]} (want from {m0})", info
+    return None, info
+
+
 # ------------------------------------------------------------ model paths
 def _rel(torch, a, b) -> float:
     """||a - b|| / ||b|| over all rows (Frobenius)."""
@@ -1395,11 +1798,31 @@ def _resident_gib(torch, dev) -> float:
         if dev.type == "cuda" else 0.0
 
 
-def _trace(torch, fn, steps: int, classes=None):
-    """``fn`` under ``torch.profiler`` (CPU and CUDA activity): the host
-    wall time and the summed device time of its kernels, per step, the
-    device's busy share of the wall time, and the six kernels with the
-    most device time; with ``classes`` ({class: regex on the kernel's
+def _device_spans(prof):
+    """(start ns, end ns, stream) of every device activity (kernels,
+    copies, fills) in a finished ``torch.profiler`` run; from the
+    profiler's function events, without the stream, where its raw events
+    are not exposed."""
+    try:
+        raw = prof.profiler.kineto_results.events()
+        return [(e.start_ns(), e.start_ns() + e.duration_ns(),
+                 e.device_resource_id()) for e in raw
+                if str(e.device_type()).endswith("CUDA")]
+    except AttributeError:
+        return [(int(e.time_range.start * 1e3), int(e.time_range.end * 1e3),
+                 None) for e in prof.events()
+                if str(e.device_type).endswith("CUDA")]
+
+
+def _trace(torch, fn, steps: int, classes=None, cpu: bool = True):
+    """``fn`` under ``torch.profiler`` (CPU and CUDA activity; CUDA alone
+    with ``cpu=False``, for a window of many small kernels, whose CPU
+    operator events would cost the tracer minutes to parse): the host
+    wall time and the summed device time of its kernels, per step; the
+    device's busy time, the union of its activity intervals over all
+    streams (kernels on two streams that overlap count once), and its
+    share of the wall time; the summed time and event count per stream;
+    and the six kernels with the most device time; with ``classes`` ({class: regex on the kernel's
     name}, first match wins, the rest "other"), each class's device ms per
     step and share of the device time. The tracer slows the host side, so
     the busy share here is a lower bound; set it against the untraced
@@ -1407,8 +1830,8 @@ def _trace(torch, fn, steps: int, classes=None):
     from torch.profiler import ProfilerActivity, profile
     fn()                                      # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -1420,10 +1843,27 @@ def _trace(torch, fn, steps: int, classes=None):
     dev_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
+    spans = _device_spans(prof)
+    busy_ns, by_stream = 0, {}
+    end = None
+    for a, b, stream in sorted(spans):
+        st = by_stream.setdefault(str(stream), [0, 0])
+        st[0] += b - a
+        st[1] += 1
+        if end is None or a >= end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
     out = dict(
         wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step=dev_us / 1e3 / steps if events else None,
-        device_busy_share=dev_us / 1e6 / wall if events else None,
+        device_busy_ms_per_step=busy_ns / 1e6 / steps if spans else None,
+        device_busy_share=busy_ns / 1e9 / wall if spans else None,
+        device_events=len(spans),
+        streams={k: dict(ms_per_step=v[0] / 1e6 / steps, events=v[1])
+                 for k, v in by_stream.items()},
         top=[(e.key[:60], e.self_device_time_total / 1e3 / steps,
               e.count / steps) for e in top])
     if classes is not None:
@@ -2148,7 +2588,43 @@ def main() -> int:
         return fail(f"a kernel of the ingest path never launched: "
                     f"{ing['launches']}")
 
+    # ---------------------------------------------- persistence path
+    t0 = time.time()
+    err, per, p2 = drive_persist_path(args, dev, p, batch, kmods)
+    log(f"persistence: {time.time() - t0:.1f} s; save {per.get('save_s', 0):.1f}"
+        f" s, load {per.get('load_s', 0):.1f} s, "
+        f"{per.get('bytes', {}).get('total', 0)} bytes on disk; loaded int8 "
+        f"engine {per.get('int8_engine_s', float('nan')):.2f} s (with the "
+        f"sync_delta of {PERSIST_ROWS} rows; (g)'s re-quantizing int8 "
+        f"rebuild, without a delta: "
+        f"{ing.get('rebuild_int8_s', float('nan')):.2f} s) "
+        + json.dumps(per))
+    if err:
+        return fail(err)
+    if min(per["launches"][n] for n in ("pairwise_sq_l2", "topk_l2_masked",
+                                        "quant_lb2")) <= 0:
+        return fail(f"a kernel of the persistence path never launched: "
+                    f"{per['launches']}")
     del p, batch, res, truths, mp_rows, sess, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- serving path
+    t0 = time.time()
+    err, srv_info = drive_serving_path(args, dev, p2, kmods)
+    log(f"serving: {time.time() - t0:.1f} s; " + json.dumps(
+        {k: v for k, v in srv_info.items() if k != "depth3_trace"}))
+    if "depth3_trace" in srv_info:
+        log("serving: int8 depth 3 traced (torch.profiler): "
+            + json.dumps(srv_info["depth3_trace"]))
+    if err:
+        return fail(err)
+    if min(srv_info["launches"][n] for n in (
+            "pairwise_sq_l2", "topk_l2_masked", "quant_lb2")) <= 0:
+        return fail(f"a kernel of the serving path never launched: "
+                    f"{srv_info['launches']}")
+
+    del p2
     gc.collect()            # the platform's reference cycles hold GiBs
     torch.cuda.empty_cache()
     # quant_lb2 again at the widest round each precision gave it
@@ -2183,6 +2659,10 @@ def main() -> int:
     if small_launches["lpgf_force"] <= 0:
         return fail(f"lpgf_force never launched on the small-table path: "
                     f"{small_launches}")
+    err, rb = drive_rollback(args, dev, sp, sbatch)
+    log("generations and rollback on the small table: " + json.dumps(rb))
+    if err:
+        return fail(err)
 
     del sp, sbatch, sres
     gc.collect()

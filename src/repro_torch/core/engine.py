@@ -31,6 +31,21 @@ rest in fp32 (``ops.topk_l2_masked_mp``). Rows are the fp32 path's;
 ``EngineStats.mp_scanned``/``mp_rescued`` count the work. The V.R path
 stays fp32, as in the reference.
 
+Persisted planes: ``quant_cache`` (a snapshot's ``quant.npz`` with its
+``precision``) hands the base layouts' planes to the engine, which takes
+them as they are when their shape matches the tiles and quantizes
+otherwise; ``snapshot_planes`` returns them under the reference's keys.
+
+Async split (the serving pipeline's): ``execute_batch_async`` stages the
+predicate masks (host numpy, so that stage syncs, as in the reference),
+then dispatches each KNN group: the queries and masks go up through
+pinned memory without a host sync, the prologue and first round are
+enqueued on the current stream, the results the straggler loop reads
+start for pinned host buffers, and an event is recorded behind them.
+``PendingBatch.materialize()`` waits on each event and runs the rest:
+the rows and stats are ``execute_batch``'s, which is the same dispatch
+finished at once.
+
 Ingest: ``sync_delta`` splices the platform's ``DeltaRegion`` into the
 device state. Delta rows get their own tiles in both layouts, with exact
 per-tile balls and boxes and their own int8/bf16 planes, appended after
@@ -92,6 +107,21 @@ from repro_torch.utils import quant
 _RERANK_EXTRA = 8
 _INF = float("inf")
 _U32 = 2.0 ** -24   # unit roundoff of fp32
+# bytes one beam round may gather as its (G, W, cap, d) tile slab (fp32
+# rows, or the codes of a reduced-precision scan): a QBS seed can ask for
+# rounds over thousands of tiles (queries far from every cluster converge
+# at nearly the whole table), and rows never depend on round widths, so a
+# round's width is capped to fit
+_ROUND_BYTES = 4 << 30
+
+
+def _round_tiles(g: int, data_tiles, planes=None) -> int:
+    """The most tiles one round of ``g`` queries may scan within
+    ``_ROUND_BYTES``: the (T, cap, d) slab it gathers is ``data_tiles``,
+    or the planes' codes on a reduced-precision scan."""
+    t = data_tiles if planes is None else planes[0]
+    _, cap, dim = t.shape
+    return max(1, _ROUND_BYTES // max(1, g * cap * dim * t.element_size()))
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +244,8 @@ def _gather_tiles(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows,
                planes=None, lb_all=None, kth0_all=None, *, w0: int, w1: int,
-               k: int, k_stop: int, precision: str = "fp32"):
+               k: int, k_stop: int, precision: str = "fp32",
+               host_exit: bool = True):
     """One beam round for the ``act`` query subset: scan each query's
     [w0, w1) best-lower-bound tiles with the fused distance+top-k kernel.
     Returns (sq_dists (G, k), physical rows (G, k), valid rows per
@@ -226,7 +257,9 @@ def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows,
     device, ``lb_all`` the per-query sorted ball bounds and ``kth0_all``
     (optional, (G_full,)) the carry's ``k_stop``-th squared distance; the
     round scans the narrow codes and rescores the surviving frontier in
-    fp32, refuting at rank ``k_stop``."""
+    fp32, refuting at rank ``k_stop``; ``host_exit=False`` runs the
+    rescue's whole iteration budget without reading its "any live" flag
+    on the host (the same rows and counts, and no host sync)."""
     qa = qs[act]
     sel = order[act][:, w0:w1]                            # (G, w)
     g, w = sel.shape
@@ -241,7 +274,7 @@ def _knn_round(act, qs, order, masks_tiles, data_tiles, bucket_rows,
         kth0 = None if kth0_all is None else kth0_all[act]
         d2, idx, resc, refuted = ops.topk_l2_masked_mp(
             qa, sel, valid, data_tiles, *planes, k, lb2=lb2, kth0=kth0,
-            precision=precision, k_rescue=k_stop)
+            precision=precision, k_rescue=k_stop, host_exit=host_exit)
     else:
         pts = data_tiles[sel].reshape(g, -1, data_tiles.shape[-1])
         d2, idx = ops.topk_l2_masked(qa, pts, valid, k)
@@ -314,8 +347,10 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
     column; masks: optional (G, n) bool. Returns (dists (G, k) fp32 L2,
     rows (G, k) int64; -1/inf pad slots). A query's result is final once
     its ``k_stop``-th (default k) distance <= the next unscanned lower
-    bound — the scalar executor's stopping rule; the beam doubles and
-    finished queries leave the batch. ``conv_out`` receives each query's
+    bound — the scalar executor's stopping rule; the beam doubles (a
+    round scans at most ``_round_tiles`` new tiles for the queries still
+    active) and finished queries leave the batch. ``conv_out`` receives
+    each query's
     converged beam width (the QBS convergence signal), ``next_lb_out``
     the least lower bound among its unscanned tiles (+inf: none left),
     ``refuted_out`` the least squared bounds (G, 2) among the candidates
@@ -339,7 +374,8 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
     next_lb = np.full(g, np.inf, np.float32)
     refuted = np.full((g, 2), np.inf, np.float32)
     active = np.arange(g)
-    w0, w = 0, max(1, min(beam, l))
+    w0, w = 0, max(1, min(beam, l, _round_tiles(_next_pow2(g), data_tiles,
+                                                 planes)))
     first = True
     while len(active):
         na = len(active)
@@ -383,7 +419,9 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
         conv[active[done]] = w
         next_lb[active[done]] = nxt[done]
         active = active[~done]
-        w0, w = w, min(2 * w, l)
+        most = _round_tiles(_next_pow2(max(1, len(active))), data_tiles,
+                            planes)
+        w0, w = w, min(2 * w, l, w + most)
     if stats is not None:
         stats.time_s += time.time() - t0
     if conv_out is not None:
@@ -478,7 +516,9 @@ def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
                precision: str = "fp32"):
     """Prologue + first beam round over the full batch + the stopping
     rule: a query stays active iff its ``k_stop``-th distance exceeds the
-    next unscanned lower bound."""
+    next unscanned lower bound. Everything it returns stays on the device
+    (the valid-row and rescue sums as 0-d tensors) and it takes no host
+    sync: the mixed-precision rescue runs its whole iteration budget."""
     g = qs.shape[0]
     prologue = _knn_prologue_fast if centroid.shape[0] <= 4096 \
         else _knn_prologue
@@ -487,12 +527,179 @@ def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
     d2, rows, nvalid, resc, refuted = _knn_round(
         torch.arange(g, device=qs.device), qs, order, masks_tiles,
         data_tiles, bucket_rows, planes, lb_sorted, None, w0=0, w1=w1, k=k,
-        k_stop=k_stop, precision=precision)
+        k_stop=k_stop, precision=precision, host_exit=False)
     kth = torch.sqrt(d2[:, k_stop - 1])
     nxt = lb_sorted[:, w1] if w1 < l else \
         torch.full((g,), _INF, device=qs.device)
-    return (order, lb_sorted, d2, rows, kth > nxt, int(nvalid.sum()),
-            int(resc.sum()), refuted)
+    return (order, lb_sorted, d2, rows, kth > nxt, nvalid.sum(),
+            resc.sum(), refuted)
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without a host sync: a pinned staging copy
+    and a non-blocking upload on the current stream (a copy from pageable
+    memory waits for the stream). The caching host allocator keeps the
+    staging memory until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """Start a device->host copy of ``t`` into pinned memory on the
+    current stream (a copy into pageable memory is synchronous); read it
+    after an event recorded behind it. A CPU tensor is returned as is."""
+    if not t.is_cuda:
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+class _PendingDeviceKnn:
+    """Deferred half of ``batched_knn_device_async``: the prologue and the
+    fused first round are enqueued and their results are on their way to
+    pinned host memory; ``finish()`` waits for them (the one fence), runs
+    the straggler loop and returns the rows. Idempotent."""
+
+    __slots__ = ("_fn", "_out")
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._out = None
+
+    def finish(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._out is None:
+            self._out = self._fn()
+        return self._out
+
+
+class _ReadyKnn:
+    """A finished KNN standing in for ``_PendingDeviceKnn`` (the host
+    loop, which runs at dispatch)."""
+
+    __slots__ = ("_out",)
+
+    def __init__(self, out):
+        self._out = out
+
+    def finish(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self._out
+
+
+def batched_knn_device_async(
+        geom: LeafGeometry, data_tiles, qs, k: int, *,
+        masks: Optional[torch.Tensor] = None, beam: int = 8,
+        w1: Optional[int] = None, ws: Optional[int] = None,
+        k_stop: Optional[int] = None, planes=None, precision: str = "fp32",
+        stats: Optional[EngineStats] = None,
+        conv_out: Optional[list] = None,
+        next_lb_out: Optional[list] = None,
+        refuted_out: Optional[list] = None) -> _PendingDeviceKnn:
+    """Dispatch half of ``batched_knn_device``: enqueues the prologue and
+    the fused first round on the current stream, starts the copies of
+    what the straggler loop reads (the (G,) active mask, the first
+    round's distances, rows, refuted bounds and counters) into pinned
+    host memory, records an event behind them and returns, with no host
+    sync (``_knn_start``). ``finish()`` of the result waits on the event and returns what
+    ``batched_knn_device`` returns; stats and the ``*_out`` lists are
+    written there."""
+    t0 = time.time()
+    k_stop = k if k_stop is None else k_stop
+    dev = data_tiles.device
+    qs = qs.float()
+    masks_tiles = None
+    if masks is not None:
+        masks_tiles = _tile_masks(masks, geom.bucket_rows)
+    g = int(qs.shape[0])
+    l = geom.n_leaves
+    w1 = max(1, min(w1 if w1 else max(1, beam // 2), l,
+                    _round_tiles(g, data_tiles, planes)))
+    order, lb_sorted, d2, rows, active, nvalid, resc, refuted = _knn_start(
+        qs, masks_tiles, geom.centroid, geom.radius, data_tiles,
+        geom.bucket_rows, planes, w1=w1, k=k, k_stop=k_stop,
+        precision=precision)
+    host = [_to_host_async(t) for t in (active, d2, rows, refuted, nvalid,
+                                        resc)]
+    ready = None
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    t_disp = time.time() - t0
+
+    def _finish() -> Tuple[np.ndarray, np.ndarray]:
+        t1 = time.time()
+        if ready is not None:
+            ready.synchronize()
+        active_h, d2f, rowsf, refuted_h, nvalid_h, resc_h = (
+            x.numpy() for x in host)
+        if stats is not None:
+            stats.knn_rounds += 1
+            stats.knn_buckets += g * w1
+            stats.rows_scanned += int(nvalid_h)
+            if precision != "fp32":
+                stats.mp_scanned += int(nvalid_h)
+                stats.mp_rescued += int(resc_h)
+        conv = np.full(g, w1, np.int64)
+        act = np.nonzero(active_h)[0]
+        refuted_f = refuted_h
+        if len(act) and w1 < l:
+            na = len(act)
+            gp = _next_pow2(na)
+            padded = np.zeros(gp, np.int64)
+            padded[:na] = act
+            idx = torch.as_tensor(padded, device=dev)
+            active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
+            w = max(1, min(ws if ws else beam,
+                           _round_tiles(gp, data_tiles, planes)))
+            budget = -(-(l - w1) // w)
+            bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
+                _knn_device_loop(
+                    idx, active0, qs, d2, rows, order, lb_sorted,
+                    masks_tiles, data_tiles, geom.bucket_rows, planes,
+                    w1=w1, w=w, budget=budget, k=k, k_stop=k_stop,
+                    precision=precision)
+            refuted_f = refuted_h.copy()
+            refuted_f[act] = np.minimum(refuted_f[act],
+                                        rlb[:na].cpu().numpy())
+            d2f = d2f.copy()
+            rowsf = rowsf.copy()
+            d2f[act] = bd[:na].cpu().numpy()
+            rowsf[act] = br[:na].cpu().numpy()
+            conv[act] = np.minimum(
+                w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w,
+                l)
+            if stats is not None:
+                stats.knn_rounds += rounds
+                stats.knn_buckets += nbuck
+                stats.rows_scanned += nrows
+                if precision != "fp32":
+                    stats.mp_scanned += nrows
+                    stats.mp_rescued += nresc
+        if stats is not None:
+            stats.time_s += t_disp + (time.time() - t1)
+        if conv_out is not None:
+            conv_out.append(conv)
+        if next_lb_out is not None:
+            # the least bound among tiles that may hold left-out rows:
+            # tiles past each query's converged width, and scanned tiles
+            # whose rows the lb2 early-out may have skipped (bound^2 at or
+            # above the final k-th expansion distance, which no running
+            # k-th undercuts)
+            lbs = F.pad(lb_sorted, (0, 1), value=_INF).double()
+            thr = np.sqrt(d2f[:, -1].astype(np.float64) * (1 - 4 * _U32))
+            pos = torch.minimum(
+                torch.searchsorted(lbs, torch.as_tensor(
+                    thr, device=dev)[:, None]),
+                torch.as_tensor(conv, device=dev)[:, None])
+            next_lb_out.append(
+                torch.gather(lbs, 1, pos)[:, 0].cpu().numpy())
+        if refuted_out is not None:
+            refuted_out.append(refuted_f)
+        return np.sqrt(d2f), rowsf.astype(np.int64)
+
+    return _PendingDeviceKnn(_finish)
 
 
 def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
@@ -511,86 +718,20 @@ def batched_knn_device(geom: LeafGeometry, data_tiles, qs, k: int, *,
     ONE fused first round scans every query's top beam/2 lower-bound
     tiles; one (G,) active-mask read compacts the stragglers (padded to
     a power of two) and the straggler loop runs rounds of ``ws`` (default
-    beam) tiles with the static budget ceil(remaining / ws), retiring
+    beam; at most ``_round_tiles``) tiles with the static budget
+    ceil(remaining / ws), retiring
     queries by the same bound check. ``conv_out`` receives per-query
     converged widths: w1 for queries the first round finished, w1 + r*ws
     for a straggler retired in loop round r (capped at the tile count);
     ``next_lb_out`` the least lower bound among tiles that may hold rows
     the scan left out (+inf: none), ``refuted_out`` as in
-    ``batched_knn``."""
-    t0 = time.time()
-    k_stop = k if k_stop is None else k_stop
-    dev = data_tiles.device
-    qs = qs.float()
-    masks_tiles = None
-    if masks is not None:
-        masks_tiles = _tile_masks(masks, geom.bucket_rows)
-    g = int(qs.shape[0])
-    l = geom.n_leaves
-    w1 = max(1, min(w1 if w1 else max(1, beam // 2), l))
-    order, lb_sorted, d2, rows, active, nvalid, resc, refuted = _knn_start(
-        qs, masks_tiles, geom.centroid, geom.radius, data_tiles,
-        geom.bucket_rows, planes, w1=w1, k=k, k_stop=k_stop,
-        precision=precision)
-    if stats is not None:
-        stats.knn_rounds += 1
-        stats.knn_buckets += g * w1
-        stats.rows_scanned += nvalid
-        if precision != "fp32":
-            stats.mp_scanned += nvalid
-            stats.mp_rescued += resc
-    refuted = refuted.cpu().numpy()
-    conv = np.full(g, w1, np.int64)
-    act = np.nonzero(active.cpu().numpy())[0]
-    d2f = d2.cpu().numpy()
-    rowsf = rows.cpu().numpy()
-    if len(act) and w1 < l:
-        na = len(act)
-        gp = _next_pow2(na)
-        padded = np.zeros(gp, np.int64)
-        padded[:na] = act
-        idx = torch.as_tensor(padded, device=dev)
-        active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
-        w = max(1, ws if ws else beam)
-        budget = -(-(l - w1) // w)
-        bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
-            _knn_device_loop(
-                idx, active0, qs, d2, rows, order, lb_sorted, masks_tiles,
-                data_tiles, geom.bucket_rows, planes, w1=w1, w=w,
-                budget=budget, k=k, k_stop=k_stop, precision=precision)
-        refuted = refuted.copy()
-        refuted[act] = np.minimum(refuted[act], rlb[:na].cpu().numpy())
-        d2f = d2f.copy()
-        rowsf = rowsf.copy()
-        d2f[act] = bd[:na].cpu().numpy()
-        rowsf[act] = br[:na].cpu().numpy()
-        conv[act] = np.minimum(
-            w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w, l)
-        if stats is not None:
-            stats.knn_rounds += rounds
-            stats.knn_buckets += nbuck
-            stats.rows_scanned += nrows
-            if precision != "fp32":
-                stats.mp_scanned += nrows
-                stats.mp_rescued += nresc
-    if stats is not None:
-        stats.time_s += time.time() - t0
-    if conv_out is not None:
-        conv_out.append(conv)
-    if next_lb_out is not None:
-        # the least bound among tiles that may hold left-out rows: tiles
-        # past each query's converged width, and scanned tiles whose rows
-        # the lb2 early-out may have skipped (bound^2 at or above the
-        # final k-th expansion distance, which no running k-th undercuts)
-        lbs = F.pad(lb_sorted, (0, 1), value=_INF).double()
-        thr = np.sqrt(d2f[:, -1].astype(np.float64) * (1 - 4 * _U32))
-        pos = torch.minimum(
-            torch.searchsorted(lbs, torch.as_tensor(thr, device=dev)[:, None]),
-            torch.as_tensor(conv, device=dev)[:, None])
-        next_lb_out.append(torch.gather(lbs, 1, pos)[:, 0].cpu().numpy())
-    if refuted_out is not None:
-        refuted_out.append(refuted)
-    return np.sqrt(d2f), rowsf.astype(np.int64)
+    ``batched_knn``. The dispatch half (``batched_knn_device_async``)
+    and its ``finish()`` back to back."""
+    return batched_knn_device_async(
+        geom, data_tiles, qs, k, masks=masks, beam=beam, w1=w1, ws=ws,
+        k_stop=k_stop, planes=planes, precision=precision, stats=stats,
+        conv_out=conv_out, next_lb_out=next_lb_out,
+        refuted_out=refuted_out).finish()
 
 
 def _rerank_certified(t_k: float, m: float, next_lb: float, qq: float,
@@ -684,6 +825,50 @@ def widen_exact(x: np.ndarray, x_dev: torch.Tensor, qs: torch.Tensor,
         d2 = np.sum((x[cand] - qv[p][None, :]) ** 2, axis=1)
         out.append(cand[np.lexsort((cand, d2))[:k]])
     return out
+
+
+class _PendingJobs:
+    """Deferred half of ``HybridEngine._dispatch_jobs``: per-group
+    finishers run in dispatch order. ``finish()`` is idempotent and
+    returns the per-job rows ``_run_jobs`` returns."""
+
+    __slots__ = ("_finishers", "_out", "_done")
+
+    def __init__(self, n_jobs: int):
+        self._finishers: list = []
+        self._out: List[Optional[np.ndarray]] = [None] * n_jobs
+        self._done = False
+
+    def add(self, fn) -> None:
+        self._finishers.append(fn)
+
+    def run_now(self, fn) -> None:
+        """Eager mode: one group's finisher, right at its dispatch."""
+        fn(self._out)
+
+    def finish(self) -> List[np.ndarray]:
+        if not self._done:
+            for fn in self._finishers:
+                fn(self._out)
+            self._done = True
+        return self._out  # type: ignore[return-value]
+
+
+class PendingBatch:
+    """Deferred epilogue of ``HybridEngine.execute_batch_async``:
+    ``materialize()`` waits for the batch's device work and returns the
+    (rows, stats) the synchronous call returns. Idempotent."""
+
+    __slots__ = ("_fn", "_res")
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._res = None
+
+    def materialize(self):
+        if self._res is None:
+            self._res = self._fn()
+        return self._res
 
 
 # ---------------------------------------------------------------------------
@@ -826,13 +1011,33 @@ class EnginePlan:
     #                           must match the executing engine
 
 
+def _plane_np(x: torch.Tensor) -> np.ndarray:
+    """A host plane as numpy (bf16 as its 16-bit patterns)."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+        return x.numpy().view(np.uint16)
+    return x.numpy()
+
+
+def _plane_tensor(a: np.ndarray, precision: str) -> torch.Tensor:
+    """A numpy plane as a CPU tensor sharing its memory: a bf16 plane's
+    data from its 16-bit patterns (uint16, or the reference's 2-byte
+    bfloat16 dtype)."""
+    a = np.ascontiguousarray(a)
+    if precision == "bf16" and a.dtype.itemsize == 2 and a.dtype.kind != "i":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 class HybridEngine:
     """Batched executor over one prepared table, on one device.
     ``HybridEngine(tree, table, meta, device=...)`` over numpy state
     (``ClusterTree``, the permuted ``MMOTable``, ``LeafMeta``).
     ``precision`` selects the KNN scan ("fp32", "bf16" or "int8"; rows
-    are the same); persisted planes (``quant_cache``) come with the
-    persistence slice, so it must be None. ``cost_model`` (a
+    are the same). ``quant_cache`` (a persisted snapshot: the
+    ``snapshot_planes`` dict plus a ``precision`` entry) supplies the base
+    layouts' planes instead of quantizing them (``_make_planes``).
+    ``cost_model`` (a
     ``cost.CostModel`` or None) steers the V.R dense-vs-tile route once
     both V.R kinds are reliably fitted (``_vr_masks``); the owning
     platform refreshes it on every ``engine()`` call, and unions its
@@ -846,16 +1051,16 @@ class HybridEngine:
         if precision not in quant.PRECISIONS:
             raise ValueError(f"precision must be one of {quant.PRECISIONS},"
                              f" got {precision!r}")
-        if quant_cache is not None:
-            raise NotImplementedError(
-                "quant_cache: persisted tile planes come with the port of "
-                "core/persist.py; pass None to quantize at build")
         self.cost_model = cost_model
         # mixed-precision tile scan: both beam-loop layouts get planes
         # built here; the V.R predicate path stays fp32
         self.precision = precision
         self.vec_planes: Dict[str, quant.TilePlanes] = {}
         self.vec_planes_dev: Dict[str, quant.TilePlanes] = {}
+        # the base layouts' planes on the host, (layout, attr) -> numpy
+        # ``TilePlanes`` (``snapshot_planes``)
+        self._planes_np: Dict[Tuple[str, str], quant.TilePlanes] = {}
+        self._quant_cache = quant_cache
         self.device = dev = resolve_device(device)
         self.device_loop = device_loop
         self.device_tile = device_tile or max(32, tile // 2)
@@ -892,7 +1097,8 @@ class HybridEngine:
             self.vec_max2[a] = float(pp.max(initial=0)) * (
                 1 + (tiles.shape[-1] + 2) * _U32)
             if precision != "fp32":
-                self.vec_planes[a] = self._make_planes(tiles, rows_np >= 0)
+                self.vec_planes[a] = self._make_planes("host", a, tiles,
+                                                       rows_np >= 0)
             del tiles, pp
         self.num = {a: torch.as_tensor(np.asarray(c, np.float32), device=dev)
                     for a, c in table.numeric.items()}
@@ -910,8 +1116,8 @@ class HybridEngine:
             tiles_d = tile_data(c, rows_dev)
             self.vec_tiles_dev[a] = torch.as_tensor(tiles_d, device=dev)
             if precision != "fp32":
-                self.vec_planes_dev[a] = self._make_planes(tiles_d,
-                                                           rows_dev >= 0)
+                self.vec_planes_dev[a] = self._make_planes(
+                    "dev", a, tiles_d, rows_dev >= 0)
             del tiles_d
         self.geom_dev = {a: _tile_geometry(c, rows_dev, br_dev, cap_dev)
                          for a, c in table.vector.items()}
@@ -936,12 +1142,45 @@ class HybridEngine:
         self.delta_rows = 0
         self.delta_tiles = 0
 
-    def _make_planes(self, tiles_np: np.ndarray,
+    def _make_planes(self, layout: str, attr: str, tiles_np: np.ndarray,
                      valid: np.ndarray) -> quant.TilePlanes:
-        """Quantize one tile layout on the host (the reference's numpy,
-        so the planes are its bit for bit) and move it to the device."""
-        planes = quant.plan_tiles(tiles_np, valid, self.precision)
+        """One base tile layout's planes on the device: taken from
+        ``quant_cache`` when it holds this precision's planes for
+        ``{layout}__{attr}`` ("host": the host loop's layout, "dev": the
+        device loop's) and their ``data`` has the tiles' shape, else
+        quantized here on the host (the reference's numpy, so the planes
+        are its bit for bit). The host copies stay in ``_planes_np``."""
+        cache = self._quant_cache
+        planes = None
+        if cache and cache.get("precision") == self.precision:
+            keys = [f"{layout}__{attr}__{c}" for c in quant.TilePlanes._fields]
+            if all(k in cache for k in keys):
+                cand = quant.TilePlanes(*(np.asarray(cache[k]) for k in keys))
+                if cand.data.shape == tiles_np.shape:
+                    planes = cand
+        if planes is None:
+            planes = quant.TilePlanes(*(
+                _plane_np(x) for x in quant.plan_tiles(tiles_np, valid,
+                                                       self.precision)))
+        self._planes_np[(layout, attr)] = planes
+        return self._upload_planes(quant.TilePlanes(*(
+            _plane_tensor(x, self.precision) for x in planes)))
+
+    def _upload_planes(self, planes: quant.TilePlanes) -> quant.TilePlanes:
         return quant.TilePlanes(*(x.to(self.device) for x in planes))
+
+    def snapshot_planes(self) -> Dict[str, np.ndarray]:
+        """The base layouts' planes as flat numpy arrays under the
+        reference's keys ``{layout}__{attr}__{component}`` (what
+        ``core.persist`` writes to ``quant.npz``; fed back with a
+        ``precision`` entry as ``quant_cache`` they are taken as they
+        are). bf16 values are given as their 16-bit patterns (uint16):
+        numpy has no bfloat16."""
+        out: Dict[str, np.ndarray] = {}
+        for (layout, attr), planes in self._planes_np.items():
+            for comp, arr in zip(planes._fields, planes):
+                out[f"{layout}__{attr}__{comp}"] = arr
+        return out
 
     # ----------------------------------------------------------- delta union
     def _delta_group_count(self, delta) -> int:
@@ -1102,7 +1341,8 @@ class HybridEngine:
                 for out, key, pts, ok in (
                         (vpl, "vec_planes", pts_h, valid_h),
                         (vpl_dev, "vec_planes_dev", pts_d, valid_d)):
-                    dpl = self._make_planes(pts, ok)
+                    dpl = self._upload_planes(
+                        quant.plan_tiles(pts, ok, self.precision))
                     out[a] = quant.TilePlanes(*(
                         torch.cat([b, x]) for b, x in zip(base[key][a], dpl)))
         self.vec, self.vec_np, self.vec_max2 = vec, vec_np, vmax2
@@ -1323,8 +1563,27 @@ class HybridEngine:
         loop adds it to its first doubling beam; seeds are quantized to
         powers of two and never change results. The recorded signal is
         each group's p90 width BEYOND its first round, so seeds can
-        decay."""
-        out: List[Optional[np.ndarray]] = [None] * len(jobs)
+        decay. ``_dispatch_jobs`` with each group finished at once."""
+        return self._dispatch_jobs(jobs, stats, device_loop, groups=groups,
+                                   seeds=seeds, eager=True).finish()
+
+    def _dispatch_jobs(self, jobs, stats: EngineStats, device_loop: bool,
+                       groups: Optional[Sequence[KnnGroupSpec]] = None,
+                       seeds: Optional[Dict[str, int]] = None,
+                       eager: bool = True, record_cost: bool = True
+                       ) -> "_PendingJobs":
+        """Dispatch half of ``_run_jobs``. Per group, the device loop
+        uploads the queries and masks through pinned memory and enqueues
+        the first round (``batched_knn_device_async``); its finisher (the
+        fence, the straggler loop, the re-rank and the widening, and the
+        width and cost records) runs in ``_PendingJobs.finish()``, in
+        group order. The host loop runs at dispatch, as in the reference.
+        The device loop's dispatch takes no host sync. ``eager=True`` runs
+        each finisher right after its dispatch, which is ``_run_jobs``.
+        ``record_cost=False`` leaves out the KNN
+        stages' wall-time samples (under overlap they would time other
+        work too)."""
+        pend = _PendingJobs(len(jobs))
         if groups is None:
             groups = self._group_jobs(jobs, device_loop)
         # while un-folded delta tiles are unioned in, scans converge wider:
@@ -1341,12 +1600,11 @@ class HybridEngine:
             next_lb: list = []
             refuted: list = []
             qv = np.stack([jobs[i][0].vec() for i in idxs])
-            qs = torch.as_tensor(qv, device=self.device)
+            qs = _to_device(qv, self.device)
             masks = None
             if n_masked:
-                masks = torch.as_tensor(np.stack(
-                    [jobs[i][1] for i in idxs[:n_masked]]),
-                    device=self.device)
+                masks = _to_device(np.stack(
+                    [jobs[i][1] for i in idxs[:n_masked]]), self.device)
                 if n_masked < len(idxs):
                     masks = torch.cat(
                         [masks, torch.ones((len(idxs) - n_masked, self.n),
@@ -1363,7 +1621,7 @@ class HybridEngine:
             k_scan = kmax + _RERANK_EXTRA
             if device_loop:
                 ws = max(self.beam, _next_pow2(seed)) if seed else None
-                dist, rows = batched_knn_device(
+                knn = batched_knn_device_async(
                     geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
                     ws=ws, k_stop=kmax, planes=planes,
                     precision=self.precision, stats=stats, conv_out=conv,
@@ -1373,39 +1631,52 @@ class HybridEngine:
                 beam_eff = max(self.beam,
                                _next_pow2(self.beam + seed)) \
                     if seed else self.beam
-                dist, rows = batched_knn(
+                knn = _ReadyKnn(batched_knn(
                     geom, tiles, qs, k_scan, masks=masks, beam=beam_eff,
                     k_stop=kmax, planes=planes, precision=self.precision,
                     stats=stats, conv_out=conv, next_lb_out=next_lb,
-                    refuted_out=refuted)
+                    refuted_out=refuted))
                 w_base = max(1, min(beam_eff, l))
-            signal = np.maximum(conv[0] - w_base, 0)
-            width = int(np.ceil(np.quantile(signal, 0.9))) \
-                if len(signal) else 0
-            stats.knn_group_widths.append((arch, width))
             feats = costm.knn_plan_features(
                 device_loop=device_loop, g=len(idxs), k=kmax,
                 beam=self.beam, tiles=l, cap=geom.cap, dim=qv.shape[1],
                 precision=self.precision, seed=seed)
-            stats.stage_samples.append(
-                (costm.knn_kind(device_loop), feats, time.time() - t_g0))
-            fails, failed = [], []
-            stats.knn_jobs += len(idxs)
-            for pos, i in enumerate(idxs):
-                out[i], proven, t_k = rerank_exact(
-                    self.vec_np[attr], qv[pos], dist[pos], rows[pos],
-                    next_lb[0][pos], jobs[i][0].k, self.vec_max2[attr],
-                    geom, refuted[0][pos])
-                if not proven:
-                    fails.append((pos, jobs[i][0].k, t_k))
-                    failed.append(i)
-            if fails:
-                stats.knn_exact_fallbacks += len(fails)
-                for i, r in zip(failed, widen_exact(
-                        self.vec_np[attr], self.vec[attr], qs, qv, masks,
-                        fails, self.vec_max2[attr])):
-                    out[i] = r
-        return out  # type: ignore[return-value]
+
+            def _fin(out, knn=knn, conv=conv, next_lb=next_lb,
+                     refuted=refuted, idxs=idxs, attr=attr, arch=arch,
+                     qs=qs, qv=qv, masks=masks, geom=geom, w_base=w_base,
+                     feats=feats, t_g0=t_g0):
+                dist, rows = knn.finish()
+                signal = np.maximum(conv[0] - w_base, 0)
+                width = int(np.ceil(np.quantile(signal, 0.9))) \
+                    if len(signal) else 0
+                stats.knn_group_widths.append((arch, width))
+                if record_cost:
+                    stats.stage_samples.append(
+                        (costm.knn_kind(device_loop), feats,
+                         time.time() - t_g0))
+                fails, failed = [], []
+                stats.knn_jobs += len(idxs)
+                for pos, i in enumerate(idxs):
+                    out[i], proven, t_k = rerank_exact(
+                        self.vec_np[attr], qv[pos], dist[pos], rows[pos],
+                        next_lb[0][pos], jobs[i][0].k, self.vec_max2[attr],
+                        geom, refuted[0][pos])
+                    if not proven:
+                        fails.append((pos, jobs[i][0].k, t_k))
+                        failed.append(i)
+                if fails:
+                    stats.knn_exact_fallbacks += len(fails)
+                    for i, r in zip(failed, widen_exact(
+                            self.vec_np[attr], self.vec[attr], qs, qv,
+                            masks, fails, self.vec_max2[attr])):
+                        out[i] = r
+
+            if eager:
+                pend.run_now(_fin)
+            else:
+                pend.add(_fin)
+        return pend
 
     # -------------------------------------------------------------- explain
     def vr_tile_estimate(self, vr: Q.VR) -> Tuple[int, int]:
@@ -1419,6 +1690,31 @@ class HybridEngine:
         return int(ok.sum()), self.n_tiles
 
     # -------------------------------------------------------------- execute
+    def _resolve_loop(self, device_loop: Optional[bool],
+                      plan: Optional[EnginePlan]) -> bool:
+        if plan is not None:
+            if plan.precision != self.precision:
+                raise ValueError(
+                    f"EnginePlan was keyed for precision="
+                    f"{plan.precision!r} but this engine runs "
+                    f"precision={self.precision!r} "
+                    f"(stale or mis-keyed plan cache)")
+            return plan.device_loop
+        return self.device_loop if device_loop is None else device_loop
+
+    def _stage_batch(self, queries: Sequence[Q.Query], stats: EngineStats,
+                     device_loop: bool, plan: Optional[EnginePlan]
+                     ) -> Dict[Q.Query, np.ndarray]:
+        """The plannability check (skipped under a planner's plan) and the
+        batch's predicate masks (host numpy, so this stage syncs)."""
+        if plan is None:
+            for q in queries:
+                if not plannable(q):
+                    raise ValueError(
+                        f"query not plannable for the batched engine: "
+                        f"{q!r}")
+        return self._predicate_masks(queries, stats, tile_route=device_loop)
+
     def execute_batch(self, queries: Sequence[Q.Query], *,
                       device_loop: Optional[bool] = None,
                       plan: Optional[EnginePlan] = None
@@ -1428,32 +1724,50 @@ class HybridEngine:
         ascending row ids. ``plan`` (from the planner) supplies the job
         layout, grouping and beam seeds; the job layout is cross-checked
         against this batch's walk."""
-        if plan is not None:
-            if plan.precision != self.precision:
-                raise ValueError(
-                    f"EnginePlan was keyed for precision="
-                    f"{plan.precision!r} but this engine runs "
-                    f"precision={self.precision!r} "
-                    f"(stale or mis-keyed plan cache)")
-            device_loop = plan.device_loop
-        elif device_loop is None:
-            device_loop = self.device_loop
+        device_loop = self._resolve_loop(device_loop, plan)
         t0 = time.time()
         stats = EngineStats(queries=len(queries))
-        if plan is None:
-            for q in queries:
-                if not plannable(q):
-                    raise ValueError(
-                        f"query not plannable for the batched engine: "
-                        f"{q!r}")
-        pred_masks = self._predicate_masks(queries, stats,
-                                           tile_route=device_loop)
+        pred_masks = self._stage_batch(queries, stats, device_loop, plan)
         jobs, groups, seeds = self._plan_jobs(queries, pred_masks, plan)
         job_rows = self._run_jobs(jobs, stats, device_loop,
                                   groups=groups, seeds=seeds)
         out = self._finish_walk(queries, pred_masks, jobs, job_rows)
         stats.time_s = time.time() - t0
         return out, stats
+
+    def execute_batch_async(self, queries: Sequence[Q.Query], *,
+                            device_loop: Optional[bool] = None,
+                            plan: Optional[EnginePlan] = None,
+                            record_cost: bool = False) -> "PendingBatch":
+        """Dispatch half of ``execute_batch``: the predicate masks (host
+        numpy, as in the reference), then every KNN group's first round
+        enqueued on the current stream with its results on their way to
+        pinned host memory; returns without waiting. ``materialize()`` of
+        the result waits on each group's event, runs the straggler loops,
+        the re-rank and the finishing walk, and returns exactly
+        ``execute_batch``'s (rows, stats) but for ``time_s`` (the host
+        time of the two halves) and, with ``record_cost=False`` (the
+        default here), the KNN stages' wall-time samples, which under
+        overlap would time other batches' work too. Other batches may be
+        dispatched between the two halves."""
+        device_loop = self._resolve_loop(device_loop, plan)
+        t0 = time.time()
+        stats = EngineStats(queries=len(queries))
+        pred_masks = self._stage_batch(queries, stats, device_loop, plan)
+        jobs, groups, seeds = self._plan_jobs(queries, pred_masks, plan)
+        pending = self._dispatch_jobs(jobs, stats, device_loop,
+                                      groups=groups, seeds=seeds,
+                                      eager=False, record_cost=record_cost)
+        t_disp = time.time() - t0
+
+        def _materialize():
+            t1 = time.time()
+            job_rows = pending.finish()
+            out = self._finish_walk(queries, pred_masks, jobs, job_rows)
+            stats.time_s = t_disp + (time.time() - t1)
+            return out, stats
+
+        return PendingBatch(_materialize)
 
     def _plan_jobs(self, queries: Sequence[Q.Query],
                    pred_masks: Dict[Q.Query, np.ndarray],

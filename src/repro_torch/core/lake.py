@@ -304,3 +304,22 @@ class DeltaRegion:
         self.m = 0
         self.capacity = 0
         self.epoch += 1
+
+
+class DataLake:
+    """Directory of MMO tables (the lake root), one ``MMOTable.save``
+    directory per table name."""
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+
+    def list_tables(self) -> List[str]:
+        return sorted(d for d in os.listdir(self.root)
+                      if os.path.isdir(os.path.join(self.root, d)))
+
+    def write(self, table: MMOTable):
+        table.save(os.path.join(self.root, table.name))
+
+    def read(self, name: str) -> MMOTable:
+        return MMOTable.load(os.path.join(self.root, name))

@@ -31,8 +31,15 @@ unfitted or unreliable, plans are byte-identical to the fixed
 behaviour. ``explain()["cost_model"]`` reports the calibration and how
 this plan's loop was chosen.
 
-Not ported yet: sharded topologies (ROADMAP queue 1 item 8) and the
-async executor (item 5).
+``ExecutablePlan.execute_async()`` is the serving pipeline's split of
+``execute()``: it enqueues the engine fragments' device work and returns
+a ``PendingExecution`` whose ``materialize()`` takes the fences, runs
+the scalar fallbacks and makes every QBS write; its rows and stats are
+``execute()``'s. ``Session.signature`` is the key the retrieval server
+coalesces requests by, and ``Session.prewarm`` inserts plan skeletons
+ahead of use. ``explain()`` reports each fragment's served latency.
+
+Not ported yet: sharded topologies (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -140,6 +147,25 @@ def _knn_group_features(eng, grp: KnnGroupSpec, device_loop: bool,
         dim=eng.vec_np[grp.attr].shape[1], precision=precision, seed=seed)
 
 
+class PendingExecution:
+    """Deferred epilogue of ``ExecutablePlan.execute_async()``: the
+    engine's ``PendingBatch``, the scalar fallbacks and the QBS writes,
+    all in ``materialize()``, the only place the batch takes a device
+    fence after its dispatch. Idempotent: repeated calls return the same
+    (results, stats) and record once."""
+
+    __slots__ = ("_fn", "_res")
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._res = None
+
+    def materialize(self) -> Tuple[List[np.ndarray], EngineStats]:
+        if self._res is None:
+            self._res = self._fn()
+        return self._res
+
+
 class ExecutablePlan:
     """A ``LogicalPlan`` bound to one batch of queries, ready to run.
     ``choices`` records how its loop was decided: "explicit" (the caller
@@ -233,6 +259,61 @@ class ExecutablePlan:
             p.qbs.record_workload(sig, q, cnt)
         return results, stats  # type: ignore[return-value]
 
+    def execute_async(self, *, record: bool = True) -> PendingExecution:
+        """Dispatch half of ``execute()`` for the serving pipeline: the
+        engine fragments' predicate masks and each KNN group's first round
+        are enqueued (``HybridEngine.execute_batch_async``) and this
+        returns. ``materialize()`` of the result takes each group's fence,
+        runs the straggler rounds, the finishing walk and the scalar
+        fallbacks, and makes every QBS write (convergence widths,
+        workload), so rings change only on the stage that retires the
+        batch; its rows and stats are ``execute()``'s. Not recorded here:
+        the stages' wall-time cost samples (under overlap they time other
+        batches too), so ``execute()`` stays the cost model's sample
+        source. ``record=False`` records nothing at all (the pipeline's
+        shape prewarming)."""
+        lp = self.logical
+        p = self.session.platform
+        t0 = time.time()
+        pending = None
+        if lp.engine_idx:
+            eng_plan = EnginePlan(
+                device_loop=lp.device_loop, job_specs=lp.job_specs,
+                groups=lp.groups, seeds=self._seeds(),
+                precision=self.session.precision)
+            pending = self.session.engine().execute_batch_async(
+                [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
+        t_disp = time.time() - t0
+
+        def _materialize() -> Tuple[List[np.ndarray], EngineStats]:
+            t1 = time.time()
+            results: List[Optional[np.ndarray]] = [None] * len(self.norm)
+            if pending is not None:
+                rows, stats = pending.materialize()
+                for i, r in zip(lp.engine_idx, rows):
+                    results[i] = r
+                if record:
+                    for arch, width in stats.knn_group_widths:
+                        p.qbs.record_convergence(arch, width)
+                    self.session.mp_scanned += stats.mp_scanned
+                    self.session.mp_rescued += stats.mp_rescued
+            else:
+                stats = EngineStats()
+            stats.queries = len(self.norm)
+            for i in lp.scalar_idx:
+                results[i] = p.execute(self.norm[i], record=False)[0]
+            stats.time_s = t_disp + (time.time() - t1)
+            if record:
+                reps: Dict[str, list] = {}
+                for q, frag in zip(self.norm, lp.fragments):
+                    slot = reps.setdefault(frag.signature, [q, 0])
+                    slot[1] += 1
+                for sig, (q, cnt) in reps.items():
+                    p.qbs.record_workload(sig, q, cnt)
+            return results, stats  # type: ignore[return-value]
+
+        return PendingExecution(_materialize)
+
     def explain(self) -> dict:
         """Structured plan description (no execution): path per query,
         cache hit/miss, per-V.K group/archetype/beam seed, per-V.R
@@ -277,7 +358,11 @@ class ExecutablePlan:
                     if isinstance(b, Q.VR):
                         vr.append(self._vr_entry(eng, b, cm))
             frags.append({"query": frag.signature, "path": frag.path,
-                          "knn": knn, "vr": vr})
+                          "knn": knn, "vr": vr,
+                          # {p50, p99, n} of the per-request service
+                          # seconds the retrieval server recorded for this
+                          # signature (None until it was served)
+                          "latency": qbs.latency_quantiles(frag.signature)})
         rescue = {
             "scanned": sess.mp_scanned,
             "rescued": sess.mp_rescued,
@@ -443,8 +528,12 @@ class Session:
             else:
                 dl = self.device_loop
         if self._cache_build != self.platform.build_id:
-            self._cache = {}
-            self._cache_build = self.platform.build_id
+            # entries of dead builds go; entries prewarmed for this build
+            # (keyed on it before it was installed) stay
+            b = self.platform.build_id
+            self._cache = {k: v for k, v in self._cache.items()
+                           if k[-1] == b}
+            self._cache_build = b
         key = (tuple(Q.signature(q) for q in norm), dl, self.precision,
                self.platform.build_id)
         logical = self._cache.get(key)
@@ -457,6 +546,36 @@ class Session:
             self._cache[key] = logical
         return ExecutablePlan(self, logical, queries, norm, hit,
                               choices=choices)
+
+    def prewarm(self, queries: Sequence[Q.Query], *,
+                build_id: Optional[int] = None,
+                device_loop: Optional[bool] = None,
+                sizes: Sequence[int] = (1,)) -> int:
+        """Insert the plan skeletons of batches of ``sizes`` copies of each
+        query's shape, keyed under ``build_id`` (default: the current
+        build), so the first batch of each is a plan-cache hit. Returns the
+        number of skeletons inserted (shapes already cached are
+        skipped)."""
+        dl = self.device_loop if device_loop is None else device_loop
+        b = self.platform.build_id if build_id is None else build_id
+        n_new = 0
+        for q in queries:
+            norm = Q.normalize(q)
+            sig = Q.signature(norm)
+            for size in sizes:
+                key = ((sig,) * int(size), dl, self.precision, b)
+                if key not in self._cache:
+                    self._cache[key] = build_logical_plan(
+                        [norm] * int(size), dl)
+                    n_new += 1
+        return n_new
+
+    def signature(self, query: Q.Query) -> str:
+        """The archetype string ``plan()`` keys this query under
+        (normalize + ``Q.signature``), which the retrieval server
+        coalesces requests by. Vector constants are elided, so a
+        placeholder vector signs a request before its embedding exists."""
+        return Q.signature(Q.normalize(query))
 
     def execute(self, queries: Sequence[Q.Query], *,
                 device_loop: Optional[bool] = None

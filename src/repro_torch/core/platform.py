@@ -41,9 +41,18 @@ merges the delta into the learned index through
 ``fold_mode = "background"`` the auto-fold trigger only marks
 ``fold_due``.
 
-Not ported yet: persistence (ROADMAP queue 1 item 4), index generations,
-the controller that consumes ``fold_due`` and the optimizer's objectives
-(item 7), and sharding (item 8).
+Persistence (``core/persist.py``): ``save_platform`` writes a
+crash-atomic ``gen-XXXX`` snapshot in the reference's format (either
+package loads the other's), numbered by ``generation``, which
+``prepare`` and ``fold`` advance; a loaded int8 platform hands its
+persisted planes (``_quant_cache``) to its engines, which take them
+instead of quantizing. ``rollback()`` restores the previous generation
+on disk from ``snapshot_dir``.
+
+Not ported yet: in-memory index generations (``swap`` and the rollback
+to them), the controller that consumes ``fold_due`` and the optimizer's
+objectives (ROADMAP queue 1 item 7), and sharding (item 8; a persisted
+``default_shards`` is only stored and restored).
 """
 from __future__ import annotations
 
@@ -176,6 +185,13 @@ class MQRLD:
         # do not pass ``precision`` use it, after the MQRLD_PRECISION
         # environment override
         self.default_precision: str = "fp32"
+        # sharded serving topology: persisted in platform.json and restored
+        # by load_platform; nothing reads it until sharding is ported
+        self.default_shards: Optional[int] = None
+        # a loaded snapshot's int8 planes (``snapshot_planes`` plus a
+        # ``precision`` entry), handed to every engine built; cleared when
+        # the layout changes
+        self._quant_cache: Optional[Dict] = None
         # the host's calibrated execution cost model (``core/cost.py``),
         # or None: every consumer then keeps its fixed thresholds. Fitted
         # by ``calibrate()``; a host property, so a rebuild keeps it
@@ -195,6 +211,12 @@ class MQRLD:
         self._oracle_cache: Dict = {}
         self._engines: Dict = {}
         self._sessions: Dict = {}
+        # installed index states, counted monotonically (prepare, fold and
+        # rollback advance it); it numbers the snapshots on disk.
+        # ``snapshot_dir`` (set by save_platform / load_platform) is where
+        # rollback() finds the previous generation
+        self.generation = 0
+        self.snapshot_dir: Optional[str] = None
 
     # ------------------------------------------------------------ build
     def prepare(self, columns: Optional[List[str]] = None, *,
@@ -238,7 +260,15 @@ class MQRLD:
         self._view_cache = None
         self._oracle_cache.clear()
         self._engines.clear()
+        # planes quantized from the previous layout would pass the
+        # engine's shape check at the same row count and serve stale
+        # bounds
+        self._quant_cache = None
         self.build_id += 1
+        self.generation += 1
+
+    def _build_meta(self):
+        self.meta = build_leaf_meta(self.tree, self.table)
 
     # ------------------------------------------------------------ ingest
     @property
@@ -363,15 +393,32 @@ class MQRLD:
             self.tree, self.enhanced, feats, device=self.device)
         self.table = comb.apply_permutation(perm, bucket_id, bucket_starts)
         self.enhanced = np.concatenate([self.enhanced, feats])[perm]
-        self.meta = build_leaf_meta(self.tree, self.table)
+        self._build_meta()
         self.delta = None
         self._fold_requested = False
         self.delta_epoch += 1
         self._view_cache = None
         self._oracle_cache.clear()
         self._engines.clear()        # device tiles are stale
+        self._quant_cache = None     # planes quantized from the old layout
         self.build_id += 1           # cached plans invalidate
+        self.generation += 1
         return m
+
+    def rollback(self) -> int:
+        """Restore the previous generation from disk: the snapshot before
+        the one ``CURRENT`` names under ``snapshot_dir``
+        (``persist.rollback_platform``, grafted onto this platform).
+        Returns the new generation counter. The in-memory generations of
+        ``swap`` come with the re-optimization slice, so this is the
+        reference's rollback on a platform that never swapped."""
+        if self.snapshot_dir is not None:
+            from repro_torch.core import persist
+            persist.rollback_platform(self.snapshot_dir, into=self)
+            return self.generation
+        raise RuntimeError("no previous generation retained "
+                           "(no swap since startup, or already "
+                           "rolled back) and no snapshot_dir set")
 
     # ------------------------------------------------------- batched engine
     def _resolve_precision(self, precision: Optional[str]) -> str:
@@ -411,7 +458,8 @@ class MQRLD:
             eng = HybridEngine(
                 self.tree, self.table, self.meta, beam=beam, tile=tile,
                 device_loop=True if device_loop is None else device_loop,
-                device=self.device, precision=prec)
+                device=self.device, precision=prec,
+                quant_cache=self._quant_cache)
         elif device_loop is not None:
             eng.device_loop = device_loop
         self._engines[key] = eng      # (re-)inserted last: LRU order

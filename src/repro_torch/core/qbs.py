@@ -9,15 +9,21 @@ rows feed the extrinsic score S1 (§5.1.2) and the optimizer's objectives.
 Besides the rows the table holds the rings that a planned batch records
 into and the planner reads back: per-archetype convergence widths (the
 beam seeds of ``Session.plan``), per-stage cost samples (the cost
-model's fit and online refit) and per-signature workload samples.
-Service latencies (the server's), persistence and the tuner snapshot
-come with the slices that write or read them.
+model's fit and online refit), per-signature workload samples, and
+per-signature service latencies, which ``serve.RetrievalServer`` records
+and reads back for deadline shedding and its adaptive window, and
+``explain()`` reports. ``save`` / ``load`` write the reference's
+``qbs.json`` (rows, convergence, latency and cost rings; the workload
+ring holds live query objects and is not persisted), so a table saved by
+either package loads in the other. The tuner snapshot comes with the
+re-optimization slice.
 """
 from __future__ import annotations
 
+import json
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,6 +44,7 @@ class QBSRow:
 
 
 _CONVERGENCE_KEEP = 64  # recent widths kept per archetype (ring buffer)
+_LATENCY_KEEP = 512     # recent service times kept per signature
 _WORKLOAD_KEEP = 16     # recent executed query ASTs kept per signature
 _ROWS_KEEP = 4096       # recent QBS rows kept: a long-lived process must
 #                         not grow the row log (and the O(n) scans of
@@ -49,6 +56,9 @@ class QBSTable:
     def __init__(self, sample_rate: float = 1.0, seed: int = 0):
         self.rows: List[QBSRow] = []
         self.convergence: Dict[str, List[int]] = {}
+        # plan signature -> recent per-request service seconds (micro-batch
+        # wall time / batch size), most recent last
+        self.latency: Dict[str, List[float]] = {}
         self.workload: Dict[str, List] = {}
         self.mix: Dict[str, int] = {}
         self.cost: Dict[str, List] = {}
@@ -121,6 +131,30 @@ class QBSTable:
             self.mix[signature] = self.mix.get(signature, 0) \
                 + max(1, int(n))
 
+    # --------------------------------------------- serving-tier feedback
+    def record_latency(self, archetype: str, seconds: float, n: int = 1):
+        """Record the per-request service time of one executed
+        micro-batch (``n`` requests, each ``seconds`` of compute: batch
+        wall time / batch size). Queueing delay is left out, so the
+        server's "can it still make its deadline if compute starts now?"
+        estimate does not feed back on itself under load."""
+        with self._lock:
+            ls = self.latency.setdefault(archetype, [])
+            ls.extend([float(seconds)] * max(1, int(n)))
+            if len(ls) > _LATENCY_KEEP:
+                del ls[:len(ls) - _LATENCY_KEEP]
+
+    def latency_quantiles(self, archetype: str) -> Optional[Dict[str, float]]:
+        """{p50, p99, n} of the recorded per-request service seconds of a
+        signature, or None when it was never served."""
+        with self._lock:
+            ls = self.latency.get(archetype)
+            if not ls:
+                return None
+            a = np.asarray(ls, np.float64)
+            return {"p50": float(np.quantile(a, 0.5)),
+                    "p99": float(np.quantile(a, 0.99)), "n": len(ls)}
+
     # ------------------------------------------------ cost-model feedback
     def record_cost(self, kind: str, features: Sequence[float],
                     seconds: float):
@@ -181,6 +215,50 @@ class QBSTable:
     def per_task(self) -> Dict[str, Dict[str, float]]:
         tasks = sorted({r.task for r in self.rows})
         return {t: self.objectives(t) for t in tasks}
+
+    # ---------------------------------------------------------- persistence
+    def save(self, path: str):
+        """The reference's ``qbs.json``: at most ``_ROWS_KEEP`` rows and
+        every ring but the workload's."""
+        with self._lock:
+            payload = {"rows": [asdict(r) for r in
+                                self.rows[-_ROWS_KEEP:]],
+                       "convergence": {k: list(v) for k, v in
+                                       self.convergence.items()},
+                       "latency": {k: list(v) for k, v in
+                                   self.latency.items()},
+                       "cost": {k: [list(s) for s in v] for k, v in
+                                self.cost.items()},
+                       "cost_total": self.cost_total,
+                       "rows_keep": _ROWS_KEEP}
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1)
+
+    @classmethod
+    def load(cls, path: str) -> "QBSTable":
+        """A table from ``save``'s file, or from the legacy format (a bare
+        row list); an oversized row log re-enters under the window."""
+        t = cls()
+        with open(path) as f:
+            data = json.load(f)
+        if isinstance(data, list):
+            rows, conv, lat, cost = data, {}, {}, {}
+        else:
+            rows, conv = data["rows"], data.get("convergence", {})
+            lat = data.get("latency", {})
+            cost = data.get("cost", {})
+        for r in rows[-_ROWS_KEEP:]:
+            t.rows.append(QBSRow(**r))
+        t.convergence = {k: [int(w) for w in v] for k, v in conv.items()}
+        t.latency = {k: [float(s) for s in v] for k, v in lat.items()}
+        t.cost = {k: [[[float(x) for x in f], float(s)] for f, s in v]
+                  for k, v in cost.items()}
+        # a file without the counter seeds it from the rings' sizes, so
+        # the refit cursor starts consistent
+        t.cost_total = int(data.get("cost_total",
+                                    sum(len(v) for v in t.cost.values()))
+                           if isinstance(data, dict) else 0)
+        return t
 
 
 def recall_at_k(result_rows, truth_rows, k: Optional[int] = None) -> float:

@@ -82,7 +82,8 @@ def quant_lb2(q, codes, cscale, cppq, ceps, valid, *, precision: str):
 
 def topk_l2_masked_mp(q, sel, valid, data_tiles, pdata, pscale, pppq, peps,
                       k: int, lb2=None, kth0=None, *, precision: str,
-                      k_rescue: Optional[int] = None):
+                      k_rescue: Optional[int] = None,
+                      host_exit: bool = True):
     """Mixed-precision leaf scan with exact fp32 rescue (semantics of
     ``repro.kernels.ops.topk_l2_masked_mp``).
 
@@ -100,7 +101,9 @@ def topk_l2_masked_mp(q, sel, valid, data_tiles, pdata, pscale, pppq, peps,
          refuted. The reference's ``lax.while_loop`` is a host loop here
          that reads the (G,) "any live" flag once per iteration, with the
          same R and iteration budget, and picks through ``stable_topk``,
-         so the rescued set is the reference's;
+         so the rescued set is the reference's. ``host_exit=False`` skips
+         that read and runs the whole budget (an iteration with nothing
+         live changes nothing), so the call takes no host sync;
       3. stable top-k over the rescued distances in candidate order.
 
     ``k`` is the output width; ``k_rescue`` (default k, at most k) is the
@@ -147,7 +150,7 @@ def topk_l2_masked_mp(q, sel, valid, data_tiles, pdata, pscale, pppq, peps,
     for _ in range(budget):
         thresh = torch.minimum(kvec, bd[:, -1])
         live = vmask & torch.isinf(d2full) & (lb2q <= thresh[:, None])
-        if not bool(live.any()):
+        if host_exit and not bool(live.any()):
             break
         key = torch.where(live, lb2q, torch.full_like(lb2q, inf))
         kv, pick = stable_topk(key, r)             # R lowest bounds

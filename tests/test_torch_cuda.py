@@ -675,6 +675,69 @@ def test_scalar_fallback_and_calibration_on_card(card_platform):
         p.cost_model = saved
 
 
+def _dispatch_case(p, precision):
+    """An engine of ``precision`` on ``p`` and a batch's V.K jobs, the
+    predicate masks already taken (host numpy, a sync of their own)."""
+    from repro_torch.core.engine import EngineStats
+    eng = p.engine(precision=precision)
+    tab = p.table.vector["v"]
+    qs = [Q.VK.of("v", tab[i], 20) for i in (0, 1234, 4321)]
+    qs.append(Q.And.of(Q.NR("price", 25, 75), Q.VK.of("v", tab[7], 20)))
+    stats = EngineStats(queries=len(qs))
+    pred = eng._stage_batch(qs, stats, True, None)
+    jobs, _, _ = eng._plan_jobs(qs, pred, None)
+    return eng, qs, pred, jobs, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "int8", "bf16"])
+def test_dispatch_takes_no_host_sync(card_platform, precision):
+    """The enqueue half of ``_dispatch_jobs`` on the device loop (the
+    uploads through pinned memory, the prologue and first round, the
+    copies back into pinned memory) runs under
+    ``set_sync_debug_mode("error")``, which raises at any host sync; its
+    finish gives ``execute_batch``'s rows."""
+    eng, qs, pred, jobs, stats = _dispatch_case(card_platform, precision)
+    want, _ = eng.execute_batch(qs, device_loop=True)     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = eng._dispatch_jobs(jobs, stats, True, eager=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = eng._finish_walk(qs, pred, jobs, pend.finish())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # the guard works: a blocking read-back does raise under it
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            eng.bucket_rows[:1].cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_first_round_lands_in_pinned_memory(card_platform, monkeypatch):
+    """The first round's read-backs are non-blocking copies into pinned
+    host buffers, with an event behind them."""
+    from repro_torch.core import engine as teng
+    eng, qs, pred, jobs, stats = _dispatch_case(card_platform, "fp32")
+    made = []
+    real = teng._to_host_async
+
+    def spy(t):
+        h = real(t)
+        made.append((t.is_cuda, h.is_pinned(), h.device.type))
+        return h
+    monkeypatch.setattr(teng, "_to_host_async", spy)
+    pend = eng._dispatch_jobs(jobs, stats, True, eager=False)
+    assert len(made) == 6 and all(m == (True, True, "cpu") for m in made)
+    got = eng._finish_walk(qs, pred, jobs, pend.finish())
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(g, card_platform.oracle(q))
+
+
 @pytest.mark.cuda
 def test_small_table_prepare_goes_through_lpgf_force(cuda):
     """A table of at most 4096 rows takes LPGF's force kernel in

@@ -9,8 +9,8 @@ Two parts.
   validate before they change anything, the auto-fold fires past its
   ratio, a fold keeps each query's logical rows and the tree's balls,
   plans stay warm across appends and go cold at a fold, and
-  ``explain()`` reports the delta. The fuzz leaves out the reference's
-  save/load step (persistence is not ported yet) and keeps its draws.
+  ``explain()`` reports the delta. The fuzz takes the reference's
+  save/load step too (``core.persist``, the live delta must survive).
 * Parity with the reference: the reference ``MQRLD`` (its Pallas top-k in
   interpret mode, its default on the CPU) and the port on the carried
   state take the same seeded appends, then a fold. After each, every
@@ -20,6 +20,8 @@ Two parts.
   and enhanced features are equal array for array (the fold's walk,
   splice and fits are host numpy on both sides).
 """
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from repro.core.platform import MQRLD as JMQRLD
 from repro_torch.core import query as Q
 from repro_torch.core.engine import plannable
 from repro_torch.core.lake import MMOTable
+from repro_torch.core.persist import load_platform, save_platform
 from repro_torch.core.platform import MQRLD, state_from_numpy
 from test_torch_engine import ref_state_arrays
 
@@ -127,20 +130,27 @@ def _check_batch(p, sess, rng, batch_size=3):
 # The interleaved ingest/query fuzz
 # ---------------------------------------------------------------------------
 def _fuzz_session(seed, steps=25):
-    """append / query / fold interleaved, oracle-checked after every
-    step. The reference's save/load draw is kept and does nothing here."""
+    """append / query / fold / save+load interleaved, oracle-checked after
+    every step."""
     p, centers = _make_platform(seed=3)
     sess = p.session()
     rng = np.random.default_rng(5000 + seed)
-    for _ in range(steps):
-        op = rng.random()
-        if op < 0.45:
-            rows = _rand_rows(rng, centers, int(rng.integers(1, 8)))
-            p.append(numeric=rows["numeric"], vector=rows["vector"],
-                     fold=False)
-        elif op < 0.55 and p.n_delta:
-            p.fold()
-        _check_batch(p, sess, rng)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for _ in range(steps):
+            op = rng.random()
+            if op < 0.45:
+                rows = _rand_rows(rng, centers, int(rng.integers(1, 8)))
+                p.append(numeric=rows["numeric"], vector=rows["vector"],
+                         fold=False)
+            elif op < 0.55 and p.n_delta:
+                p.fold()
+            elif op < 0.62:
+                save_platform(p, tmpdir)
+                nd = p.n_delta
+                p = load_platform(tmpdir, device="cpu")
+                sess = p.session()
+                assert p.n_delta == nd  # the delta survived the round trip
+            _check_batch(p, sess, rng)
 
 
 @pytest.mark.parametrize("seed", range(8))
