@@ -73,6 +73,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    appended by token and served, each answered by its own row first;
    requests per second, per-chunk stage seconds and a traced depth-3
    window of 192 requests;
+   Then online re-optimization on (h)'s live platform
+   (``drive_reopt_path``, path (j)): ``RetrievalServer(batch_size=64)``
+   in fp32 with (i)'s embedder, ``fold_mode = "background"``, 2,500 rows
+   appended (fold due), and a ``ReoptController`` attached: its first
+   steps between micro-batches build, warm and swap a fold generation of
+   225,000 rows; then it tunes the transform on 1,024-row shadows,
+   builds the winner's generation at full size beside the serving one,
+   warms it (a second engine on the card) and swaps it (or, when the
+   tuner finds no improvement, the path builds, warms and swaps the best
+   candidate's generation itself: one full-size build either way); 256
+   rows appended, then ``rollback()`` in memory. 32 served requests held
+   to the oracle by logical row identity before the fold swap, after
+   it, after the re-optimizing swap, and after the append and the
+   rollback; no warm-up error; the first batch after the swap a
+   plan-cache hit on the prewarmed engine; seconds by step kind, the
+   longest stall, requests per second and the peak device memory;
 5. small-table path: ``prepare()`` with its defaults on a 4,096-row
    table (LPGF's force kernel), then a 64-query batch, every row equal to
    the oracle's; then generations on it (``drive_rollback``): two saves
@@ -1598,7 +1614,7 @@ def _stage_clock(cls, name: str, out: list):
         setattr(cls, name, real)
 
 
-def drive_serving_path(args, dev, p2, kmods):
+def drive_serving_path(args, dev, p2, kmods, keep=None):
     """Path (i): ``RetrievalServer(batch_size=64)`` over (h)'s loaded
     platform, ``EmbeddingServer(mqrld-embedder-100m)`` at full size in
     bf16 (its forward on its own stream) and a fixed ``--seed`` 768 ->
@@ -1612,7 +1628,8 @@ def drive_serving_path(args, dev, p2, kmods):
     returns its own appended row first. Reports the sustained requests
     per second, per-chunk embed / dispatch / epilogue seconds, and a
     ``torch.profiler`` trace of a depth-3 window of ``SERVE_TRACED``
-    requests. Returns (error or None, info)."""
+    requests. The embedder and projection go into ``keep`` (a dict) for
+    path (j). Returns (error or None, info)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1641,6 +1658,8 @@ def drive_serving_path(args, dev, p2, kmods):
 
     def project(e):
         return np.asarray(e, np.float32) @ w
+    if keep is not None:
+        keep.update(embedder=emb, project=project, vocab=cfg.vocab_size)
 
     def server(prec, depth):
         return RetrievalServer(p2, emb, batch_size=64, project=project,
@@ -1726,6 +1745,305 @@ def drive_serving_path(args, dev, p2, kmods):
     if first != list(range(m0, m0 + SERVE_APPEND)):
         return f"serving: appended rows are not their prompts' first " \
                f"rows: {first[:8]} (want from {m0})", info
+    return None, info
+
+
+# ------------------------------------------------ re-optimization path
+REOPT_CHUNK = 64          # requests a poll: one full micro-batch
+REOPT_SAMPLE = 32         # served requests held to the oracle a checkpoint
+REOPT_APPEND = 2500       # rows whose append marks the background fold
+REOPT_ROLLBACK_ROWS = 256  # rows appended after the re-optimizing swap
+REOPT_MAX_POLLS = 60      # bound on the serving loop while tuning
+
+
+def _reopt_chunk(np, Q, RetrievalRequest, vocab: int, rng, kind: int):
+    """One full micro-batch of one of ``_serve_requests``' archetypes
+    (0: V.K k = 20, 1: V.K k = 100, 2: N.R(price) + V.K k = 20), prompts
+    of ``SERVE_LENGTHS`` tokens in turn."""
+    return [RetrievalRequest(
+        tokens=rng.integers(0, vocab, SERVE_LENGTHS[i % 4]).astype(np.int32),
+        attr="v", k=100 if kind == 1 else 20,
+        predicate=Q.NR("price", 25, 75) if kind == 2 else None)
+        for i in range(REOPT_CHUNK)]
+
+
+def drive_reopt_path(args, dev, p, keep, kmods):
+    """Path (j): online re-optimization on (h)'s live platform (220,000
+    folded rows plus ``PERSIST_ROWS`` live delta rows, prepared with
+    ``min_leaf=64, max_leaf=1024``, which the beside-build reproduces).
+    ``RetrievalServer(batch_size=64)`` in fp32 at depth 1 with (i)'s
+    embedder and projection; ``fold_mode = "background"`` with an
+    ``auto_fold_ratio`` that the append of ``REOPT_APPEND`` rows crosses,
+    so the attached ``ReoptController``'s first steps build, warm and swap
+    a fold generation of 225,000 rows between micro-batches. Then it
+    tunes on 1,024-row shadows, builds the winner's generation at full
+    size beside the serving one, warms and swaps it. If the tuner finds
+    no improvement (its choice rests partly on wall time), the path
+    builds the best candidate's generation itself, warms it through the
+    controller and swaps it between micro-batches: one full-size
+    beside-build either way. Then ``REOPT_ROLLBACK_ROWS`` rows are
+    appended and served, and ``p.rollback()`` restores the fold
+    generation in memory with them. At four checkpoints (before the fold
+    swap, after it, after the re-optimizing swap, after the rollback)
+    ``REOPT_SAMPLE`` served requests are held to the oracle by logical
+    row identity, through ``view().row_ids`` captured when their batch
+    ran. Returns (error or None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as teng
+    from repro_torch.core import query as Q
+    from repro_torch.core.reopt import ReoptConfig, ReoptController
+    from repro_torch.serve.engine import RetrievalRequest, RetrievalServer
+
+    info = {"steps": [], "polls": []}
+    rng = np.random.default_rng(args.seed + 20)
+    req_rng = np.random.default_rng(args.seed + 21)
+    centers = blob_centers(args)
+    srv = RetrievalServer(p, keep["embedder"], batch_size=REOPT_CHUNK,
+                          project=keep["project"], precision="fp32",
+                          pipeline_depth=1)
+    sess = srv.session
+    built = []
+    real_init = teng.HybridEngine.__init__
+
+    def counted_init(self, *a, **kw):
+        built.append(1)
+        real_init(self, *a, **kw)
+    served = {"before fold swap": [], "after fold swap": [],
+              "after reopt swap": [], "after rollback": []}
+
+    def poll_chunk(phase, kind=None):
+        """Submit one chunk (the archetypes in turn unless ``kind`` is
+        given): its last submit fills the group and runs the micro-batch.
+        Then one ``poll()``, an idle point, takes one controller step.
+        The chunk's futures are filed under ``phase`` with the view its
+        batch ran on; the iteration's wall time (batch and step) is the
+        serving loop's stall."""
+        if kind is None:
+            kind = len(info["polls"]) % 3
+        view = p.view()
+        t0 = time.time()
+        futs = [srv.submit(r) for r in _reopt_chunk(
+            np, Q, RetrievalRequest, keep["vocab"], req_rng, kind)]
+        if not all(f.done() for f in futs):
+            raise RuntimeError("reopt: a full group did not run at submit")
+        n = srv.poll()
+        _sync(torch, dev)
+        info["polls"].append(time.time() - t0)
+        if n:
+            raise RuntimeError(f"reopt: an idle poll served {n}")
+        served[phase] += [(f, view) for f in futs]
+
+    ref = p.view()                 # 222,500 rows: (j)'s first epoch
+    ref_pos = np.argsort(ref.row_ids)
+    probe = np.random.default_rng(args.seed + 23).choice(
+        ref.n_rows, 1024, replace=False)
+
+    def rows_kept(view):
+        """Every logical row of ``view`` once, and the probed rows of
+        (j)'s first epoch with their content unchanged: no swap, fold or
+        rollback lost, doubled or altered a row."""
+        ids = view.row_ids
+        if not np.array_equal(np.sort(ids), np.arange(len(ids))):
+            return False
+        pos = np.argsort(ids)[probe]
+        return (np.array_equal(view.vector["v"][pos],
+                               ref.vector["v"][ref_pos[probe]])
+                and np.array_equal(view.numeric["price"][pos],
+                                   ref.numeric["price"][ref_pos[probe]]))
+
+    def check(phase):
+        """``REOPT_SAMPLE`` of the phase's served requests against the
+        oracle (``execute_bruteforce``, as ``p.oracle``) over the view
+        their batch ran on, by logical row identity through that view's
+        ``row_ids``: a top-level V.K in the oracle's order, a predicate
+        request (whose rows the server ranks by distance itself) as a
+        set. Exactly equal distances order by physical row, which a
+        re-permutation changes, so each truth is taken at its own epoch.
+        Every view the phase served from must keep every row."""
+        got = served[phase]
+        pick = np.random.default_rng(args.seed + 22).choice(
+            len(got), min(REOPT_SAMPLE, len(got)), replace=False)
+        jobs = [(got[i][0].result(), got[i][1]) for i in pick]
+        t0 = time.time()
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) \
+                as ex:
+            truths = list(ex.map(
+                lambda j: Q.execute_bruteforce(j[1], j[0].query), jobs))
+        bad = []
+        for i, (res, view), t in zip(pick, jobs, truths):
+            have = [int(view.row_ids[r]) for r in res.rows]
+            want = [int(view.row_ids[r]) for r in t]
+            if not (have == want if isinstance(res.query, Q.VK)
+                    else sorted(have) == sorted(want)):
+                if not bad:
+                    info[f"first mismatch {phase}"] = dict(
+                        request=int(i), query=type(res.query).__name__,
+                        same_set=sorted(have) == sorted(want),
+                        served=have, oracle=want)
+                bad.append(int(i))
+        views = list({id(v): v for _, v in got}.values())
+        lost = sum(not rows_kept(v) for v in views)
+        info[f"oracle {phase}"] = dict(checked=len(pick), mismatches=len(bad),
+                                       served=len(got), views=len(views),
+                                       views_losing_rows=lost,
+                                       oracle_s=time.time() - t0)
+        got.clear()                # the views are full-size copies
+        if lost:
+            return f"reopt {phase}: a view lost or altered rows"
+        return None if not bad else \
+            f"reopt {phase}: request {bad[0]} differs from the oracle"
+
+    # warm: the fp32 engine over the live delta, each archetype once
+    t0 = time.time()
+    for _ in range(3):
+        poll_chunk("before fold swap")
+    info["warm_s"] = time.time() - t0
+    served["before fold swap"].clear()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset(kmods)
+    teng.HybridEngine.__init__ = counted_init
+    try:
+        p.fold_mode = "background"
+        p.auto_fold_ratio = 1.5 * REOPT_APPEND / p.n_base
+        lab = rng.integers(0, 12, REOPT_APPEND)
+        srv.append(numeric={"price": rng.uniform(0, 100, REOPT_APPEND)
+                            .astype(np.float32)},
+                   vectors={"v": (centers[lab] + rng.normal(
+                       size=(REOPT_APPEND, args.dim))).astype(np.float32)})
+        info.update(fold_due=p.fold_due, n_base=p.n_base,
+                    n_delta=p.n_delta)
+        if not p.fold_due:
+            return "reopt: the append did not mark the background fold", \
+                info
+        ctl = ReoptController(p, config=ReoptConfig(
+            interval_s=0, min_queries=64, sample_rows=1024,
+            max_workload=16, seed=args.seed,
+            prewarm_sizes=(1, 2, 4, 8, 16, 32, 64)))
+        srv.attach_reopt(ctl)
+        real_step = ctl.step
+
+        def timed_step():
+            t0 = time.time()
+            kind = real_step()
+            _sync(torch, dev)
+            info["steps"].append([kind, time.time() - t0])
+            return kind
+        ctl.step = timed_step
+
+        # the background fold: built, warmed and swapped between batches
+        phase = "before fold swap"
+        while ctl.n_folds == 0 and len(info["polls"]) < REOPT_MAX_POLLS:
+            poll_chunk(phase)
+        if ctl.n_folds != 1:
+            return f"reopt: no fold swap: {info['steps']}", info
+        info["folded"] = dict(n_base=p.n_base, n_delta=p.n_delta,
+                              generation=p.generation)
+        err = check(phase)
+        if err:
+            return err, info
+
+        # tuning on shadows, then the full-size beside-build
+        phase = "after fold swap"
+        t_loop = time.time()
+        n0 = srv.n_served
+        while ctl.state != "won" and len(info["polls"]) < REOPT_MAX_POLLS:
+            poll_chunk(phase)
+            if ctl.history and ctl.history[-1].kind == "no-improvement":
+                break
+        if ctl.state == "won":      # the controller builds, warms, swaps
+            while ctl.n_swaps == 0 and \
+                    len(info["polls"]) < REOPT_MAX_POLLS:
+                poll_chunk(phase)
+            info["swapped_by"] = "controller"
+        info["loop_requests_per_s"] = (srv.n_served - n0) / (
+            time.time() - t_loop)
+        srv.reopt = None            # no further cycle: one build a run
+        if ctl.n_swaps == 0:
+            last = ctl.history[-1] if ctl.history else None
+            if last is None or last.kind != "no-improvement":
+                return f"reopt: the tuner stopped at {ctl.state}: " \
+                    f"{info['steps']}", info
+            t0 = time.time()
+            gen = p.build_generation(**last.params)
+            info["steps"].append(["built", time.time() - t0])
+            t0 = time.time()
+            ctl._warm_generation(gen)
+            _sync(torch, dev)
+            info["steps"].append(["warmed", time.time() - t0])
+            t0 = time.time()
+            p.swap(gen)
+            info["steps"].append(["swapped", time.time() - t0])
+            info["swapped_by"] = "path (j), after no-improvement"
+        info["history"] = [dict(kind=h.kind, gen_id=h.gen_id,
+                                params=h.params, baseline=h.baseline,
+                                best=h.best, sc_before=h.sc_before,
+                                sc_after=h.sc_after) for h in ctl.history]
+        info["warm_errors"] = list(ctl.warm_errors)
+        if ctl.warm_errors:
+            return f"reopt: warm-up errors {ctl.warm_errors}", info
+        err = check(phase)
+        if err:
+            return err, info
+
+        # the first batch after the swap, of the hottest signature
+        phase = "after reopt swap"
+        hits, n_built = sess.cache_hits, len(built)
+        warm_engine = p._engines.get(p._engine_key(sess.beam, sess.tile,
+                                                   sess.precision))
+        poll_chunk(phase, kind=0)
+        info["first_batch_after_swap"] = dict(
+            plan_cache_hit=sess.cache_hits == hits + 1,
+            engines_built=len(built) - n_built,
+            prewarmed_engine_used=warm_engine is not None and p._engines.get(
+                p._engine_key(sess.beam, sess.tile, sess.precision))
+            is warm_engine)
+        err = check(phase)
+        if err:
+            return err, info
+        # rows written after the swap, which the rollback must keep: the
+        # chunk served on them is checked with the rollback's (the
+        # rollback changes no row, so one oracle serves both)
+        phase = "after rollback"
+        lab = rng.integers(0, 12, REOPT_ROLLBACK_ROWS)
+        srv.append(numeric={"price": rng.uniform(
+            0, 100, REOPT_ROLLBACK_ROWS).astype(np.float32)},
+            vectors={"v": (centers[lab] + rng.normal(
+                size=(REOPT_ROLLBACK_ROWS, args.dim))).astype(np.float32)})
+        poll_chunk(phase, kind=0)
+
+        # the in-memory rollback to the fold generation
+        before = (p.n_base, p.n_delta)
+        t0 = time.time()
+        p.rollback()
+        t_rb = time.time() - t0
+        p.engine(precision="fp32")
+        _sync(torch, dev)
+        info["rollback"] = dict(rollback_s=t_rb,
+                                engine_rebuild_s=time.time() - t0 - t_rb,
+                                rows_before=before,
+                                rows_after=(p.n_base, p.n_delta),
+                                generation=p.generation)
+        if p.n_base + p.n_delta != sum(before):
+            return f"reopt: rollback changed the row count: " \
+                   f"{info['rollback']}", info
+        poll_chunk(phase)
+        err = check(phase)
+        if err:
+            return err, info
+    finally:
+        teng.HybridEngine.__init__ = real_init
+    info["launches"] = _counters(kmods)
+    if dev.type == "cuda":     # two engines resident at each warm-up
+        info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the longest the serving loop waited between two micro-batches: a
+    # poll's batch and step, or the path's own build, warm-up and swap
+    info["longest_stall_s"] = max(info["polls"]
+                                  + [sec for _, sec in info["steps"]])
+    info["stats"] = {k: v for k, v in srv.stats().items()
+                     if k != "by_signature"}
     return None, info
 
 
@@ -2294,6 +2612,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--small-rows", type=int, default=4096)
     args = ap.parse_args()
+    starts = []       # (section, start time): the seconds by path
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail(f"no src/repro_torch beside {__file__}: run it from a "
@@ -2321,6 +2640,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---------------------------------------------------------- build
+    starts.append(("build", time.time()))
     t0 = time.time()
     logs = build.build_all()
     log(f"build: {time.time() - t0:.1f} s")
@@ -2357,6 +2677,7 @@ def main() -> int:
         return fail(f"flash_attention (SIMT): ptxas reports spills {simt}")
 
     # -------------------------------------------------------- kernels
+    starts.append(("kernels", time.time()))
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     # the engine scans k plus its re-rank margin
@@ -2401,6 +2722,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- fp32 path
+    starts.append(("fp32 path", time.time()))
     torch.cuda.reset_peak_memory_stats()
     _reset(kmods)
     p, batch, res, stats, times = drive_main_path(args, dev)
@@ -2471,6 +2793,7 @@ def main() -> int:
     del xs
 
     # ----------------------------------------- mixed-precision path
+    starts.append(("mixed-precision path", time.time()))
     _reset(kmods)
     mp_rows = {}
     # the (G, C) of every quant_lb2 launch on the path
@@ -2520,6 +2843,7 @@ def main() -> int:
                     f"path: {mp_launches}")
 
     # ------------------------------------------------- planner paths
+    starts.append(("planner paths", time.time()))
     # on the same platform, after its timed batches: the scalar path, the
     # two executors, Algorithm 3 and the cost model's calibration
     t_planner = time.time()
@@ -2567,6 +2891,7 @@ def main() -> int:
     log(f"planner paths: {time.time() - t_planner:.1f} s")
 
     # --------------------------------------------------- ingest path
+    starts.append(("ingest path", time.time()))
     err, ing = drive_ingest_path(args, dev, p, batch, kmods)
     for j, a in enumerate(ing["appends"]):
         log(f"ingest: append {j + 1} of {INGEST_ROWS} rows: append "
@@ -2589,6 +2914,7 @@ def main() -> int:
                     f"{ing['launches']}")
 
     # ---------------------------------------------- persistence path
+    starts.append(("persistence path", time.time()))
     t0 = time.time()
     err, per, p2 = drive_persist_path(args, dev, p, batch, kmods)
     log(f"persistence: {time.time() - t0:.1f} s; save {per.get('save_s', 0):.1f}"
@@ -2605,13 +2931,18 @@ def main() -> int:
                                         "quant_lb2")) <= 0:
         return fail(f"a kernel of the persistence path never launched: "
                     f"{per['launches']}")
-    del p, batch, res, truths, mp_rows, sess, eng
+    # (h)'s live platform p stays for path (j); its engines go
+    p._engines.clear()
+    p._sessions.clear()
+    del batch, res, truths, mp_rows, sess, eng
     gc.collect()
     torch.cuda.empty_cache()
 
     # -------------------------------------------------- serving path
+    starts.append(("serving path", time.time()))
     t0 = time.time()
-    err, srv_info = drive_serving_path(args, dev, p2, kmods)
+    keep = {}
+    err, srv_info = drive_serving_path(args, dev, p2, kmods, keep)
     log(f"serving: {time.time() - t0:.1f} s; " + json.dumps(
         {k: v for k, v in srv_info.items() if k != "depth3_trace"}))
     if "depth3_trace" in srv_info:
@@ -2626,6 +2957,35 @@ def main() -> int:
 
     del p2
     gc.collect()            # the platform's reference cycles hold GiBs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ re-optimization path
+    starts.append(("re-optimization path", time.time()))
+    t0 = time.time()
+    err, ro = drive_reopt_path(args, dev, p, keep, kmods)
+    log(f"reopt: {time.time() - t0:.1f} s on {ro.get('n_base')} + "
+        f"{ro.get('n_delta')} rows (the background fold's input)")
+    kinds = {}
+    for kind, sec in ro["steps"]:
+        kinds.setdefault(kind, []).append(sec)
+    log("reopt: seconds by step kind: " + json.dumps(
+        {k: dict(n=len(v), total_s=sum(v), max_s=max(v))
+         for k, v in kinds.items()}))
+    log("reopt: steps in order: " + json.dumps(ro["steps"]))
+    log("reopt: " + json.dumps({k: v for k, v in ro.items()
+                                if k not in ("steps", "polls")}))
+    if ro["polls"]:
+        log(f"reopt: {len(ro['polls'])} polls of {REOPT_CHUNK} requests, "
+            f"longest {max(ro['polls']):.3f} s, median "
+            f"{float(np.median(ro['polls'])):.4f} s")
+    if err:
+        return fail(err)
+    if min(ro["launches"][n] for n in ("pairwise_sq_l2", "topk_l2",
+                                       "lpgf_force", "topk_l2_masked")) <= 0:
+        return fail(f"a kernel of the re-optimization path never launched: "
+                    f"{ro['launches']}")
+    del p, keep
+    gc.collect()
     torch.cuda.empty_cache()
     # quant_lb2 again at the widest round each precision gave it
     for prec in ("int8", "bf16"):
@@ -2643,6 +3003,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -------------------------------------------- small-table path
+    starts.append(("small-table path", time.time()))
     _reset(kmods)
     sp, s_radius, s_prep = build_platform(args, dev, args.small_rows)
     sbatch = hybrid_batch(Q, np, sp.table.vector["v"], s_radius, 64,
@@ -2669,6 +3030,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ embedding path
+    starts.append(("embedding path", time.time()))
     _reset(kmods)
     ok, emb = drive_embedding_path(args, dev)
     emb_launches = _counters(kmods)
@@ -2681,6 +3043,7 @@ def main() -> int:
         return fail(f"embedding path: {emb}")
 
     # ----------------------------------------------- generation path
+    starts.append(("generation path", time.time()))
     _reset(kmods)
     ok, gen_info = drive_generation_path(args, dev, flash_attention, ref)
     gen_launches = _counters(kmods)
@@ -2706,6 +3069,7 @@ def main() -> int:
                     f"the wgmma kernel: {gen_launches}")
 
     # ------------------------------------------ fp32 generation path
+    starts.append(("fp32 generation path", time.time()))
     _reset(kmods)
     ok, f32_info = drive_fp32_generation_path(args, dev, flash_attention,
                                               ref)
@@ -2722,6 +3086,7 @@ def main() -> int:
                     f"take the SIMT kernel: {f32_launches}")
 
     # ------------------------------------ olmo-1b fp32 serving path
+    starts.append(("olmo-1b fp32 serving path", time.time()))
     _reset(kmods)
     ok, olmo = drive_olmo_fp32_path(args, dev, flash_attention, ref)
     olmo_launches = _counters(kmods)
@@ -2767,6 +3132,7 @@ def main() -> int:
                     f"checked launches, all on the SIMT kernel: "
                     f"{olmo_launches}")
 
+    starts.append(("flash_attention checks", time.time()))
     # flash_attention at each kernel's widest path launch: the two
     # kernels' rows (wgmma: llama3-8b's prefill; SIMT: olmo-1b's fp32
     # prefill). Then the fp32 path (e)'s shape, at the llama prefill's
@@ -2818,6 +3184,9 @@ def main() -> int:
                 "flash_attention": olmo_launches["flash_attention"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
+    starts.append(("end", time.time()))
+    log("seconds by section: " + json.dumps(
+        {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
     log(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

@@ -333,6 +333,7 @@ def rollback_platform(directory: str, into=None,
     _set_current(directory, target)    # commit point
     if into is None:
         return p
+    into._invalidate()                 # build_id stays monotone
     for attr in ("raw_table", "table", "tree", "meta", "enhanced",
                  "transform", "layout", "report", "qbs", "delta",
                  "default_shards", "default_precision", "_quant_cache"):
@@ -342,11 +343,5 @@ def rollback_platform(directory: str, into=None,
     if p.cost_model is not None:
         into.cost_model = p.cost_model
     into.delta_epoch += 1
-    into._view_cache = None
-    into._oracle_cache.clear()
-    into._engines.clear()
-    into._fold_requested = False
-    into.build_id += 1                 # monotone: plans can never alias
-    into.generation += 1
     into.snapshot_dir = directory
     return into

@@ -39,26 +39,43 @@ merges the delta into the learned index through
 ``index.fold_into_tree`` and bumps ``build_id``; an append only advances
 ``delta_epoch``, which the oracle's and the view's caches key on. Under
 ``fold_mode = "background"`` the auto-fold trigger only marks
-``fold_due``.
+``fold_due``, which the re-optimization controller (``core/reopt.py``)
+consumes by folding beside the serving state.
 
 Persistence (``core/persist.py``): ``save_platform`` writes a
 crash-atomic ``gen-XXXX`` snapshot in the reference's format (either
 package loads the other's), numbered by ``generation``, which
 ``prepare`` and ``fold`` advance; a loaded int8 platform hands its
 persisted planes (``_quant_cache``) to its engines, which take them
-instead of quantizing. ``rollback()`` restores the previous generation
-on disk from ``snapshot_dir``.
+instead of quantizing.
 
-Not ported yet: in-memory index generations (``swap`` and the rollback
-to them), the controller that consumes ``fold_due`` and the optimizer's
-objectives (ROADMAP queue 1 item 7), and sharding (item 8; a persisted
+Index generations (online re-optimization): a heavyweight index change
+is built BESIDE the serving state and installed in one step.
+``build_generation(theta=..., delta_scales=...)`` runs the whole feature
+representation and index build with a perturbed transform over the base
+plus the delta rows live when it starts, under the last ``prepare()``'s
+configuration (``_prepare_cfg``), on ``device``;
+``build_fold_generation()`` runs a fold on a copy of the tree (``fold()``
+is that generation installed in place). ``swap(gen)`` installs a built generation between micro-batches:
+``build_id`` bumps (cached plans and engines invalidate as at
+``prepare``), delta rows appended after the build started carry over
+into a fresh delta region, and engines prewarmed for the generation
+(``Generation.engines``) become the serving engines. The displaced state
+is kept as ``_prev_gen``, and ``rollback()`` restores it in one call,
+with every row appended since; without one it restores the previous
+generation on disk from ``snapshot_dir``. Every path stays
+oracle-exact across a swap: only which transform and index serve
+changes, never the rows a query answers over. ``objectives_for_morbo``
+is the offline (time, CBR, -accuracy) evaluator of Algorithm 1.
+
+Not ported yet: sharding (ROADMAP queue 1 item 8; a persisted
 ``default_shards`` is only stored and restored).
 """
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -164,6 +181,50 @@ def _build_state(raw_table: MMOTable, *, seed: int, device,
                 meta=build_leaf_meta(tree, table))
 
 
+def _copy_tree(tree: ClusterTree) -> ClusterTree:
+    """Deep copy of a ``ClusterTree``: a fold beside the serving state
+    mutates bucket ranges, radii and last-mile fits, which the serving
+    generation must not see before the swap."""
+    return ClusterTree(
+        centroid=tree.centroid.copy(), radius=tree.radius.copy(),
+        parent=tree.parent.copy(),
+        children=[list(c) for c in tree.children],
+        is_leaf=tree.is_leaf.copy(),
+        bucket_start=tree.bucket_start.copy(),
+        bucket_end=tree.bucket_end.copy(),
+        lm_a=tree.lm_a.copy(), lm_b=tree.lm_b.copy(),
+        depth=tree.depth.copy(),
+        access_count=tree.access_count.copy())
+
+
+@dataclass
+class Generation:
+    """One complete, self-consistent index and layout state, in one of
+    two roles: the output of a beside-build (``build_generation`` /
+    ``build_fold_generation``) waiting for ``swap()``, whose
+    ``delta_consumed`` says how many live delta rows it baked into its
+    base; or the serving state a swap displaced (``kind="serving"``),
+    holding the old delta region and ``post_swap_tail`` so ``rollback()``
+    restores it without losing rows appended after the swap."""
+    gen_id: int
+    kind: str                               # "reopt" | "fold" | "serving"
+    raw_table: MMOTable
+    table: MMOTable
+    tree: ClusterTree
+    meta: LeafMeta
+    enhanced: np.ndarray
+    transform: Optional[HyperspaceTransform]
+    layout: Dict
+    report: Optional[BuildReport]
+    delta_consumed: int = 0                 # live delta rows in this base
+    base_build_id: int = -1                 # serving build it was built from
+    params: Optional[Tuple] = None          # (theta, delta_scales) | None
+    engines: Dict = field(default_factory=dict)   # prewarmed HybridEngines
+    # rollback bookkeeping (kind == "serving" only)
+    delta: Optional[DeltaRegion] = None
+    post_swap_tail: int = 0                 # delta rows carried into next gen
+
+
 class MQRLD:
     """The platform. One instance per MMO table, on one ``device``
     (``None`` = the CUDA card; raises when there is none)."""
@@ -211,12 +272,23 @@ class MQRLD:
         self._oracle_cache: Dict = {}
         self._engines: Dict = {}
         self._sessions: Dict = {}
-        # installed index states, counted monotonically (prepare, fold and
-        # rollback advance it); it numbers the snapshots on disk.
-        # ``snapshot_dir`` (set by save_platform / load_platform) is where
-        # rollback() finds the previous generation
+        # installed index states, counted monotonically (prepare, fold,
+        # swap and rollback advance it); it numbers the snapshots on disk.
+        # ``_prev_gen`` is the serving state the last swap displaced (the
+        # in-memory rollback); ``snapshot_dir`` (set by save_platform /
+        # load_platform) is where rollback() finds the previous generation
+        # without one
         self.generation = 0
+        self._prev_gen: Optional[Generation] = None
         self.snapshot_dir: Optional[str] = None
+        # the last prepare()'s build configuration, which beside-builds
+        # reproduce; a loaded platform keeps these defaults, as in the
+        # reference (its snapshot does not hold them)
+        self._prepare_cfg: Dict = dict(
+            columns=None, use_transform=True, use_lpgf=True,
+            lpgf_iters=1, delta=0.951, min_leaf=32, max_leaf=4096,
+            max_depth=12, dpc_max_clusters=8, dpc_sample=4096)
+        self._transform_params: Tuple = (None, None)   # (theta, delta_scales)
 
     # ------------------------------------------------------------ build
     def prepare(self, columns: Optional[List[str]] = None, *,
@@ -230,19 +302,27 @@ class MQRLD:
                 ) -> BuildReport:
         """Feature representation + index build + physical re-layout. A
         pending delta region joins ``raw_table`` first, so ``prepare()``
-        is the full-rebuild end of append -> union -> fold."""
+        is the full-rebuild end of append -> union -> fold. The
+        configuration is recorded, so later beside-builds
+        (``build_generation``) reproduce it; ``prepare`` itself installs
+        in place, the blocking end of the rebuild spectrum."""
         if self.delta is not None and self.delta.m:
             self.raw_table = self._merged_raw()
             self.delta = None
             self.delta_epoch += 1
             self._view_cache = None
-        st = _build_state(
-            self.raw_table, seed=self.seed, device=self.device,
+        self._prepare_cfg = dict(
             columns=columns, use_transform=use_transform,
             use_lpgf=use_lpgf, lpgf_iters=lpgf_iters, delta=delta,
             min_leaf=min_leaf, max_leaf=max_leaf, max_depth=max_depth,
-            dpc_max_clusters=dpc_max_clusters, dpc_sample=dpc_sample,
-            theta=theta, delta_scales=delta_scales)
+            dpc_max_clusters=dpc_max_clusters, dpc_sample=dpc_sample)
+        self._transform_params = (
+            None if theta is None else np.asarray(theta, np.float64),
+            None if delta_scales is None
+            else np.asarray(delta_scales, np.float64))
+        st = _build_state(
+            self.raw_table, seed=self.seed, device=self.device,
+            theta=theta, delta_scales=delta_scales, **self._prepare_cfg)
         self._install_state(st)
         return st["report"]
 
@@ -257,15 +337,7 @@ class MQRLD:
         self.layout = st["layout"]
         self.enhanced = st["enhanced"]
         self.meta = st["meta"]
-        self._view_cache = None
-        self._oracle_cache.clear()
-        self._engines.clear()
-        # planes quantized from the previous layout would pass the
-        # engine's shape check at the same row count and serve stale
-        # bounds
-        self._quant_cache = None
-        self.build_id += 1
-        self.generation += 1
+        self._invalidate()
 
     def _build_meta(self):
         self.meta = build_leaf_meta(self.tree, self.table)
@@ -328,12 +400,16 @@ class MQRLD:
                     > self.auto_fold_ratio * self.table.n_rows)
 
     def _concat_delta(self, t: MMOTable,
-                      row_ids: Optional[np.ndarray] = None) -> MMOTable:
+                      row_ids: Optional[np.ndarray] = None,
+                      limit: Optional[int] = None) -> MMOTable:
         """``t`` with the live delta rows appended column-wise: the one
         recipe behind ``view()`` (over the physical table) and
-        ``_merged_raw`` (over ``raw_table``)."""
+        ``_merged_raw`` (over ``raw_table``). ``limit`` keeps the first
+        ``limit`` live rows only: a beside-build pins the delta prefix
+        live when it started, so rows appended during it stay out of its
+        base."""
         d = self.delta
-        m = d.m
+        m = d.m if limit is None else min(limit, d.m)
         uri = None
         if t.raw_uri is not None:
             extra = d.raw_uri if d.raw_uri is not None else [""] * m
@@ -341,26 +417,30 @@ class MQRLD:
                                   np.asarray(list(extra)[:m], dtype=object)])
         return MMOTable(
             name=t.name,
-            numeric={k: np.concatenate([v, d.live_numeric(k)])
+            numeric={k: np.concatenate([v, d.live_numeric(k)[:m]])
                      for k, v in t.numeric.items()},
-            vector={k: np.concatenate([v, d.live_vector(k)])
+            vector={k: np.concatenate([v, d.live_vector(k)[:m]])
                     for k, v in t.vector.items()},
             raw_uri=uri, embed_model=dict(t.embed_model), row_ids=row_ids)
 
-    def _merged_raw(self) -> MMOTable:
-        """``raw_table`` with the live delta rows appended (raw order)."""
-        return self._concat_delta(self.raw_table)
+    def _merged_raw(self, limit: Optional[int] = None) -> MMOTable:
+        """``raw_table`` with the (first ``limit``) live delta rows
+        appended (raw order)."""
+        return self._concat_delta(self.raw_table, limit=limit)
 
-    def _delta_feats(self) -> np.ndarray:
-        """The live delta rows through the FROZEN feature representation:
-        the transform applied, no re-fit, and no LPGF (a build-time
-        movement that shapes layout quality, never exactness), in the
-        column order ``prepare()`` used (``self.layout``)."""
+    def _delta_feats(self, m0: Optional[int] = None) -> np.ndarray:
+        """The first ``m0`` live delta rows (all by default) through the
+        FROZEN feature representation: the transform applied, no re-fit,
+        and no LPGF (a build-time movement that shapes layout quality,
+        never exactness), in the column order ``prepare()`` used
+        (``self.layout``): the features a fold splices into the
+        tree."""
         d = self.delta
+        m0 = d.m if m0 is None else min(m0, d.m)
         parts = []
         for c in self.layout:
-            a = (d.live_vector(c) if c in d.vector_dims
-                 else d.live_numeric(c)[:, None])
+            a = (d.live_vector(c)[:m0] if c in d.vector_dims
+                 else d.live_numeric(c)[:m0, None])
             parts.append(a.astype(np.float32))
         feats = np.concatenate(parts, axis=1)
         if self.transform is not None:
@@ -369,56 +449,212 @@ class MQRLD:
 
     def fold(self) -> int:
         """Merge the delta region into the learned index incrementally:
-        the rows go through the frozen feature representation
-        (``_delta_feats``), join their nearest leaf
-        (``index.fold_into_tree``: splice, key re-sort, last-mile refit,
-        radius widening) and the table is re-laid physically; leaf
-        metadata and engine tiles are rebuilt exactly from the merged
-        table. Bumps ``build_id`` (cached plans and engines invalidate)
-        and ``delta_epoch``. Returns the rows folded (0: nothing to
-        do)."""
-        from repro_torch.core.index import fold_into_tree
-        if self.delta is None or self.delta.m == 0:
+        ``build_fold_generation`` installed in place. The rows go through
+        the frozen feature representation (``_delta_feats``), join their
+        nearest leaf (``index.fold_into_tree``: splice, key re-sort,
+        last-mile refit, radius widening) and the table is re-laid
+        physically; leaf metadata and engine tiles are rebuilt exactly
+        from the merged table. Bumps ``build_id`` (cached plans and
+        engines invalidate) and ``delta_epoch``. Returns the rows folded
+        (0: nothing to do)."""
+        gen = self.build_fold_generation()
+        if gen is None:
             self._fold_requested = False
             return 0
+        self._install_generation(gen)
+        self.delta = None
+        self.delta_epoch += 1
+        self._invalidate()
+        return gen.delta_consumed
+
+    # -------------------------------------------------- index generations
+    @staticmethod
+    def _engine_key(beam: int, tile: int, precision: str) -> Tuple:
+        """The cache key of ``engine()``, exposed so the re-optimization
+        warm-up can prewarm a ``Generation.engines`` entry under the key
+        ``swap()`` serves it from."""
+        return (beam, tile, precision)
+
+    def snapshot_generation(self) -> Generation:
+        """The current serving state as a ``Generation`` (references, no
+        copies: after a swap nothing mutates these objects, so keeping
+        them is enough for the in-memory rollback)."""
+        return Generation(
+            gen_id=self.generation, kind="serving",
+            raw_table=self.raw_table, table=self.table, tree=self.tree,
+            meta=self.meta, enhanced=self.enhanced,
+            transform=self.transform, layout=self.layout,
+            report=self.report, base_build_id=self.build_id,
+            params=self._transform_params, delta=self.delta)
+
+    def build_generation(self, *,
+                         theta: Optional[Sequence[float]] = None,
+                         delta_scales: Optional[Sequence[float]] = None
+                         ) -> Generation:
+        """Full rebuild BESIDE the serving state with a perturbed
+        hyperspace transform, on ``device``: the last ``prepare()``'s
+        configuration over the base plus the delta rows live now. The
+        serving state is not touched; install with ``swap()``."""
+        if self.tree is None:
+            raise RuntimeError("call prepare() first")
+        m0 = self.n_delta
+        raw = self._merged_raw(limit=m0) if m0 else self.raw_table
+        st = _build_state(raw, seed=self.seed, device=self.device,
+                          theta=theta, delta_scales=delta_scales,
+                          **self._prepare_cfg)
+        return Generation(
+            gen_id=self.generation + 1, kind="reopt", raw_table=raw,
+            table=st["table"], tree=st["tree"], meta=st["meta"],
+            enhanced=st["enhanced"], transform=st["transform"],
+            layout=st["layout"], report=st["report"], delta_consumed=m0,
+            base_build_id=self.build_id,
+            params=(None if theta is None
+                    else np.asarray(theta, np.float64),
+                    None if delta_scales is None
+                    else np.asarray(delta_scales, np.float64)))
+
+    def build_fold_generation(self) -> Optional[Generation]:
+        """``fold()`` as a beside-build: the same ``fold_into_tree`` over
+        the same frozen-representation features, on a copy of the tree,
+        so the serving state answers untouched until ``swap()``. None
+        when the delta is empty. Rows appended while it runs stay in the
+        delta; ``swap()`` carries them over."""
+        from repro_torch.core.index import fold_into_tree
+        if self.delta is None or self.delta.m == 0:
+            return None
         if self.enhanced is None or self.layout is None:
             raise RuntimeError(
-                "fold() needs the prepared state's enhanced features and "
+                "a fold needs the prepared state's enhanced features and "
                 "column layout")
-        m = self.delta.m
-        comb = self.view()           # before the raw merge: ids agree
-        self.raw_table = self._merged_raw()
-        feats = self._delta_feats()
+        m0 = self.delta.m
+        tree = _copy_tree(self.tree)
+        feats = self._delta_feats(m0)
         perm, bucket_id, bucket_starts = fold_into_tree(
-            self.tree, self.enhanced, feats, device=self.device)
-        self.table = comb.apply_permutation(perm, bucket_id, bucket_starts)
-        self.enhanced = np.concatenate([self.enhanced, feats])[perm]
-        self._build_meta()
-        self.delta = None
+            tree, self.enhanced, feats, device=self.device)
+        row_ids = None
+        if self.table.row_ids is not None:
+            row_ids = np.concatenate([
+                self.table.row_ids,
+                self.raw_table.n_rows + np.arange(m0)]).astype(np.int64)
+        comb = self._concat_delta(self.table, row_ids=row_ids, limit=m0)
+        table = comb.apply_permutation(perm, bucket_id, bucket_starts)
+        return Generation(
+            gen_id=self.generation + 1, kind="fold",
+            raw_table=self._merged_raw(limit=m0), table=table, tree=tree,
+            meta=build_leaf_meta(tree, table),
+            enhanced=np.concatenate([self.enhanced, feats])[perm],
+            transform=self.transform, layout=self.layout,
+            report=self.report, delta_consumed=m0,
+            base_build_id=self.build_id, params=self._transform_params)
+
+    def _install_generation(self, gen: Generation):
+        """Point the serving state at ``gen``'s index and layout."""
+        self.raw_table = gen.raw_table
+        self.table = gen.table
+        self.tree = gen.tree
+        self.meta = gen.meta
+        self.enhanced = gen.enhanced
+        self.transform = gen.transform
+        self.layout = gen.layout
+        self.report = gen.report
+        if gen.params is not None:
+            self._transform_params = gen.params
+
+    def _invalidate(self):
+        """What every installed state (a build, a load, a fold, a swap, a
+        rollback) invalidates: views, oracle truths, engines, cached plans
+        through ``build_id``, and the displaced generation. A caller that
+        replaces the delta region advances ``delta_epoch`` itself."""
         self._fold_requested = False
-        self.delta_epoch += 1
         self._view_cache = None
         self._oracle_cache.clear()
-        self._engines.clear()        # device tiles are stale
-        self._quant_cache = None     # planes quantized from the old layout
-        self.build_id += 1           # cached plans invalidate
+        self._engines.clear()
+        # planes quantized from the previous layout would pass the
+        # engine's shape check at the same row count and serve stale
+        # bounds
+        self._quant_cache = None
+        self.build_id += 1
         self.generation += 1
-        return m
+        # the state a swap displaced predates this one: restoring it would
+        # drop every row merged since (the reference keeps it)
+        self._prev_gen = None
+
+    def swap(self, gen: Generation) -> int:
+        """Install a beside-built generation as the serving state in one
+        bounded step, between micro-batches.
+
+        Delta rows appended after the build started (positions >=
+        ``gen.delta_consumed``) carry over into a fresh delta region; the
+        displaced serving state is kept as ``_prev_gen`` for
+        ``rollback()``. Cached plans and engines invalidate through the
+        ``build_id`` bump; engines prewarmed into ``gen.engines`` (keyed by
+        ``_engine_key``) become the serving engines, at most
+        ``MAX_ENGINES``, so the first batch after the swap builds none.
+        ``cost_model`` stays: it describes the host, not the index.
+        Raises ``RuntimeError`` if the serving index changed since the
+        build started (a fold or another swap landed first). Returns the
+        new generation number."""
+        if gen.base_build_id != self.build_id:
+            raise RuntimeError(
+                f"stale generation: built against build_id "
+                f"{gen.base_build_id}, serving is {self.build_id}; "
+                f"rebuild against the current state")
+        prev = self.snapshot_generation()
+        tail: Optional[DeltaRegion] = None
+        carried = 0
+        if self.delta is not None and self.delta.m > gen.delta_consumed:
+            d = self.delta
+            sl = slice(gen.delta_consumed, d.m)
+            carried = d.m - gen.delta_consumed
+            tail = DeltaRegion.for_table(gen.table)
+            tail.append(
+                {k: d.live_numeric(k)[sl] for k in d.numeric_keys},
+                {k: d.live_vector(k)[sl] for k in d.vector_dims},
+                None if d.raw_uri is None else d.raw_uri[sl])
+        prev.post_swap_tail = carried
+        self._install_generation(gen)
+        self.delta = tail
+        self.delta_epoch += 1
+        self._invalidate()
+        engines = list(gen.engines.items())[-MAX_ENGINES:]
+        self._engines = dict(engines)     # prewarmed, or empty
+        gen.gen_id = self.generation
+        self._prev_gen = prev
+        return self.generation
 
     def rollback(self) -> int:
-        """Restore the previous generation from disk: the snapshot before
-        the one ``CURRENT`` names under ``snapshot_dir``
-        (``persist.rollback_platform``, grafted onto this platform).
-        Returns the new generation counter. The in-memory generations of
-        ``swap`` come with the re-optimization slice, so this is the
-        reference's rollback on a platform that never swapped."""
-        if self.snapshot_dir is not None:
-            from repro_torch.core import persist
-            persist.rollback_platform(self.snapshot_dir, into=self)
-            return self.generation
-        raise RuntimeError("no previous generation retained "
-                           "(no swap since startup, or already "
-                           "rolled back) and no snapshot_dir set")
+        """Restore the serving state before the last ``swap`` in one
+        call. The in-memory ``_prev_gen`` is preferred; without one (no
+        swap in this process, or already rolled back) and with
+        ``snapshot_dir`` set, the previous generation on disk is loaded
+        (``persist.rollback_platform``). Rows appended after the swap are
+        appended again to the restored delta region, so no write is lost.
+        Bumps ``build_id``. Returns the new generation number."""
+        prev = self._prev_gen
+        if prev is None:
+            if self.snapshot_dir is not None:
+                from repro_torch.core import persist
+                persist.rollback_platform(self.snapshot_dir, into=self)
+                return self.generation
+            raise RuntimeError("no previous generation retained "
+                               "(no swap since startup, or already "
+                               "rolled back) and no snapshot_dir set")
+        cur = self.delta                     # the post-swap delta region
+        self._install_generation(prev)
+        self.delta = prev.delta
+        # rows appended after the swap sit past the carried tail in the
+        # current delta; append them again so the rollback loses nothing
+        if cur is not None and cur.m > prev.post_swap_tail:
+            sl = slice(prev.post_swap_tail, cur.m)
+            if self.delta is None:
+                self.delta = DeltaRegion.for_table(self.table)
+            self.delta.append(
+                {k: cur.live_numeric(k)[sl] for k in cur.numeric_keys},
+                {k: cur.live_vector(k)[sl] for k in cur.vector_dims},
+                None if cur.raw_uri is None else cur.raw_uri[sl])
+        self.delta_epoch += 1
+        self._invalidate()
+        return self.generation
 
     # ------------------------------------------------------- batched engine
     def _resolve_precision(self, precision: Optional[str]) -> str:
@@ -450,7 +686,7 @@ class MQRLD:
             raise RuntimeError("call prepare() first")
         from repro_torch.core.engine import HybridEngine
         prec = self._resolve_precision(precision)
-        key = (beam, tile, prec)
+        key = self._engine_key(beam, tile, prec)
         eng = self._engines.pop(key, None)
         if eng is None:
             while len(self._engines) >= MAX_ENGINES:
@@ -694,6 +930,28 @@ class MQRLD:
                     total += st.nodes_scanned
                 return total
         return reorder_siblings(self.tree, cost_fn)
+
+    def objectives_for_morbo(self, workload: Sequence[Q.Query]):
+        """The (time, CBR, -accuracy) evaluator over ``params`` =
+        (theta, delta_scales) for the offline MORBO transform search
+        (paper Algorithm 1): each call re-prepares this platform in place
+        (transform on, LPGF off) and runs the workload on the scalar
+        path."""
+        def f(params: np.ndarray) -> np.ndarray:
+            k = len(params) // 2
+            theta, dscale = params[:k], params[k:]
+            self.prepare(use_transform=True, use_lpgf=False,
+                         theta=theta, delta_scales=dscale)
+            times, cbrs, accs = [], [], []
+            for q in workload:
+                rows, st = self.execute(q, record=False)
+                truth = self.oracle(q)
+                times.append(st.time_s)
+                cbrs.append(st.cbr)
+                accs.append(accuracy(rows, truth))
+            return np.array([np.mean(times), np.mean(cbrs),
+                             -np.mean(accs)])
+        return f
 
     # ------------------------------------------------------------- oracle
     def view(self) -> MMOTable:

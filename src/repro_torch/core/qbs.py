@@ -15,8 +15,10 @@ and reads back for deadline shedding and its adaptive window, and
 ``explain()`` reports. ``save`` / ``load`` write the reference's
 ``qbs.json`` (rows, convergence, latency and cost rings; the workload
 ring holds live query objects and is not persisted), so a table saved by
-either package loads in the other. The tuner snapshot comes with the
-re-optimization slice.
+either package loads in the other. ``snapshot()`` exports a
+point-in-time copy of the mix, the rings and a hottest-first sample of
+recent query ASTs (``QBSSnapshot``): the workload the online
+re-optimization controller (``core/reopt.py``) tunes against.
 """
 from __future__ import annotations
 
@@ -50,6 +52,25 @@ _ROWS_KEEP = 4096       # recent QBS rows kept: a long-lived process must
 #                         not grow the row log (and the O(n) scans of
 #                         extrinsic_score / objectives) without bound
 _COST_KEEP = 256        # recent (features, seconds) samples per stage kind
+
+
+@dataclass
+class QBSSnapshot:
+    """Point-in-time export of the query-aware state, what the online
+    re-optimization controller tunes against (``QBSTable.snapshot``).
+    ``workload`` samples recently executed query ASTs hottest signature
+    first (round-robin across signatures by execution count), so the
+    first K queries measure the traffic that dominates serving."""
+    ts: float
+    mix: Dict[str, int]                       # signature -> executed count
+    convergence: Dict[str, List[int]]         # archetype -> widths (copy)
+    latency: Dict[str, Dict[str, float]]      # signature -> {p50, p99, n}
+    workload: List                            # sampled Q.Query objects
+    n_rows: int = 0                           # QBS rows at snapshot time
+
+    @property
+    def total_executed(self) -> int:
+        return sum(self.mix.values())
 
 
 class QBSTable:
@@ -130,6 +151,34 @@ class QBSTable:
                 del ring[:len(ring) - _WORKLOAD_KEEP]
             self.mix[signature] = self.mix.get(signature, 0) \
                 + max(1, int(n))
+
+    def snapshot(self, max_queries: int = 32) -> QBSSnapshot:
+        """Export the query-aware state for the background tuner: the
+        workload sample interleaves signatures hottest first (cumulative
+        execution count), most recent query first within each, up to
+        ``max_queries`` ASTs. Every container is a copy, so the snapshot
+        stays consistent while serving goes on recording."""
+        with self._lock:
+            sigs = sorted(self.mix, key=lambda s: -self.mix[s])
+            rings = {s: list(reversed(self.workload.get(s, [])))
+                     for s in sigs}
+            sample: List = []
+            i = 0
+            while len(sample) < max_queries and any(rings.values()):
+                sig = sigs[i % len(sigs)]
+                if rings[sig]:
+                    sample.append(rings[sig].pop(0))
+                i += 1
+                if i > max_queries * max(1, len(sigs)):
+                    break
+            return QBSSnapshot(
+                ts=time.time(),
+                mix=dict(self.mix),
+                convergence={k: list(v)
+                             for k, v in self.convergence.items()},
+                latency={k: q for k in self.latency
+                         if (q := self.latency_quantiles(k)) is not None},
+                workload=sample, n_rows=len(self.rows))
 
     # --------------------------------------------- serving-tier feedback
     def record_latency(self, archetype: str, seconds: float, n: int = 1):

@@ -226,8 +226,7 @@ def _predicate_mask(table: MMOTable, q: Query) -> Optional[np.ndarray]:
         return (a >= q.lo) & (a <= q.hi)
     if isinstance(q, VR):
         x = table.vector[q.attr]
-        d2 = np.sum((x - q.vec()[None, :]) ** 2, axis=1)
-        return d2 <= q.radius ** 2
+        return _sq_dists(x, np.arange(n), q.vec()) <= q.radius ** 2
     if isinstance(q, VK):
         return None
     masks = [_predicate_mask(table, p) for p in q.parts]
@@ -244,6 +243,21 @@ def _predicate_mask(table: MMOTable, q: Query) -> Optional[np.ndarray]:
     return out
 
 
+def _sq_dists(x: np.ndarray, rows: np.ndarray, v: np.ndarray,
+              block: int = 2048) -> np.ndarray:
+    """``np.sum((x[rows] - v) ** 2, axis=1)`` in blocks of rows: each
+    row's sum is the same, bit for bit, and no temporary the size of the
+    table is made, so threads sharing the host's memory bus scale."""
+    out = []
+    for i in range(0, len(rows), block):
+        t = x[rows[i:i + block]] - v[None, :]
+        t **= 2
+        out.append(np.sum(t, axis=1))
+    if not out:
+        return np.zeros(0, np.result_type(x.dtype, v.dtype))
+    return np.concatenate(out)
+
+
 def _knn_rows(table: MMOTable, q: VK, candidates: np.ndarray) -> np.ndarray:
     x = table.vector[q.attr]
     if candidates.dtype == bool:
@@ -252,7 +266,7 @@ def _knn_rows(table: MMOTable, q: VK, candidates: np.ndarray) -> np.ndarray:
         cand_idx = candidates
     if len(cand_idx) == 0:
         return cand_idx
-    d2 = np.sum((x[cand_idx] - q.vec()[None, :]) ** 2, axis=1)
+    d2 = _sq_dists(x, cand_idx, q.vec())
     k = min(q.k, len(cand_idx))
     # exactly equal distances order by row id (the reference leaves them
     # in argpartition's order, which is arbitrary): every row within the

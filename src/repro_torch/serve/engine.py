@@ -23,8 +23,10 @@ table. At ``pipeline_depth`` >= 2 chunks run through
 ``serve.pipeline.ChunkPipeline``. On the card the embedder's forward runs
 on a stream of its own (``EmbeddingServer``) and the engine dispatches on
 the current stream, so a chunk's embedding does not wait for the KNN work
-enqueued before it. Not ported yet: ``attach_reopt`` (ROADMAP queue 1
-item 7) and sharded serving (item 8).
+enqueued before it. ``attach_reopt`` hands the server an online
+re-optimization controller (``core/reopt.py``), which ``poll()`` steps
+between micro-batches. Not ported yet: sharded serving (ROADMAP queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -309,9 +311,20 @@ class RetrievalServer:
     column's space. ``device_loop`` and ``precision`` pick the session.
     ``append(...)`` ingests rows between micro-batches. At
     ``pipeline_depth`` >= 2 chunks overlap in a ``ChunkPipeline`` (same
-    rows, FIFO retirement); ``drain()`` is its quiescent barrier. Not
-    ported yet: ``attach_reopt`` (ROADMAP queue 1 item 7) and ``shards``
-    (item 8)."""
+    rows, FIFO retirement); ``drain()`` is its quiescent barrier.
+
+    Online re-optimization: ``attach_reopt(controller)`` hands the server
+    a ``core.reopt.ReoptController``; ``poll()`` then drives one
+    ``controller.step()`` after each micro-batch it runs, or at an idle
+    point, and never while a chunk is in flight (in pipelined mode only
+    when the pipe is empty and no shape prewarm took the tick), so an
+    index swap lands between micro-batches: no chunk's ``PendingBatch``
+    still waits on a CUDA event over the old generation's tiles.
+    ``flush()`` never steps it. Results stay oracle-exact across a swap,
+    compared by logical row identity (``platform.view().row_ids``), since
+    a new generation re-permutes the physical layout. ``stats()["reopt"]``
+    is the controller's ``status()``. Not ported yet: ``shards`` (ROADMAP
+    queue 1 item 8)."""
 
     def __init__(self, platform, embedder: EmbeddingServer, *,
                  batch_size: int = 64, pad_token: int = 0,
@@ -356,6 +369,7 @@ class RetrievalServer:
         self._pipe = ChunkPipeline(self, self.pipeline_depth) \
             if self.pipeline_depth > 1 else None
         self._inflight_ids: set = set()      # id(_Pending) of dispatched
+        self.reopt = None                    # see attach_reopt()
         self.n_submitted = 0
         self.n_served = 0
         self.n_shed = 0
@@ -555,27 +569,38 @@ class RetrievalServer:
         """Window-respecting ``flush_one`` for open-arrival loops: runs a
         micro-batch only if one is due (a full group, a window waited out,
         or a deadline inside the window). Returns requests served (0:
-        come back at ``next_due()``). Pipelined mode dispatches every due
-        chunk a free slot takes, retires the oldest, and spends idle ticks
-        on shape prewarming."""
+        come back at ``next_due()``). With a controller attached, one
+        ``step()`` follows the micro-batch, or takes the idle point.
+        Pipelined mode dispatches every due chunk a free slot takes,
+        retires the oldest, and spends idle ticks on shape prewarming,
+        else on the controller."""
         now = self._clock()
         self._shed_expired(now)
         if self._pipe is not None:
             return self._poll_pipelined(now)
         if not self._pending or not self._due(now):
+            self._reopt_step()
             return 0
         chunk = self._next_chunk()
         self._run_chunk(chunk)
+        self._reopt_step()
         return len(chunk)
 
     def _poll_pipelined(self, now: float) -> int:
+        """One pipelined step: the controller steps only once the pipe
+        is empty (a swap must find no chunk in flight) and only on a tick
+        that no shape prewarm used."""
         pipe = self._pipe
         while (pipe.inflight < pipe.depth and self._pickable()
                and self._due(now)):
             pipe.dispatch(self._next_chunk())
         if pipe.inflight:
-            return pipe.retire()
-        pipe.prewarm_step()       # idle: warm a partial shape
+            served = pipe.retire()
+            if pipe.inflight == 0:
+                self._reopt_step()
+            return served
+        if not pipe.prewarm_step():     # idle: warm a partial shape
+            self._reopt_step()
         return 0
 
     def _window_s(self, sig: str) -> float:
@@ -630,9 +655,23 @@ class RetrievalServer:
 
     # ------------------------------------------------- re-optimization
     def attach_reopt(self, controller) -> None:
-        raise NotImplementedError(
-            "attach_reopt: the re-optimization controller comes with the "
-            "port of core/reopt.py (ROADMAP queue 1 item 7)")
+        """Attach a ``core.reopt.ReoptController``, which ``poll()`` then
+        steps. A controller built without a session takes this server's,
+        so its plan prewarming lands in the cache serving reads."""
+        if controller.session is None:
+            controller.session = self.session
+        self.reopt = controller
+
+    def _reopt_step(self) -> Optional[str]:
+        """One unit of the controller's cooperative work (None without
+        one). Called only between micro-batches and at idle points, so a
+        swap inside ``step()`` is never seen by a half-executed batch."""
+        if self.reopt is None:
+            return None
+        if self._pipe is not None and self._pipe.inflight:
+            raise RuntimeError("a re-optimization step with a chunk in "
+                               "flight")
+        return self.reopt.step()
 
     # ------------------------------------------------------ admission ctrl
     def _service_estimate(self, sig: str) -> float:
@@ -733,7 +772,8 @@ class RetrievalServer:
     def stats(self) -> dict:
         """Serving counters and per-signature end-to-end latency
         quantiles (s); service-time quantiles live in the QBS table.
-        ``reopt`` is None until re-optimization is ported."""
+        ``generation`` / ``build_id`` name the serving index; ``reopt`` is
+        the attached controller's ``status()`` (None without one)."""
         by_sig = {}
         for sig, ls in self._e2e.items():
             a = np.asarray(ls, np.float64)
@@ -747,5 +787,6 @@ class RetrievalServer:
                 "inflight_chunks": self.inflight_chunks,
                 "generation": self.platform.generation,
                 "build_id": self.platform.build_id,
-                "reopt": None,
+                "reopt": None if self.reopt is None
+                else self.reopt.status(),
                 "by_signature": by_sig}

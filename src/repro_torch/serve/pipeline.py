@@ -31,7 +31,9 @@ so each future resolves once, in its own chunk's epilogue; a chunk is
 all-or-nothing (a dispatch or epilogue failure leaves its requests
 pending and retryable and propagates; other chunks are untouched);
 ``drain()`` retires every in-flight chunk (and settles a prewarm)
-without dispatching, the quiescent boundary ``append`` needs.
+without dispatching, the quiescent boundary ``append`` and an index
+swap need (the server steps its re-optimization controller only with
+the pipe empty).
 
 Shape prewarming: the first time a signature dispatches a full chunk,
 its power-of-two partial sizes are queued; idle polls run one at a time

@@ -76,6 +76,25 @@ def test_signatures_and_bruteforce_rows_equal():
                                       TQ.execute_bruteforce(tt, tq))
 
 
+@pytest.mark.parametrize("block", [1, 7, 2048])
+def test_oracle_distances_blocked_bit_for_bit(block):
+    """The oracle's row-blocked distances are the one-pass sums bit for
+    bit, over all rows and over a subset; its rows stay the reference's
+    on a table several blocks long."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(5000, 64)) * 30 + 200).astype(np.float32)
+    v = rng.normal(size=64).astype(np.float32)
+    for rows in (np.arange(5000), np.sort(rng.choice(5000, 777, False))):
+        np.testing.assert_array_equal(
+            TQ._sq_dists(x, rows, v, block=block),
+            np.sum((x[rows] - v[None, :]) ** 2, axis=1))
+    assert TQ._sq_dists(x, rows[:0], v, block=block).shape == (0,)
+    jt, tt, vec = _table_pair(n=5000, d=64, seed=block)
+    for jq, tq in zip(_queries(JQ, vec), _queries(TQ, vec)):
+        np.testing.assert_array_equal(JQ.execute_bruteforce(jt, jq),
+                                      TQ.execute_bruteforce(tt, tq))
+
+
 def test_init_transform_matches():
     x = np.random.default_rng(2).normal(size=(500, 9)).astype(np.float32)
     x[:, 0] *= 5

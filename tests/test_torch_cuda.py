@@ -756,6 +756,140 @@ def test_small_table_prepare_goes_through_lpgf_force(cuda):
         np.testing.assert_array_equal(g, p.oracle(q))
 
 
+# ------------------------------------------------- re-optimization
+def _reopt_platform():
+    """A 5,000 x 16 platform on the card with a recorded workload."""
+    rng = np.random.default_rng(2)
+    centers = rng.normal(size=(12, 16)).astype(np.float32) * 6
+    vec = (centers[rng.integers(0, 12, 5000)]
+           + rng.normal(size=(5000, 16))).astype(np.float32)
+    price = rng.uniform(0, 100, 5000).astype(np.float32)
+    p = MQRLD(MMOTable("r").add_vector("v", vec).add_numeric("price", price),
+              seed=0)
+    p.prepare(min_leaf=32, max_leaf=256)
+    qs = [Q.VK.of("v", vec[i] + 0.01, 10) for i in range(0, 4000, 500)]
+    for q in qs:
+        p.execute(q)                         # records the workload
+    return p, qs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_swap_of_prewarmed_generation_on_card(cuda, monkeypatch, precision):
+    """A generation warmed by the controller on the card swaps in with
+    its engine: the first batch after the swap is a plan-cache hit,
+    builds no engine and quantizes nothing (``plan_tiles`` 0 times), and
+    its rows are the oracle's."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.reopt import ReoptController
+    from repro_torch.utils import quant
+    p, qs = _reopt_platform()
+    sess = p.session(precision=precision)
+    ctl = ReoptController(p, session=sess)
+    gen = p.build_generation(theta=[0.1, -0.05, 0.02, 0.0],
+                             delta_scales=[0.05, 0.0, -0.05, 0.0])
+    ctl._warm_generation(gen)
+    assert ctl.warm_errors == [] and len(gen.engines) == 1
+    p.swap(gen)
+    built, planned = [], []
+    real_init, real_plan = teng.HybridEngine.__init__, quant.plan_tiles
+    monkeypatch.setattr(teng.HybridEngine, "__init__",
+                        lambda self, *a, **kw: built.append(1)
+                        or real_init(self, *a, **kw))
+    monkeypatch.setattr(quant, "plan_tiles",
+                        lambda *a, **kw: planned.append(1)
+                        or real_plan(*a, **kw))
+    def scans():      # the int8 scan's kernel is quant_lb2
+        return quant_lb2.launches if precision == "int8" \
+            else fused_topk.topk_l2_masked_launches
+    hits = sess.cache_hits
+    before = scans()
+    got, _ = sess.plan(qs[:4]).execute()
+    assert sess.cache_hits == hits + 1
+    assert built == [] and planned == []
+    assert scans() > before
+    for q, g in zip(qs[:4], got):
+        np.testing.assert_array_equal(g, p.oracle(q))
+
+
+@pytest.mark.cuda
+def test_pipelined_server_steps_reopt_only_when_drained(cuda):
+    """At depth 2 on the card the server never steps its controller while
+    a chunk is in flight (a chunk's ``PendingBatch`` waiting on its CUDA
+    event), and ``flush()`` never steps it."""
+    from repro_torch.serve.engine import RetrievalRequest, RetrievalServer
+    p, _ = _reopt_platform()
+
+    class Stub:
+        def embed(self, tokens):
+            rows = np.asarray(tokens)[:, 0] % p.table.n_rows
+            return p.table.vector["v"][rows] + 0.01
+
+    t = [0.0]
+    srv = RetrievalServer(p, Stub(), batch_size=4, pipeline_depth=2,
+                          clock=lambda: t[0])
+
+    class Log:
+        session = None
+        seen = []
+
+        def step(self):
+            self.seen.append(srv.inflight_chunks)
+            return "idle"
+
+        def status(self):
+            return {}
+
+    srv.attach_reopt(Log())
+    futs = []
+    for i in range(24):
+        futs.append(srv.submit(RetrievalRequest(
+            tokens=np.asarray([i * 7, 1], np.int32), attr="v", k=10)))
+        t[0] += 0.001
+        srv.poll()
+    n = len(Log.seen)
+    srv.flush()
+    assert len(Log.seen) == n
+    for _ in range(8):
+        srv.poll()
+    assert Log.seen and set(Log.seen) == {0}
+    for f in futs:
+        r = f.result()
+        np.testing.assert_array_equal(r.rows, p.oracle(r.query))
+
+
+@pytest.mark.cuda
+def test_failed_warm_up_is_kept_and_the_swap_lands(cuda, monkeypatch):
+    """A warm-up launch made to fail fills ``warm_errors`` instead of
+    raising; the swap still lands, and the next ``engine()`` builds."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.reopt import ReoptController
+    from repro_torch.kernels import ops
+    p, qs = _reopt_platform()
+    ctl = ReoptController(p, session=p.session())
+    gen = p.build_generation(theta=[0.03, 0.0, 0.0, 0.0])
+
+    def fail(*a, **kw):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+    monkeypatch.setattr(ops, "topk_l2_masked", fail)
+    ctl._warm_generation(gen)
+    monkeypatch.undo()
+    assert ctl.warm_errors == [
+        "RuntimeError: CUDA error: unspecified launch failure"]
+    assert gen.engines == {} and ctl.status()["warm_errors"] == 1
+    p.swap(gen)
+    assert p._engines == {}
+    built = []
+    real_init = teng.HybridEngine.__init__
+    monkeypatch.setattr(teng.HybridEngine, "__init__",
+                        lambda self, *a, **kw: built.append(1)
+                        or real_init(self, *a, **kw))
+    got, _ = p.session().plan(qs).execute()
+    assert built == [1]
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(g, p.oracle(q))
+
+
 def _flash_inputs(b, s, h, hd, dtype, cuda, seed=0, strided=False):
     rng = np.random.default_rng(seed)
     shape = (b, s, 2 * h if strided else h, hd)

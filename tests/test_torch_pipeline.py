@@ -2,14 +2,10 @@
 ``tests/test_pipeline.py`` on the port's ``RetrievalServer`` and
 ``ChunkPipeline``: depth-1 parity with the serial loop, in-order future
 resolution under overlap, mid-pipeline failure isolation, the drain at
-an append, prewarm hygiene, the QBS lock, and a seeded fuzz of
-submit / poll / flush_one / append at depth 3.
-
-The reference's generation swap (``test_swap_at_drained_boundary`` and
-the fuzz's swap and rollback steps) waits for the port of index
-generations (ROADMAP queue 1 item 7): the fuzz keeps its draws and does
-nothing on them. A stub embedder (per prompt, independent of the batch)
-over a small platform on the CPU; nothing sleeps.
+an append and a generation swap, prewarm hygiene, the QBS lock, and a
+seeded fuzz of submit / poll / flush_one / append / swap + rollback at
+depth 3. A stub embedder (per prompt, independent of the batch) over a
+small platform on the CPU; nothing sleeps.
 """
 import threading
 
@@ -260,9 +256,37 @@ def test_append_drains_pipeline(platform):
             _sorted(platform.oracle(r.query)).tolist()
 
 
+def test_swap_at_drained_boundary(platform):
+    """A generation swap after drain() serves exact results before and
+    after: in-flight work resolves before the swap, later requests run
+    against the new generation (compared by the oracle, which follows
+    the layout)."""
+    p = platform
+    srv = _srv(p, pipeline_depth=2)
+    pre = [srv.submit(_req(i, k=6)) for i in range(4)]
+    assert srv.inflight_chunks == 1
+    served = srv.drain()
+    assert served == 4 and srv.inflight_chunks == 0
+    # a swap re-permutes physical rows, so rows from before it compare
+    # with the oracle only before the flip
+    for f in pre:
+        r = f.result()
+        assert _sorted(r.rows).tolist() == \
+            _sorted(p.oracle(r.query)).tolist()
+    gen = p.build_generation(theta=[0.06, -0.04])
+    p.swap(gen)
+    try:
+        post = srv.serve(_mixed_requests(8))
+        for r in post:
+            assert _sorted(r.rows).tolist() == \
+                _sorted(p.oracle(r.query)).tolist()
+    finally:
+        p.rollback()
+
+
 def test_drain_then_fold_serves_the_new_build(platform):
-    """A fold after ``drain()`` (the quiescent boundary a generation swap
-    will use) serves exact rows before and after it."""
+    """A fold after ``drain()`` (the quiescent boundary of a generation
+    swap too) serves exact rows before and after it."""
     p = platform
     srv = _srv(p, pipeline_depth=2)
     pre = [srv.submit(_req(i, k=6)) for i in range(4)]
@@ -348,13 +372,13 @@ def test_qbs_concurrent_recording():
 
 
 # ---------------------------------------------------------------------------
-# fuzz: interleaved submit/poll/append at depth 3
+# fuzz: interleaved submit/poll/append/swap at depth 3
 # ---------------------------------------------------------------------------
 def test_fuzz_interleaved_ops(platform):
-    """Seeded interleaving of submit / poll / flush_one / append (the
-    reference's swap draws are kept and do nothing). Resolved futures
-    are exact against the oracle of their own query, and every append
-    lands at a drained boundary."""
+    """Seeded interleaving of submit / poll / flush_one / append /
+    swap + rollback at depth 3. Resolved futures are exact against the
+    oracle of their own query, and every platform change lands at a
+    drained boundary."""
     p = platform
     rng = np.random.default_rng(7)
     srv = _srv(p, pipeline_depth=3)
@@ -362,6 +386,7 @@ def test_fuzz_interleaved_ops(platform):
     futs = []
     checked = set()
     i_req = 0
+    swapped = False
 
     def check_resolved():
         for j, f in enumerate(futs):
@@ -373,30 +398,42 @@ def test_fuzz_interleaved_ops(platform):
                 _sorted(p.oracle(r.query)).tolist(), j
             checked.add(j)
 
-    for step in range(120):
-        op = rng.choice(["submit", "submit", "submit", "poll",
-                         "flush_one", "append", "swap"])
-        if op == "submit":
-            kind = i_req % 3
-            futs.append(srv.submit(
-                _req(i_req, k=5) if kind == 0 else
-                _req(i_req, k=9) if kind == 1 else
-                _req(i_req, k=4, predicate=Q.NR("price", 10, 90))))
-            i_req += 1
-        elif op == "poll":
-            srv.poll()
-        elif op == "flush_one":
-            srv.flush_one()
-        elif op == "append":
-            srv.drain()
+    try:
+        for step in range(120):
+            op = rng.choice(["submit", "submit", "submit", "poll",
+                             "flush_one", "append", "swap"])
+            if op == "submit":
+                kind = i_req % 3
+                futs.append(srv.submit(
+                    _req(i_req, k=5) if kind == 0 else
+                    _req(i_req, k=9) if kind == 1 else
+                    _req(i_req, k=4, predicate=Q.NR("price", 10, 90))))
+                i_req += 1
+            elif op == "poll":
+                srv.poll()
+            elif op == "flush_one":
+                srv.flush_one()
+            elif op == "append":
+                srv.drain()
+                check_resolved()             # settle before mutating
+                row = rng.normal(size=(1, vec_d)).astype(np.float32)
+                # fold=False: an auto-fold would re-permute physical rows
+                # under results checked after it
+                srv.append(vectors={"img": row},
+                           numeric={"price": np.asarray([50.0], np.float32)},
+                           fold=False)
+                assert srv.inflight_chunks == 0
+            elif op == "swap" and not swapped:
+                srv.drain()
+                check_resolved()
+                p.swap(p.build_generation(theta=[0.05, -0.03]))
+                swapped = True
             check_resolved()
-            row = rng.normal(size=(1, vec_d)).astype(np.float32)
-            srv.append(vectors={"img": row},
-                       numeric={"price": np.asarray([50.0], np.float32)},
-                       fold=False)
-            assert srv.inflight_chunks == 0
+        srv.flush()
+        assert srv.inflight_chunks == 0
         check_resolved()
-    srv.flush()
-    assert srv.inflight_chunks == 0
-    check_resolved()
-    assert len(checked) == len(futs)
+        assert len(checked) == len(futs)
+        assert swapped
+    finally:
+        if swapped:
+            p.rollback()

@@ -258,13 +258,24 @@ def test_max_queue_validation(platform):
 
 
 def test_later_items_raise(platform):
-    """Sharded serving and the re-optimization controller are not ported
-    yet, and say so."""
+    """Sharded serving is not ported yet, and says so."""
     with pytest.raises(NotImplementedError, match="item 8"):
         RetrievalServer(platform, _StubEmbedder(platform.table), shards=2)
+
+
+def test_attach_reopt_steps_the_controller(platform):
+    """``attach_reopt`` gives a session-less controller the server's
+    session; ``poll()`` steps it and ``stats()`` reports its status."""
+    from repro_torch.core.reopt import ReoptConfig, ReoptController
     srv = RetrievalServer(platform, _StubEmbedder(platform.table))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        srv.attach_reopt(object())
+    ctl = ReoptController(platform, config=ReoptConfig(
+        min_queries=10 ** 9))
+    srv.attach_reopt(ctl)
+    assert srv.reopt is ctl and ctl.session is srv.session
+    assert srv.poll() == 0
+    st = srv.stats()["reopt"]
+    assert st["state"] == "idle" and st["swaps"] == 0
+    assert st["build_id"] == platform.build_id
 
 
 # ---------------------------------------------------------------------------
