@@ -117,14 +117,38 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    to its plain version on all 32 layers of the real prefills, batched
    against per-request generation; init, prefill and decode times, the
    peak device memory and a traced prefill (``drive_olmo_fp32_path``);
-10. ``flash_attention`` against its plain version, each kernel at its
+10. MoE serving path (k): ``ServeEngine`` in bf16 at full width on
+   phi3.5-moe-42b-a6.6b at 24 of its 32 layers (58.6 GiB of weights;
+   all 32 do not fit beside the cache) on prompts of 2048, 2048, 1000
+   and 1000 tokens, 16 new tokens each, then on arctic-480b at 2 of its
+   35 layers (51.8 GiB; 128 experts, the dense residual branch) on two
+   prompts of 1000 tokens, 8 new each: every flash launch of every real
+   prefill held to its plain version and on the wgmma kernel, the
+   prefill against the dense forward, batched against per-request
+   generation, the dropped share of (token, choice) pairs per layer, and
+   one layer's ``moe`` against the reference's one-hot formulation in
+   plain torch (``moe_onehot``) on the same input: routing identical,
+   outputs within 2^-8 of their scale; init, prefill and decode times,
+   the peak device memory and a traced prefill (``drive_moe_path``);
+11. hymba serving path (l): ``ServeEngine(hymba-1.5b)`` at full width
+   and depth in bf16 on two prompts of 1,152 tokens, 16 new tokens each:
+   the stream forward's 32 flash launches (28 windowed at 1024, 4
+   global, all on the wgmma kernel at hd 64) held to the plain version;
+   the prompt replayed through decode to fill the ring buffers (each
+   wraps); the last prompt position's logits of the stream forward
+   against the replay's and the dense windowed forward's; the replay's
+   seconds per step and a traced decode step (``drive_hymba_path``);
+12. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
-   on the same bf16 inputs) and in fp32, and at ``FLASH_CASES`` (bf16 at
-   hd 64 and 128 on both kernels), timed on the card and on the host
-   beside its plain version, ``scaled_dot_product_attention`` (with the
-   backend it took, at the first three) and its bound.
+   on the same bf16 inputs) and in fp32, at the new paths' shapes
+   (arctic's 64 padded heads, hymba's windowed and global layers: rows
+   of their own in the kernels JSON, with their path's launches), and at
+   ``FLASH_CASES`` (bf16 at hd 64 and 128 on both kernels), timed on the
+   card and on the host beside its plain version,
+   ``scaled_dot_product_attention`` (on a boolean mask where there is a
+   window; with the backend it took at the path shapes) and its bound.
 
 Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding path runs none. The
@@ -808,15 +832,26 @@ def host_ms(torch, fn, reps: int) -> float:
     return total / reps * 1e3
 
 
-def sdpa_dispatch(torch, q, k, v, causal: bool) -> str:
-    """The backend ``scaled_dot_product_attention`` took on (B, S, H, hd)
-    q, k, v: the ``aten::_scaled_dot_product_*`` operator it dispatched
-    to, read from ``torch.profiler`` over one call."""
-    from torch.profiler import ProfilerActivity, profile
+def sdpa_call(torch, q, k, v, causal: bool, window: int):
+    """``scaled_dot_product_attention`` computing the flash function on
+    (B, S, H, hd) q, k, v: ``is_causal`` without a window; with one, a
+    boolean (S, S) mask of the open pairs (``_keep``)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return lambda: sdpa(qt, kt, vt, is_causal=causal)
+    mask = _keep(torch, q.shape[1], causal, window, q.device)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def sdpa_dispatch(torch, q, k, v, causal: bool, window: int = 0) -> str:
+    """The backend ``scaled_dot_product_attention`` took on (B, S, H, hd)
+    q, k, v (``sdpa_call``): the ``aten::_scaled_dot_product_*`` operator
+    it dispatched to, read from ``torch.profiler`` over one call."""
+    from torch.profiler import ProfilerActivity, profile
+    call = sdpa_call(torch, q, k, v, causal, window)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=causal)
+        call()
         torch.cuda.synchronize()
     return ", ".join(sorted({e.key for e in prof.key_averages()
                              if e.key.startswith("aten::_scaled_dot_product")}
@@ -829,10 +864,10 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
     (``flash_check``), through ``fa.flash_attention_cuda`` (the route
     ``fa.route`` gives the inputs) or, when ``kernel`` is named, on that
     kernel (``fa._launch``, to compare the two at one shape); timed on
-    the card and on the host, beside the plain version and, where it
-    computes the same function (no window),
-    ``scaled_dot_product_attention`` (with ``sdpa_backend``, the backend
-    it took and whether TF32 was allowed)."""
+    the card and on the host, beside the plain version and
+    ``scaled_dot_product_attention`` (``sdpa_call``: with a window, on a
+    boolean mask; with ``sdpa_backend``, the backend it took and whether
+    TF32 was allowed)."""
     dt = getattr(torch, dtype)
     b, s, h, hd = shape
     q, k, v = _flash_inputs(torch, shape, dt, dev, gen, inputs)
@@ -853,12 +888,7 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
     host = host_ms(torch, call, 10)
     plain = time_ms(torch, lambda: ref.flash_attention(
         q, k, v, causal=causal, window=window), 3)
-    lib = None
-    if not window:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = time_ms(torch, lambda: torch.nn.functional.
-                      scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=causal), 10)
+    lib = time_ms(torch, sdpa_call(torch, q, k, v, causal, window), 10)
     # the pairs the mask leaves open, two products of hd each (scores and
     # weights times V), at the peak for the inputs' type; q, k, v read and
     # the output written once. The wgmma kernel does 1.5x these
@@ -878,12 +908,12 @@ def check_flash(torch, fa, ref, dev, gen, shape, dtype: str, causal: bool,
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=lib, shape=f"{shape} {dtype} {mask}, {route} kernel",
         tflops=ops / ms / 1e9, host_ms=host,
-        library=("scaled_dot_product_attention" + (
-            f"; backend {sdpa_dispatch(torch, q, k, v, causal)}, "
+        library=("scaled_dot_product_attention"
+                 + (" on a boolean mask" if window else "") + (
+            f"; backend {sdpa_dispatch(torch, q, k, v, causal, window)}, "
             f"allow_tf32 (matmul) "
             f"{torch.backends.cuda.matmul.allow_tf32}, (cudnn) "
-            f"{torch.backends.cudnn.allow_tf32}" if sdpa_backend else ""))
-        if lib is not None else "none (no window in one call)")
+            f"{torch.backends.cudnn.allow_tf32}" if sdpa_backend else "")))
 
 
 # -------------------------------------------------------------- main path
@@ -2260,8 +2290,8 @@ def held_flash(torch, fa, ref, route: str, score_err: bool):
     reordered self as much (``_vs_fp64``'s "reordered"). Yields the
     list it fills, one (shape, type, ok, max |error| against the plain
     version, entries over the type's tolerance without the scores' term,
-    routed, for fp32 with ``score_err`` ``_vs_fp64``'s errors, else None)
-    per call."""
+    routed, for fp32 with ``score_err`` ``_vs_fp64``'s errors, else None,
+    the window) per call."""
     checks, launch = [], fa.flash_attention_cuda
 
     def checked(q, k, v, *, causal=True, window=0):
@@ -2275,7 +2305,7 @@ def held_flash(torch, fa, ref, route: str, score_err: bool):
             exact = _vs_fp64(torch, ref, q, k, v, out, causal, window)
             ok = exact["kernel"][1] <= FP64_RATIO * exact["plain"][1]
         checks.append((tuple(q.shape), str(q.dtype), ok, err, over, routed,
-                       exact))
+                       exact, window))
         return out
     fa.flash_attention_cuda = checked
     try:
@@ -2423,37 +2453,19 @@ def drive_generation_path(args, dev, fa, ref):
                                            "wgmma", True)
     info.update(runs)
 
-    # check 2: prefill (flash) against the dense forward, 1000-token bucket
+    # check 2: prefill (flash) against the dense forward, 1000-token
+    # bucket; how far rounding alone moves these logits: the dense forward
+    # of the first row alone (other GEMM shapes), and with the first
+    # layer's norm scale perturbed (``_dense_logits``)
     toks = np.stack([reqs[i].prompt for i in buckets[0]])
     lp, cache = eng.model.prefill(eng.params, {"tokens": toks}, eng.max_len)
-    ld, _ = eng.model.forward(eng.params, {"tokens": toks}, mode="train",
-                              last_only=True)
-    # how far rounding alone moves these logits: the same dense forward of
-    # the first row alone (other GEMM shapes), and of both rows with the
-    # first layer's norm scale times 1 + 2^-12 (an eighth of a bf16 unit:
-    # a few of the layer's bf16 inputs move by one unit)
-    la, _ = eng.model.forward(eng.params, {"tokens": toks[:1]},
-                              mode="train", last_only=True)
-    norm1 = eng.params.blocks[0].norm1
-    norm1.mul_(1 + 2.0 ** -12)
-    try:
-        lx, _ = eng.model.forward(eng.params, {"tokens": toks},
-                                  mode="train", last_only=True)
-    finally:
-        norm1.div_(1 + 2.0 ** -12)
-    lp, ld = lp[:, -1, :vocab].float(), ld[:, -1, :vocab].float()
-    diff = float((lp - ld).abs().max())
-    top = torch.topk(ld, 2, dim=-1).values
-    margin = (top[:, 0] - top[:, 1]).tolist()
-    same = (lp.argmax(-1) == ld.argmax(-1)).tolist()
-    ok2 = all(s or m <= 4 * diff for s, m in zip(same, margin))
-    info["prefill_vs_dense"] = dict(
-        max_logit_diff=diff, top2_margin=margin, greedy_equal=same,
-        dense_alone_vs_batched_max_logit_diff=float(
-            (la[0, -1, :vocab].float() - ld[0]).abs().max()),
-        dense_perturbed_max_logit_diff=float(
-            (lx[:, -1, :vocab].float() - ld).abs().max()),
-        logit_std=float(ld.std()))
+    lp = lp[:, -1, :vocab].float()
+    ld = _dense_logits(torch, eng, toks)
+    ok2, info["prefill_vs_dense"] = _greedy_vs(
+        torch, lp, ld, _dense_logits(torch, eng, toks,
+                                     eng.params.blocks[0].norm1))
+    info["prefill_vs_dense"]["dense_alone_vs_batched_max_logit_diff"] = \
+        float((_dense_logits(torch, eng, toks[:1])[0] - ld[0]).abs().max())
 
     # where the time goes: one prefill of the 2 x 2048 bucket and four
     # decode steps on the 1000-token cache, traced
@@ -2568,6 +2580,314 @@ def drive_olmo_fp32_path(args, dev, fa, ref):
         eng.params, {"tokens": big}, eng.max_len), 1, PREFILL_CLASSES)
     del eng
     return ok, info
+
+
+# ------------------------------------------------ (k) MoE, (l) hymba
+# (config, layers kept, prompts, new tokens): phi3.5-moe at 24 of 32
+# layers (58.6 GiB of bf16 weights; all 32 would be 77.96 GiB of the
+# card's ~79.6), arctic at 2 of 35 (51.8 GiB, full width)
+MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 24, (2048, 2048, 1000, 1000), 16),
+            ("arctic-480b", 2, (1000, 1000), 8))
+# the kernels of a bf16 prefill by class, for its trace
+BF16_PREFILL_CLASSES = {"flash (wgmma)": r"flash_fwd_wgmma",
+                        "GEMM": r"gemm|Gemm|GEMM|cutlass|nvjet|xmma|matmul"}
+# tokens of each of (l)'s two prompts: the smallest multiple of the scan's
+# 128-position chunk past the 1024 window, so every ring wraps (at 2048
+# the replay alone took 36 s of the time limit)
+HYMBA_PROMPT = 1152
+
+
+def moe_onehot(torch, cfg, p, x, capacity_factor: float = 1.25):
+    """The reference's MoE layer (``repro/models/moe.py``) as it is
+    written, in plain torch: gate logits from the product in x's type,
+    then an fp32 softmax; the top k largest first, the lower expert on
+    ties (``lax.top_k``: a stable descending argsort here); renormalised;
+    each (token, choice)'s place by an exclusive cumsum of the one-hot
+    (b, s * k, e) choices, kept below ``cap``; the one-hot (b, s, e, cap)
+    dispatch and combine tensors (a slot at or past ``cap`` one-hots to
+    zeros, as ``jax.nn.one_hot`` does) and their einsums; arctic's dense
+    branch. Returns (out, topk_i, slot, keep)."""
+    from repro_torch.models.layers import mlp, silu
+    b, s, _ = x.shape
+    e, k, dt = cfg.num_experts, cfg.top_k, x.dtype
+    cap = int(max(k, capacity_factor * k * s / e))
+    probs = torch.softmax((x @ p.router.to(dt)).float(), dim=-1)
+    topk_i = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
+    topk_p = torch.gather(probs, -1, topk_i)
+    topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
+    onehot = torch.nn.functional.one_hot(topk_i, e)       # (b, s, k, e)
+    flat = onehot.reshape(b, s * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, e)
+    slot = (pos * onehot).sum(-1)
+    keep = ((pos < cap) & (onehot > 0)).sum(-1) > 0
+    at = (slot[..., None] == torch.arange(cap, device=x.device)).to(dt)
+    disp = onehot.to(dt)[..., None] * at[..., None, :] \
+        * keep[..., None, None].to(dt)                    # (b, s, k, e, cap)
+    combine = (disp * topk_p.to(dt)[..., None, None]).sum(dim=2)
+    xin = torch.einsum("bsec,bsd->ebcd", disp.sum(dim=2), x)
+    g = torch.einsum("ebcd,edf->ebcf", xin, p.w_gate.to(dt))
+    u = torch.einsum("ebcd,edf->ebcf", xin, p.w_up.to(dt))
+    xout = torch.einsum("ebcf,efd->ebcd", silu(g) * u, p.w_down.to(dt))
+    out = torch.einsum("bsec,ebcd->bsd", combine.float(),
+                       xout.float()).to(dt)
+    if cfg.dense_residual_ff:
+        out = out + mlp(p.dense, x)
+    return out, topk_i, slot, keep
+
+
+def _dense_logits(torch, eng, toks, norm=None):
+    """The dense forward's (``mode="train"``) last-position logits of the
+    prompts ``toks``; with ``norm`` (a layer's norm scale) that scale
+    times 1 + 2^-12 for the call (an eighth of a bf16 unit: a few of the
+    layer's bf16 inputs move by one unit), to show how far rounding alone
+    moves these logits."""
+    vocab = eng.cfg.vocab_size
+    if norm is not None:
+        norm.mul_(1 + 2.0 ** -12)
+    try:
+        ld, _ = eng.model.forward(eng.params, {"tokens": toks},
+                                  mode="train", last_only=True)
+    finally:
+        if norm is not None:
+            norm.div_(1 + 2.0 ** -12)
+    return ld[:, -1, :vocab].float()
+
+
+def _greedy_vs(torch, got, want, ld_perturbed=None):
+    """``got`` logits (B, V) against ``want``: the greedy token equal
+    wherever ``want``'s top-2 margin exceeds 4x the largest logit
+    difference, as path (d) holds its prefill. Returns (ok, info)."""
+    diff = float((got - want).abs().max())
+    top = torch.topk(want, 2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    ok = all(sm or m <= 4 * diff for sm, m in zip(same, margin))
+    info = dict(max_logit_diff=diff, top2_margin=margin, greedy_equal=same,
+                logit_std=float(want.std()))
+    if ld_perturbed is not None:
+        info["dense_perturbed_max_logit_diff"] = float(
+            (ld_perturbed - want).abs().max())
+    return ok, info
+
+
+def drive_moe_path(args, dev, fa, ref, name: str, layers: int, prompts,
+                   max_new: int):
+    """Path (k): ``ServeEngine(<name> at ``layers`` layers, bf16,
+    max_len=2080, batch_size=2)`` at full width, random weights from
+    ``--seed``, on one request per prompt length in ``prompts``.
+
+    ``_generation_runs`` with the wgmma kernel held on every layer of each
+    real prefill (``flash_check`` with the scores' term) and every launch
+    on the wgmma route, the timed run, and batched against per-request
+    generation; the first bucket's prefill against the dense forward
+    (``_greedy_vs``, with the dense forward's own spread under a 2^-12
+    change of the first norm scale); then one prefill of the widest
+    bucket with each layer's routing recorded (the dropped share of
+    (token, choice) pairs per layer), and its first MoE layer's input held
+    on the card:
+    ``moe`` against ``moe_onehot`` on the same input (so the same gate
+    logits), ``topk_i``, slot and keep identical and the outputs within
+    2^-8 of the output's largest magnitude; then that prefill traced.
+    Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    info = {"config": name, "layers": f"{layers} of "
+            f"{get_config(name).num_layers}",
+            "resident_gib_before": _resident_gib(torch, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=2080, batch_size=2, seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    rng = np.random.default_rng(args.seed + 13)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       max_new) for n in prompts]
+    ok13, runs, buckets = _generation_runs(torch, eng, reqs, fa, ref,
+                                           "wgmma", True)
+    info.update(runs)
+
+    toks = np.stack([reqs[i].prompt for i in buckets[0]])
+    lp, cache = eng.model.prefill(eng.params, {"tokens": toks}, eng.max_len)
+    del cache
+    ok2, info["prefill_vs_dense"] = _greedy_vs(
+        torch, lp[:, -1, :cfg.vocab_size].float(),
+        _dense_logits(torch, eng, toks),
+        _dense_logits(torch, eng, toks, eng.params.blocks[0].norm1))
+
+    # the widest bucket again: routing per layer, the first layer's input
+    big = np.stack([reqs[i].prompt for i in buckets[-1]])
+    routes, first = [], []
+    real_route, real_moe = moe_mod.route, transformer.moe
+
+    def recording_route(cfg_, p, x, capacity_factor=1.25):
+        r = real_route(cfg_, p, x, capacity_factor)
+        routes.append((r.cap, float(1 - r.keep.float().mean()),
+                       int(torch.bincount(r.topk_i.reshape(-1),
+                                          minlength=cfg_.num_experts)
+                           .max())))
+        return r
+
+    def capturing_moe(cfg_, p, x, *a, **kw):
+        if not first:
+            first.append((p, x.clone()))
+        return real_moe(cfg_, p, x, *a, **kw)
+    moe_mod.route, transformer.moe = recording_route, capturing_moe
+    try:
+        eng.model.prefill(eng.params, {"tokens": big}, eng.max_len)
+    finally:
+        moe_mod.route, transformer.moe = real_route, real_moe
+    info["routing"] = dict(
+        tokens=list(big.shape), cap=routes[0][0],
+        expected_choices_per_expert=cfg.top_k * big.shape[1]
+        / cfg.num_experts,
+        dropped_share_per_layer=[r[1] for r in routes],
+        busiest_expert_choices_per_layer=[r[2] for r in routes])
+
+    p0, x0 = first[0]
+    got, _ = moe_mod.moe(cfg, p0, x0)
+    r = moe_mod.route(cfg, p0, x0)
+    want, ti, slot, keep = moe_onehot(torch, cfg, p0, x0)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    same = dict(topk_i=bool(torch.equal(r.topk_i, ti)),
+                slot=bool(torch.equal(r.slot, slot)),
+                keep=bool(torch.equal(r.keep, keep)))
+    ok4 = all(same.values()) and err <= 2.0 ** -8 * scale
+    info["moe_vs_onehot_layer0"] = dict(
+        identical=same, max_abs_err=err, scale=scale,
+        dropped=int((~keep).sum()))
+    del p0, x0, first, got, want
+
+    info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
+        eng.params, {"tokens": big}, eng.max_len), 1, BF16_PREFILL_CLASSES)
+    del eng
+    info["checks"] = dict(flash_and_batched=ok13, prefill_vs_dense=ok2,
+                          moe_vs_onehot=ok4)
+    return ok13 and ok2 and ok4, info
+
+
+def drive_hymba_path(args, dev, fa, ref):
+    """Path (l): ``ServeEngine(hymba-1.5b, max_len=HYMBA_PROMPT + 16,
+    batch_size=2)`` at full width and depth (32 layers, d_model 1600, 25
+    heads padded to 32 of hd 64, window 1024 on 28 layers, global on every
+    8th), bf16, random weights from ``--seed``, on two prompts of
+    ``HYMBA_PROMPT`` tokens and 16 new tokens each. The prefill is the
+    stream forward (the flash kernel, windowed and global) for the logits
+    plus the replay of the prompt through decode to fill the cache; past
+    1024 positions every ring buffer wraps.
+
+    Checks: every flash launch of the stream forward held to its plain
+    version (``held_flash``), all on the wgmma route, windowed and global
+    layers both launched; the last prompt position's logits from the
+    stream forward against the replay's last decode step and against the
+    dense windowed forward (``mode="train"``), the greedy token equal
+    wherever the top-2 margin exceeds 4x the largest logit difference, as
+    path (d) (``_greedy_vs``; with the dense forward's own spread under a
+    2^-12 change of the first norm scale). Prints the replay's seconds per
+    step, the decode step's time, and one traced decode step. Returns
+    (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = get_config("hymba-1.5b")
+    plen, max_new, vocab = HYMBA_PROMPT, 16, cfg.vocab_size
+    info = {"resident_gib_before": _resident_gib(torch, dev),
+            "window": cfg.window}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=plen + max_new, batch_size=2, seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    rng = np.random.default_rng(args.seed + 17)
+    reqs = [GenRequest(rng.integers(0, vocab, plen).astype(np.int32),
+                       max_new) for _ in range(2)]
+
+    model = eng.model
+    prefill, decode = model.prefill, model.decode
+    seen = {}
+
+    def timed_prefill(params, batch, max_len):
+        t0 = time.time()
+        out = prefill(params, batch, max_len)
+        _sync(torch, dev)
+        seen["stream_s"] = time.time() - t0
+        seen["stream_logits"] = out[0][:, -1, :vocab].float()
+        seen["replay_t0"] = time.time()
+        return out
+
+    def recording_decode(params, cache, tokens):
+        lg, cache = decode(params, cache, tokens)
+        if cache.length == plen:
+            _sync(torch, dev)
+            seen["replay_s"] = time.time() - seen["replay_t0"]
+            seen["replay_logits"] = lg[:, -1, :vocab].float()
+        seen["cache"], seen["cur"] = cache, tokens
+        return lg, cache
+    model.prefill, model.decode = timed_prefill, recording_decode
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with held_flash(torch, fa, ref, "wgmma", True) as checks:
+            res = eng.generate(reqs)
+    finally:
+        model.prefill, model.decode = prefill, decode
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    windows = sorted({c[7] for c in checks})
+    info.update(
+        flash_checked_launches=len(checks),
+        flash_wgmma_launches=sum(c[5] for c in checks),
+        flash_failed=sum(not c[2] for c in checks),
+        flash_max_abs_err=max((c[3] for c in checks), default=None),
+        flash_over_tol_without_score_term=sum(c[4] for c in checks),
+        flash_launches_by_window={w: sum(c[7] == w for c in checks)
+                                  for w in windows},
+        flash_shape=checks[0][:2] if checks else None,
+        stream_forward_s_with_checks=seen["stream_s"],
+        replay_s=seen["replay_s"], replay_s_per_step=seen["replay_s"] / plen,
+        decode_ms_per_token=res[0].decode_s / (max_new - 1) * 1e3,
+        tokens=[r.tokens.tolist() for r in res])
+    routed = (info["flash_wgmma_launches"] == len(checks) == cfg.num_layers
+              and windows == [0, cfg.window])
+    ok1 = routed and info["flash_failed"] == 0
+
+    # the stream forward's last position against the replay and the dense
+    # windowed forward
+    ls = seen["stream_logits"]
+    toks = np.stack([r.prompt for r in reqs])
+    ld = _dense_logits(torch, eng, toks)
+    lx = _dense_logits(torch, eng, toks, eng.params.win[0][0].norm1)
+    ok_r, replay = _greedy_vs(torch, ls, seen["replay_logits"])
+    ok_d, dense = _greedy_vs(torch, ls, ld, lx)
+    ok2 = ok_r and ok_d
+    info["stream_vs"] = dict(replay=replay, dense=dense)
+
+    # one decode step traced, re-decoding position plen on the cache
+    cache, cur = seen["cache"], seen["cur"]
+    info["decode_trace"] = _trace(torch, lambda: model.decode(
+        eng.params, dataclasses.replace(cache, length=plen), cur), 1)
+    del eng, seen, cache
+    info["checks"] = dict(flash=ok1, stream_vs_replay_and_dense=ok2)
+    return ok1 and ok2, info
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -3132,6 +3452,68 @@ def main() -> int:
                     f"checked launches, all on the SIMT kernel: "
                     f"{olmo_launches}")
 
+    # ------------------------------------------------ (k) MoE paths
+    moe_runs = {}
+    for name, layers, prompts, max_new in MOE_RUNS:
+        starts.append((f"MoE path ({name})", time.time()))
+        _reset(kmods)
+        ok, mi = drive_moe_path(args, dev, flash_attention, ref, name,
+                                layers, prompts, max_new)
+        ml = _counters(kmods)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"MoE path ({name}, {mi['layers']} layers, prompts "
+            f"{', '.join(map(str, prompts))}, max_new {max_new}): "
+            + json.dumps({k: v for k, v in mi.items()
+                          if k not in ("prefill_trace", "routing")}))
+        log(f"  routing of the {mi['routing']['tokens']} prefill: "
+            + json.dumps(mi["routing"]))
+        for b in mi["buckets"]:
+            log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
+                f"{b['prefill_s']:.3f} s, decode "
+                f"{b['decode_ms_per_token']:.2f} ms per token")
+        log("  prefill_trace (torch.profiler): "
+            + json.dumps(mi["prefill_trace"]))
+        log(f"  init {mi['init_s']:.1f} s (peak {mi['init_peak_gib']:.2f} "
+            f"GiB), peak device memory {mi['peak_gib']:.2f} GiB (weights "
+            f"{mi['weights_gib']:.2f} GiB, {mi['n_params']} parameters), "
+            f"resident before {mi['resident_gib_before']:.2f} GiB")
+        log(f"launches on the MoE path ({name}): " + json.dumps(ml))
+        if not ok:
+            return fail(f"MoE path ({name}): {mi['checks']}")
+        if ml["flash_attention_wgmma"] <= 0 or ml["flash_attention"] != 0:
+            return fail(f"the MoE path's ({name}) flash launches did not "
+                        f"all take the wgmma kernel: {ml}")
+        moe_runs[name] = (mi, ml)
+
+    # ---------------------------------------------- (l) hymba path
+    starts.append(("hymba path", time.time()))
+    _reset(kmods)
+    ok, hy = drive_hymba_path(args, dev, flash_attention, ref)
+    hy_launches = _counters(kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"hymba path (hymba-1.5b, 32 layers, 2 prompts of {HYMBA_PROMPT}, "
+        f"max_new 16): " + json.dumps(
+            {k: v for k, v in hy.items() if k != "decode_trace"},
+            default=str))
+    log(f"  init {hy['init_s']:.1f} s, stream forward (with the flash "
+        f"checks) {hy['stream_forward_s_with_checks']:.2f} s, replay "
+        f"{hy['replay_s']:.1f} s ({hy['replay_s_per_step'] * 1e3:.2f} ms "
+        f"per step of 2 rows), decode {hy['decode_ms_per_token']:.2f} ms "
+        f"per token, peak device memory {hy['peak_gib']:.2f} GiB (weights "
+        f"{hy['weights_gib']:.2f} GiB), resident before "
+        f"{hy['resident_gib_before']:.2f} GiB")
+    log("  decode_trace (torch.profiler, one step): "
+        + json.dumps(hy["decode_trace"]))
+    log("launches on the hymba path: " + json.dumps(hy_launches))
+    if not ok:
+        return fail(f"hymba path: {hy['checks']}")
+    if hy_launches["flash_attention_wgmma"] != 32 or \
+            hy_launches["flash_attention"] != 0:
+        return fail(f"the hymba path's stream forward did not make 32 "
+                    f"launches, all on the wgmma kernel: {hy_launches}")
+
     starts.append(("flash_attention checks", time.time()))
     # flash_attention at each kernel's widest path launch: the two
     # kernels' rows (wgmma: llama3-8b's prefill; SIMT: olmo-1b's fp32
@@ -3147,6 +3529,15 @@ def main() -> int:
              (f32_shape, "float32", True, 0, "normal", None),
              (shape, dtype, True, 0, "normal", "simt"),
              (shape, "float32", True, 0, "normal", None)]
+    # the new paths' widest launches: arctic's 64 padded heads, hymba's
+    # windowed and global layers at hd 64
+    arctic_shape = moe_runs["arctic-480b"][0]["flash_shape"][0]
+    hymba_shape = hy["flash_shape"][0]
+    cases += [(arctic_shape, dtype, True, 0, "normal", None),
+              (hymba_shape, dtype, True, hy["window"], "normal", None),
+              (hymba_shape, dtype, True, 0, "normal", None)]
+    path_rows = {5: ("k", moe_runs["arctic-480b"][1]),
+                 6: ("l", hy_launches), 7: ("l", hy_launches)}
     for shp, dt, causal, window, inputs in FLASH_CASES:
         cases.append((shp, dt, causal, window, inputs, None))
         if flash_attention.route(getattr(torch, dt), shp[3]) == "wgmma":
@@ -3154,11 +3545,14 @@ def main() -> int:
     labels = (" on the generation path's shape",
               " on the olmo-1b fp32 path's shape",
               " on the fp32 generation path's shape",
-              " at the prefill's shape", " at the prefill's shape")
+              " at the prefill's shape", " at the prefill's shape",
+              " on the MoE path's arctic shape",
+              " on the hymba path's windowed layers",
+              " on the hymba path's global layers")
     for i, (shp, dt, causal, window, inputs, kern) in enumerate(cases):
         ok, row = check_flash(torch, flash_attention, ref, dev, gen, shp, dt,
                               causal, window, inputs, kern,
-                              sdpa_backend=i < 3)
+                              sdpa_backend=i < 3 or i in path_rows)
         torch.cuda.synchronize()
         log_kernel(row["name"] + (labels[i] if i < len(labels) else ""),
                    ok, row)
@@ -3176,6 +3570,10 @@ def main() -> int:
                         f"version at {row['shape']}")
         if i < 2:       # each kernel's row, at its own path's shape
             kernels.append(row)
+        if i in path_rows:  # the new paths' shapes, with their launches
+            row["path"] = path_rows[i][0]
+            row["launches"] = path_rows[i][1][row["name"]]
+            kernels.append(row)
         torch.cuda.empty_cache()
 
     launches = {**path_launches, "quant_lb2": mp_launches["quant_lb2"],
@@ -3183,14 +3581,16 @@ def main() -> int:
                 "flash_attention_wgmma": gen_launches["flash_attention_wgmma"],
                 "flash_attention": olmo_launches["flash_attention"]}
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        if "path" not in row:
+            row["launches"] = launches[row["name"]]
     starts.append(("end", time.time()))
     log("seconds by section: " + json.dumps(
         {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
     log(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "bound_by", "library_ms")}
+                             "bound_ms", "bound_by", "library_ms")
+         + (("path", "shape") if "path" in row else ())}
         for row in kernels]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 ``ModelConfig``, ``ShapeConfig``, the shape cells and ``reduced()`` are
 the reference's, field for field, so a config means the same model in
 both packages. The registry holds the families whose model modules are
-ported (dense and the VLM backbone, through ``models/transformer.py``);
-``get_config`` names the ROADMAP item that ports each of the others.
+ported (dense, MoE and the VLM backbone through ``models/transformer.py``,
+the hybrid through ``models/hymba.py``); ``get_config`` names the ROADMAP
+item that ports each of the others.
 ``TrainConfig`` waits for training (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -221,9 +222,6 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 # Reference architectures whose model modules are not ported yet, with the
 # ROADMAP item (queue 1) that ports them.
 PENDING: Dict[str, str] = {
-    "phi3.5-moe-42b-a6.6b": "queue 1 item 6, MoE (models/moe.py)",
-    "arctic-480b": "queue 1 item 6, MoE (models/moe.py)",
-    "hymba-1.5b": "queue 1 item 6, hymba (models/hymba.py)",
     "xlstm-1.3b": "queue 1 item 6, xlstm (models/xlstm.py)",
     "seamless-m4t-medium": "queue 1 item 6, enc-dec (models/encdec.py)",
 }
@@ -261,4 +259,5 @@ def _ensure_loaded() -> None:
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
         internvl2_1b, olmo_1b, llama3_8b, yi_9b, deepseek_7b, mqrld_paper,
+        phi35_moe_42b, arctic_480b, hymba_1_5b,
     )

@@ -1,0 +1,21 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2
+[hf:microsoft/Phi-3.5-MoE-instruct; hf].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, MoE 16e top-2.
+"""
+from repro_torch.configs.base import ModelConfig, MOE, register
+
+CONFIG = register(ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family=MOE,
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=0,               # all FFN capacity lives in the experts
+    vocab_size=32064,
+    num_experts=16,
+    top_k=2,
+    moe_ff=6400,
+    rope_theta=10_000.0,
+))

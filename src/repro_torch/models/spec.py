@@ -20,6 +20,10 @@ class ParamDef:
     logical: Tuple[Optional[str], ...]
     init: str = "normal"       # "normal" | "zeros" | "ones"
     scale: float = 1.0          # stddev multiplier for "normal"
+    # the type the reference reads the parameter in: None for the
+    # compute type (``p.astype(x.dtype)``), "float32" where it reads
+    # ``p.astype(jnp.float32)`` whatever the compute type
+    read_as: Optional[str] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
@@ -71,6 +75,15 @@ def init_params(defs, seed: int, device, dtype_of: Optional[Callable[
                                     device=device).mul_(std))
         out[path] = t
     return out
+
+
+def n_stacked(d: ParamDef) -> int:
+    """How many leading axes stack layers (``stack_defs``): 1 for a
+    transformer's blocks, 2 for hymba's windowed (groups, places)."""
+    n = 0
+    while n < len(d.logical) and d.logical[n] == "layers":
+        n += 1
+    return n
 
 
 def count_params(defs) -> int:

@@ -1,29 +1,31 @@
-"""Decoder-only transformer LM, dense and VLM-backbone (port of
+"""Decoder-only transformer LM, dense, MoE and VLM-backbone (port of
 ``repro/models/transformer.py``), with three entry points: ``forward``
 (train-style dense attention, or ``mode="stream"``), ``prefill`` (the
 prompt through ``attention_stream``, harvesting each layer's K/V into a
-decode cache) and ``decode_step`` (one token against the cache).
+decode cache) and ``decode_step`` (one token against the cache). An MoE
+block's feed-forward is ``models/moe.py``'s layer, and ``forward``
+returns its aux loss summed over the layers.
 
 Parameters live in ``nn.Module``s whose names follow the reference's
 keys: ``Transformer.embed.tok``, ``.blocks[i].attn.wq``,
-``.blocks[i].mlp.w_gate``, ``.blocks[i].norm1``, ``.norm_f``. The
-reference stacks the blocks' parameters along a leading (L, ...) axis
-and scans over it; here block i holds row i of each stacked tensor (a
-view, no copy) and ``forward`` is a plain loop over the layers (remat is
-for training).
+``.blocks[i].mlp.w_gate``, ``.blocks[i].moe.dense.w_up``,
+``.blocks[i].norm1``, ``.norm_f``. The reference stacks the blocks'
+parameters along a leading (L, ...) axis and scans over it; here block i
+holds row i of each stacked tensor (a view, no copy) and ``forward`` is
+a plain loop over the layers (remat is for training).
 
-Port decision (serving types): each matrix is held in ``cfg.dtype``
-(bf16 for every registered config), cast once when the parameters are
-made or loaded; that is exactly the cast the reference makes on every use
-(``p["wq"].astype(x.dtype)``). Norm scales stay fp32, as ``rmsnorm``
-reads them. At llama3-8b's width that holds ~16 GB of weights, not the
+Port decision (serving types): each parameter is held in the type the
+reference reads it in (``serving_dtype``), cast once when the parameters
+are made or loaded: a matrix in ``cfg.dtype`` (bf16 for every registered
+config), exactly the cast the reference makes on every use
+(``p["wq"].astype(x.dtype)``), unless its def reads it in fp32
+(``ParamDef.read_as``, hymba's ``a_log``); vectors (norm scales, biases)
+in fp32. At llama3-8b's width that holds ~16 GB of weights, not the
 reference's fp32 32 GB plus per-use casts.
 
 Port decision (cache): ``decode_step`` writes the new K/V into the
 cache's tensors in place (the reference returns updated copies) and
 returns a ``KVCache`` over the same tensors with ``length + 1``.
-
-MoE blocks wait for ``models/moe.py`` (ROADMAP queue 1 item 6) and raise.
 """
 from __future__ import annotations
 
@@ -34,10 +36,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import spec as S
+from repro_torch.models.moe import moe, moe_defs
 from repro_torch.models.spec import ParamDef
-
-MOE_TODO = "MoE blocks are not ported yet: ROADMAP queue 1 item 6, MoE " \
-           "(models/moe.py)"
 
 
 # ---------------------------------------------------------------------------
@@ -49,15 +50,15 @@ def _block_defs(cfg) -> Dict[str, Any]:
     if n1 is not None:
         d["norm1"], d["norm2"] = n1, n2
     if cfg.is_moe:
-        raise NotImplementedError(MOE_TODO)
-    if cfg.d_ff:
+        d["moe"] = moe_defs(cfg)
+    elif cfg.d_ff:
         d["mlp"] = L.mlp_defs(cfg)
     return d
 
 
 def stack_defs(defs, n: int):
     return {k: (ParamDef((n,) + v.shape, ("layers",) + v.logical,
-                         init=v.init, scale=v.scale)
+                         init=v.init, scale=v.scale, read_as=v.read_as)
                 if isinstance(v, ParamDef) else stack_defs(v, n))
             for k, v in defs.items()}
 
@@ -76,9 +77,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def serving_dtype(cfg, d: ParamDef) -> torch.dtype:
-    """A matrix (rank >= 2 per layer) is held in ``cfg.dtype``, a vector
-    (a norm scale) in fp32."""
-    rank = len(d.shape) - (d.logical[0] == "layers")
+    """The type a parameter is held in: the one the reference reads it in.
+    A matrix (rank >= 2 per layer) in ``cfg.dtype``, unless its def reads
+    it in fp32; a vector (a norm scale, a bias) in fp32, which a vector
+    read in the compute type is cast to on use (the same value)."""
+    if d.read_as is not None:
+        return torch_dtype(d.read_as)
+    rank = len(d.shape) - S.n_stacked(d)
     return torch_dtype(cfg.dtype) if rank >= 2 else torch.float32
 
 
@@ -89,20 +94,34 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class _Group(nn.Module):
-    """A named group of parameters (``attn``, ``mlp``, ``embed``)."""
+class Group(nn.Module):
+    """A named group of parameters (``attn``, ``mlp``, ``embed``), its
+    nested groups (``moe.dense``) as submodules."""
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+    def __init__(self, tensors: Dict[str, Any]):
         super().__init__()
         for name, t in tensors.items():
-            setattr(self, name, _param(t))
+            setattr(self, name, Group(t) if isinstance(t, dict)
+                    else _param(t))
+
+
+def layer_tree(flat: Dict[str, torch.Tensor], prefix: str, index
+               ) -> Dict[str, Any]:
+    """One layer of a stacked group: every ``prefix/...`` leaf of
+    ``flat`` at ``index`` (a view), nested by its path."""
+    tree: Dict[str, Any] = {}
+    for path, t in flat.items():
+        if path.startswith(prefix + "/"):
+            S.tree_set(tree, path[len(prefix) + 1:], t[index])
+    return tree
 
 
 class Block(nn.Module):
     def __init__(self, tensors: Dict[str, Any]):
         super().__init__()
-        self.attn = _Group(tensors["attn"])
-        self.mlp = _Group(tensors["mlp"]) if "mlp" in tensors else None
+        self.attn = Group(tensors["attn"])
+        self.mlp = Group(tensors["mlp"]) if "mlp" in tensors else None
+        self.moe = Group(tensors["moe"]) if "moe" in tensors else None
         self.norm1 = _param(tensors["norm1"]) if "norm1" in tensors else None
         self.norm2 = _param(tensors["norm2"]) if "norm2" in tensors else None
 
@@ -114,20 +133,11 @@ class Transformer(nn.Module):
         """``flat``: {reference path: tensor}, blocks stacked (L, ...)."""
         super().__init__()
         self.cfg = cfg
-        self.embed = _Group({"tok": flat["embed/tok"],
-                             "unembed": flat["embed/unembed"]})
-        blocks = []
-        for i in range(cfg.num_layers):
-            tree: Dict[str, Any] = {}
-            for path, t in flat.items():
-                if path.startswith("blocks/"):
-                    keys = path.split("/")[1:]
-                    node = tree
-                    for key in keys[:-1]:
-                        node = node.setdefault(key, {})
-                    node[keys[-1]] = t[i]
-            blocks.append(Block(tree))
-        self.blocks = nn.ModuleList(blocks)
+        self.embed = Group({"tok": flat["embed/tok"],
+                            "unembed": flat["embed/unembed"]})
+        self.blocks = nn.ModuleList(
+            Block(layer_tree(flat, "blocks", i))
+            for i in range(cfg.num_layers))
         self.norm_f = _param(flat["norm_f"]) if "norm_f" in flat else None
 
     @property
@@ -135,13 +145,13 @@ class Transformer(nn.Module):
         return self.embed.tok.device
 
 
-def port_name(path: str, layer: Optional[int] = None) -> str:
-    """The port's parameter name for a reference path (``blocks/attn/wq``
-    at layer i -> ``blocks.i.attn.wq``; ``embed/tok`` -> ``embed.tok``)."""
+def port_name(path: str, *index: int) -> str:
+    """The port's parameter name for a reference path at the stacked
+    ``index`` (``blocks/attn/wq`` at layer i -> ``blocks.i.attn.wq``;
+    hymba's ``win/attn/wq`` at group g, place w -> ``win.g.w.attn.wq``;
+    ``embed/tok`` -> ``embed.tok``)."""
     keys = path.split("/")
-    if keys[0] == "blocks":
-        keys.insert(1, str(layer))
-    return ".".join(keys)
+    return ".".join([keys[0], *map(str, index), *keys[1:]])
 
 
 # ---------------------------------------------------------------------------
@@ -172,11 +182,13 @@ def _block(cfg, bp: Block, x, positions, *, mode: str, window: int,
                                  window=window)
     x = x + L.out_proj(cfg, bp.attn, attn)
     h = L.apply_norm(cfg, bp.norm2, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.is_moe:
-        raise NotImplementedError(MOE_TODO)
-    if cfg.d_ff:
+        out, aux = moe(cfg, bp.moe, h)
+        x = x + out
+    elif cfg.d_ff:
         x = x + L.mlp(bp.mlp, h)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), new_kv
+    return x, aux, new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +274,8 @@ def prefill(cfg, params: Transformer, tokens, max_len: int, *,
         x = x + L.out_proj(cfg, bp.attn, attn)
         h2 = L.apply_norm(cfg, bp.norm2, x)
         if cfg.is_moe:
-            raise NotImplementedError(MOE_TODO)
-        if cfg.d_ff:
+            x = x + moe(cfg, bp.moe, h2)[0]
+        elif cfg.d_ff:
             x = x + L.mlp(bp.mlp, h2)
         cache.k[i, :, :s] = k.to(dtype)
         cache.v[i, :, :s] = v.to(dtype)

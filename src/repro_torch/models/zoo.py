@@ -1,20 +1,21 @@
 """Model API over the ported families (port of ``repro/models/zoo.py``).
 
-``Model = build_model(cfg, device=None)`` exposes, for the dense and
-VLM-backbone families:
+``Model = build_model(cfg, device=None)`` exposes, for the dense, MoE,
+VLM-backbone and hybrid (hymba) families:
   * ``defs``                        — ParamDef tree (single source of truth)
   * ``init(seed)``                  — random parameters on the device
   * ``n_params()``
-  * ``forward(params, batch)``      — logits (train-style dense attention)
+  * ``forward(params, batch)``      — (logits, MoE aux loss), train-style
+                                      dense attention
   * ``embedding(params, batch)``    — pooled features for the MQRLD platform
   * ``prefill(params, batch, len)`` — last-token logits + cache
   * ``decode(params, cache, tok)``  — one token
   * ``init_cache(batch, len)``
-``params`` is the ``transformer.Transformer`` module those return or
-``params_from_numpy`` loads. ``device=None`` means the CUDA card and
-raises without one. The MoE, SSM, hybrid and enc-dec families wait for
-their model modules (ROADMAP queue 1 item 6); training (``loss``) for
-queue 1 item 9.
+``params`` is the family's parameter module (``transformer.Transformer``
+or ``hymba.Hymba``) that ``init`` returns or ``params_from_numpy`` loads.
+``device=None`` means the CUDA card and raises without one. The SSM
+(xlstm) and enc-dec families wait for their model modules (ROADMAP
+queue 1 item 6); training (``loss``) for queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -26,14 +27,30 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
+from repro_torch.models import hymba, transformer
 from repro_torch.models import spec as S
-from repro_torch.models import transformer
 
 _FAMILY_TODO = {
     SSM: "xlstm (models/xlstm.py)",
-    HYBRID: "hymba (models/hymba.py)",
     AUDIO: "enc-dec (models/encdec.py)",
 }
+
+
+def _module(cfg: ModelConfig):
+    """The model module of the config's family: ``hymba`` for the hybrid,
+    ``transformer`` for dense, MoE and VLM; raises for the unported."""
+    todo = _FAMILY_TODO.get(AUDIO if cfg.is_encdec else cfg.family)
+    if todo is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) is not ported yet: ROADMAP "
+            f"queue 1 item 6, {todo}")
+    return hymba if cfg.family == HYBRID else transformer
+
+
+def _params_module(cfg: ModelConfig, flat: Dict[str, torch.Tensor]):
+    if cfg.family == HYBRID:
+        return hymba.Hymba(cfg, flat)
+    return transformer.Transformer(cfg, flat)
 
 
 def _as_tokens(x, device) -> torch.Tensor:
@@ -47,23 +64,18 @@ class Model:
     device: torch.device
 
     def __post_init__(self):
-        cfg = self.cfg
-        todo = _FAMILY_TODO.get(cfg.family)
-        if cfg.is_encdec:
-            todo = _FAMILY_TODO[AUDIO]
-        if todo is not None:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) is not ported yet: ROADMAP "
-                f"queue 1 item 6, {todo}")
-        if cfg.is_moe:
-            raise NotImplementedError(transformer.MOE_TODO)
-        self.defs = transformer.model_defs(cfg)
+        self.mod = _module(self.cfg)
+        self.defs = self.mod.model_defs(self.cfg)
 
-    def init(self, seed: int = 0) -> transformer.Transformer:
+    @property
+    def hybrid(self) -> bool:
+        return self.mod is hymba
+
+    def init(self, seed: int = 0):
         flat = S.init_params(
             self.defs, seed, self.device,
             lambda d: transformer.serving_dtype(self.cfg, d))
-        return transformer.Transformer(self.cfg, flat)
+        return _params_module(self.cfg, flat)
 
     def n_params(self) -> int:
         return S.count_params(self.defs)
@@ -79,6 +91,9 @@ class Model:
     def forward(self, params, batch, *, mode: str = "train",
                 last_only: bool = False):
         b = self._inputs(batch)
+        if self.hybrid:
+            return hymba.forward(self.cfg, params, b["tokens"], mode=mode,
+                                 last_only=last_only)
         return transformer.forward(self.cfg, params, b["tokens"],
                                    frontend_embeds=b["frontend_embeds"],
                                    mode=mode, last_only=last_only)
@@ -87,40 +102,50 @@ class Model:
     def embedding(self, params, batch) -> torch.Tensor:
         """Mean-pooled final hidden state — the platform's feature vector."""
         b = self._inputs(batch)
+        if self.hybrid:
+            return hymba.forward(self.cfg, params, b["tokens"],
+                                 return_hidden=True)
         return transformer.pooled_embedding(
             self.cfg, params, b["tokens"],
             frontend_embeds=b["frontend_embeds"])
 
     @torch.no_grad()
     def prefill(self, params, batch, max_len: int):
-        """Consume the prompt; return (last logits, cache)."""
+        """Consume the prompt; return (last logits, cache). The hybrid
+        runs a stream forward for the logits and returns an empty cache
+        (length 0), which ``ServeEngine`` fills by replaying the prompt
+        through ``decode``, as the reference's does."""
         b = self._inputs(batch)
+        if self.hybrid:
+            lg, _ = hymba.forward(self.cfg, params, b["tokens"],
+                                  mode="stream", last_only=True)
+            return lg, self.init_cache(b["tokens"].shape[0], max_len)
         return transformer.prefill(self.cfg, params, b["tokens"], max_len,
                                    frontend_embeds=b["frontend_embeds"])
 
     @torch.no_grad()
     def decode(self, params, cache, tokens):
-        return transformer.decode_step(self.cfg, params, cache,
-                                       _as_tokens(tokens, self.device))
+        return self.mod.decode_step(self.cfg, params, cache,
+                                    _as_tokens(tokens, self.device))
 
-    def init_cache(self, batch: int, max_len: int) -> transformer.KVCache:
-        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+    def init_cache(self, batch: int, max_len: int):
+        return self.mod.init_cache(self.cfg, batch, max_len, self.device)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     return Model(cfg=cfg, device=resolve_device(device))
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device=None
-                      ) -> transformer.Transformer:
+def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """Carry a parameter tree in the reference's layout (nested dicts of
-    numpy arrays, blocks stacked (L, ...), as ``Model.init`` returns it in
-    ``repro``) into the port's modules on ``device``, each tensor in its
-    serving type. Reference path ``blocks/attn/wq`` becomes
-    ``blocks.i.attn.wq`` for each layer i (``transformer.port_name``);
-    every path of ``model_defs(cfg)`` must be present, and no other."""
+    numpy arrays, blocks stacked (L, ...), hymba's ``win/*`` (G, W, ...),
+    as ``Model.init`` returns it in ``repro``) into the port's modules on
+    ``device``, each tensor in its serving type. Reference path
+    ``blocks/attn/wq`` becomes ``blocks.i.attn.wq`` for each layer i
+    (``transformer.port_name``); every path of the family's
+    ``model_defs(cfg)`` must be present, and no other."""
     dev = resolve_device(device)
-    defs = dict(S.iter_defs(transformer.model_defs(cfg)))
+    defs = dict(S.iter_defs(_module(cfg).model_defs(cfg)))
     flat = {}
     for path, d in defs.items():
         try:
@@ -137,21 +162,19 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None
     if extra:
         raise ValueError(f"{cfg.name}: paths not in the model: "
                          f"{sorted(extra)}")
-    return transformer.Transformer(cfg, flat)
+    return _params_module(cfg, flat)
 
 
-def params_to_numpy(cfg: ModelConfig, params: transformer.Transformer
-                    ) -> Dict[str, Any]:
+def params_to_numpy(cfg: ModelConfig, params) -> Dict[str, Any]:
     """The inverse of ``params_from_numpy``: the reference's tree, as
-    fp32 numpy arrays (exact for bf16 parameters), blocks stacked."""
+    fp32 numpy arrays (exact for bf16 parameters), layers stacked."""
     state = dict(params.named_parameters())
     tree: Dict[str, Any] = {}
-    for path, d in S.iter_defs(transformer.model_defs(cfg)):
-        if path.startswith("blocks/"):
-            t = torch.stack([state[transformer.port_name(path, i)]
-                             for i in range(cfg.num_layers)])
-        else:
-            t = state[transformer.port_name(path)]
+    for path, d in S.iter_defs(_module(cfg).model_defs(cfg)):
+        lead = d.shape[:S.n_stacked(d)]
+        t = torch.stack([state[transformer.port_name(path, *i)]
+                         for i in np.ndindex(*lead)]).reshape(d.shape) \
+            if lead else state[transformer.port_name(path)]
         S.tree_set(tree, path, t.detach().float().cpu().numpy())
     return tree
 

@@ -5,12 +5,21 @@ Straggler/fault posture, as in the reference: requests are grouped into
 same-length batches (no padding), decode runs a fixed number of steps
 per batch, and the engine is stateless between batches.
 
-Port decision (serving types): a model's matrices are held in
-``cfg.dtype`` (bf16), cast once when the parameters are made, which is
-exactly the cast the reference makes on every use; norm scales stay
-fp32 (``models/transformer.py``). ``device=None`` means the CUDA card
+``ServeEngine`` and ``EmbeddingServer`` take every ported family: the
+dense and VLM transformers, MoE (phi3.5-moe, arctic: a prefill's expert
+capacity counts per batch row, so the equal-length buckets route each
+row as it would route alone) and the hybrid hymba, whose prefill
+returns an empty ``HymbaCache`` that ``ServeEngine`` fills by replaying
+the prompt through decode (its ring buffers, SSM and conv states), as
+the reference's engine does.
+
+Port decision (serving types): a model's parameters are held in the
+type the reference reads them in (matrices in ``cfg.dtype``, bf16, cast
+once when the parameters are made, which is exactly the cast the
+reference makes on every use; norm scales and hymba's ``a_log`` in
+fp32; ``models/transformer.py``). ``device=None`` means the CUDA card
 and raises without one; on the card the prefill's attention is the
-hand-written flash kernel.
+hand-written flash kernel (hymba's windowed layers with their window).
 
 ``RetrievalServer`` is the retrieval half of a deployment: a dynamic
 micro-batching admission queue in front of the platform's planned path.
@@ -146,9 +155,9 @@ class ServeEngine:
         t0 = time.time()
         logits, cache = self.model.prefill(self.params, {"tokens": toks},
                                            self.max_len)
-        # the dense family's prefill fills the cache; families whose
-        # caches are filled by replaying the prompt through decode
-        # (hymba's ring buffer, enc-dec's cross cache) return length 0
+        # the transformer families' prefill fills the cache; hymba's
+        # returns one of length 0 (``HymbaCache``: ring buffers, SSM and
+        # conv states), filled by replaying the prompt through decode
         if cache.length == 0:
             for t in range(plen):
                 _, cache = self.model.decode(self.params, cache,

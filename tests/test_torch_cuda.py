@@ -31,8 +31,11 @@ reference's ``test_flash_sweep`` tolerance: summation order and the
 scale applied to q before the dot instead of to the scores after it);
 bf16 outputs within 2^-8 |b| + 2^-16 max|v| of b, the plain version's
 fp32 result on the same (widened) inputs: one rounding to bf16 plus fp32
-summation noise near zero. ``ServeEngine`` on the card at fp32 returns
-the CPU's tokens for the same weights.
+summation noise near zero; hymba's shape (bf16, hd 64, window 1024)
+among them. ``ServeEngine`` on the card at fp32 returns the CPU's tokens
+for the same weights. ``moe``'s index dispatch equals the one-hot
+formulation (``chip_smoke.moe_onehot``) on the card, routing identical
+and outputs within 2^-8 of their largest magnitude.
 """
 import numpy as np
 import pytest
@@ -1103,3 +1106,94 @@ def test_serve_engine_generates_on_card(cuda):
         solo = eng.generate([r])[0]
         np.testing.assert_array_equal(batched[i].tokens, solo.tokens)
         np.testing.assert_array_equal(batched[i].tokens, on_cpu[i].tokens)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_window_1024_at_hd_64(cuda):
+    """hymba's attention on the card: bf16 at hd 64 (the wgmma route)
+    with its 1024-position window, at 2048 positions (every query past
+    1024 loses keys to the window), and its global layers (no window), to
+    the plain version."""
+    assert flash_attention.route(torch.bfloat16, 64) == "wgmma"
+    q, k, v = _flash_inputs(2, 2048, 4, 64, torch.bfloat16, cuda, seed=3)
+    for window in (1024, 0):
+        before = flash_attention.launches_by_route["wgmma"]
+        got = flash_attention.flash_attention_cuda(q, k, v, causal=True,
+                                                   window=window)
+        assert flash_attention.launches_by_route["wgmma"] == before + 1
+        assert_flash_close(got, q, k, v, True, window)
+
+
+def _chip_smoke():
+    """The repository root's ``chip_smoke`` module (its plain-torch
+    one-hot MoE is the formulation both sides hold ``moe`` to)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "arctic-480b"])
+def test_moe_index_dispatch_matches_onehot_on_card(cuda, name):
+    """``moe``'s index dispatch (gather, batched expert products,
+    ``index_add_``) against the reference's one-hot formulation in plain
+    torch on the card, bf16, 16 experts at d_model 256: the same routing
+    (experts, slots, kept) and outputs within 2^-8 of the output's largest
+    magnitude (the expert products' GEMMs may be chosen otherwise for the
+    two layouts); repeated tokens force drops."""
+    from dataclasses import replace
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    cfg = replace(get_config(name).reduced(), d_model=256, num_experts=16,
+                  moe_ff=512, num_layers=1)
+    p = build_model(cfg, cuda).init(0).blocks[0].moe
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 300, 256)).astype(np.float32)).to(cuda).bfloat16()
+    x[:, 200:] = x[:, 199:200]        # one token 100 times: drops
+    got, _ = moe_mod.moe(cfg, p, x)
+    r = moe_mod.route(cfg, p, x)
+    want, ti, slot, keep = _chip_smoke().moe_onehot(torch, cfg, p, x)
+    assert not bool(keep.all())
+    assert torch.equal(r.topk_i, ti) and torch.equal(r.slot, slot)
+    assert torch.equal(r.keep, keep)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -8 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_hymba_graphed_decode_equals_eager_steps(cuda):
+    """hymba's decode on the card: the cache's first step captures the
+    step as a CUDA graph and every later one replays it; 40 steps (the
+    16-slot ring wraps twice) give the same logits and cache bits as the
+    same steps run eagerly on another cache, and the tokens of a batch
+    equal those of each request alone."""
+    from dataclasses import replace
+    from repro_torch.models import build_model
+    from repro_torch.models import hymba
+    cfg = get_config("hymba-1.5b").reduced()
+    m = build_model(cfg, cuda)
+    p = m.init(0)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda)
+    graphed, eager = m.init_cache(2, 48), m.init_cache(2, 48)
+    for t in range(40):
+        lg, graphed = m.decode(p, graphed, toks[:, t:t + 1])
+        want = hymba._step(cfg, p, eager, toks[:, t:t + 1],
+                           torch.tensor(t, device=cuda))
+        eager = replace(eager, length=t + 1)
+        assert torch.equal(lg, want), t
+    assert graphed.graph is not None and graphed.length == 40
+    for name in ("wk", "wv", "wpos", "gk", "gv", "w_ssm", "g_ssm"):
+        assert torch.equal(getattr(graphed, name), getattr(eager, name))
+    eng = ServeEngine(cfg, p, device=cuda, max_len=48, batch_size=2)
+    reqs = [GenRequest(toks[i].cpu().numpy().astype(np.int32), 5)
+            for i in range(2)]
+    batched = eng.generate(reqs)
+    for i, r in enumerate(reqs):
+        np.testing.assert_array_equal(batched[i].tokens,
+                                      eng.generate([r])[0].tokens)

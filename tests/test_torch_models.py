@@ -265,7 +265,7 @@ def test_device_rule_and_unported_families():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(cfg)
     assert build_model(cfg, "cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(dataclasses.replace(cfg, num_experts=4), "cpu")
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        build_model(dataclasses.replace(cfg, enc_layers=2), "cpu")
     with pytest.raises(NotImplementedError, match="xlstm"):
         build_model(dataclasses.replace(cfg, family="ssm"), "cpu")

@@ -635,6 +635,55 @@ def test_fuzz_append_serve_reopt_interleaving():
         _logical(p.view().row_ids, p.oracle(q))
 
 
+def test_exact_ties_across_a_fold_are_held_to_the_batchs_own_view():
+    """Rows at exactly equal distances (every vector four times in the
+    base, 60 more copies appended into the delta) order by physical row,
+    in the engine and in the oracle alike, and a fold re-permutes the
+    rows: served V.K results, in order, equal the oracle over the view
+    each batch ran on, before and after the fold; the oracle over the
+    folded view orders the same queries' tied rows otherwise, so a truth
+    taken at another epoch than the batch's reports false mismatches."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(5, 8)).astype(np.float32) * 6
+    base = (centers[rng.integers(0, 5, 150)]
+            + rng.normal(size=(150, 8))).astype(np.float32)
+    vec = np.repeat(base, 4, axis=0)[rng.permutation(600)]
+    p = MQRLD(MMOTable("ties").add_vector("img", vec).add_numeric(
+        "price", rng.uniform(0, 100, 600).astype(np.float32)), seed=0,
+        device="cpu")
+    p.prepare(min_leaf=8, max_leaf=64, dpc_max_clusters=5)
+    srv = RetrievalServer(p, _StubEmbedder(p.table), batch_size=4,
+                          clock=_FakeClock())
+    dup = p.table.vector["img"][rng.choice(600, 60, replace=False)]
+    srv.append(numeric={"price": rng.uniform(0, 100, 60).astype(
+        np.float32)}, vectors={"img": dup})
+
+    def serve(ids):
+        view = p.view()
+        futs = [srv.submit(_req(i, k=6)) for i in ids]
+        srv.flush()
+        return [(f.result(), view) for f in futs]
+
+    def ordered(view, rows):
+        return [int(view.row_ids[r]) for r in rows]
+
+    before = serve(range(40))
+    gen = p.generation
+    p.fold()
+    assert p.n_delta == 0 and p.generation != gen
+    after = serve(range(40))
+    folded = p.view()
+    stale = 0
+    for res, view in before + after:
+        truth = Q.execute_bruteforce(view, res.query)
+        assert ordered(view, res.rows) == ordered(view, truth)
+        stale += ordered(view, res.rows) != ordered(
+            folded, Q.execute_bruteforce(folded, res.query))
+    assert stale > 0        # only pre-fold batches, through their ties
+    assert all(ordered(v, r.rows) == ordered(folded, Q.execute_bruteforce(
+        folded, r.query)) for r, v in after)
+
+
 # ---------------------------------------------------------------------------
 # parity with the reference on carried state
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port's serving engine on the CPU: ``ServeEngine``'s batching
 contract (the port of tests/test_serve.py's mixed-length parity and
-no-phantom-rows cases, dense configs), its tokens against the
+no-phantom-rows cases, dense, MoE and hybrid configs), its tokens against the
 reference's ``ServeEngine`` on the same weights, and ``EmbeddingServer``
 against the reference's.
 
@@ -25,10 +25,14 @@ from repro_torch.serve.engine import EmbeddingServer, GenRequest, ServeEngine
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "llama3-8b"])
+@pytest.mark.parametrize("name", ["olmo-1b", "llama3-8b",
+                                  "phi3.5-moe-42b-a6.6b", "arctic-480b",
+                                  "hymba-1.5b"])
 def test_mixed_length_batch_parity(name):
     """Batched generation over mixed-length prompts is token-identical to
-    per-request generation (length-bucketed padding-free batches)."""
+    per-request generation (length-bucketed padding-free batches). MoE
+    capacity counts per batch row, so equal-length rows route as they
+    would alone; hymba's cache is filled by replaying the prompt."""
     cfg = get_config(name).reduced()
     eng = ServeEngine(cfg, device="cpu", max_len=48, batch_size=4, seed=0)
     rng = np.random.default_rng(7)
