@@ -118,9 +118,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    against per-request generation; init, prefill and decode times, the
    peak device memory and a traced prefill (``drive_olmo_fp32_path``);
 10. MoE serving path (k): ``ServeEngine`` in bf16 at full width on
-   phi3.5-moe-42b-a6.6b at 24 of its 32 layers (58.6 GiB of weights;
-   all 32 do not fit beside the cache) on prompts of 2048, 2048, 1000
-   and 1000 tokens, 16 new tokens each, then on arctic-480b at 2 of its
+   phi3.5-moe-42b-a6.6b at 16 of its 32 layers (all 32 do not fit
+   beside the cache; 24 do, cut to 16 for the time limit) on prompts of
+   2048, 2048, 1000 and 1000 tokens, 16 new tokens each, then on
+   arctic-480b at 2 of its
    35 layers (51.8 GiB; 128 experts, the dense residual branch) on two
    prompts of 1000 tokens, 8 new each: every flash launch of every real
    prefill held to its plain version and on the wgmma kernel, the
@@ -138,20 +139,42 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    wraps); the last prompt position's logits of the stream forward
    against the replay's and the dense windowed forward's; the replay's
    seconds per step and a traced decode step (``drive_hymba_path``);
-12. ``flash_attention`` against its plain version, each kernel at its
+12. xlstm serving path (m): ``ServeEngine(xlstm-1.3b)`` at full width
+   and depth in bf16 (48 blocks: 6 groups of 7 mLSTMs and 1 sLSTM) on
+   prompts of 2048, 2048, 1024 and 1024 tokens, 16 new each, its
+   prefill returning the filled recurrent state: batched against
+   per-request generation; layer 0's chunked mLSTM against its
+   recurrence and chunk 64 against 16 in fp32, beside the exact (fp64)
+   result; the prefill against the train-mode forward, a decode step
+   after it against the forward over the prompt and that token; the
+   state's bytes, the sLSTM scans' share of a prefill and a traced
+   prefill (``drive_xlstm_path``);
+13. enc-dec serving path (n): ``ServeEngine(seamless-m4t-medium)`` at
+   full width and depth in bf16 (12 + 12 layers, 4,096 frames) on
+   prompts of 768, 768, 512 and 512 tokens, 16 new each, on zero
+   frames: every stream-prefill flash launch (the decoder's
+   self-attention) held and on the wgmma kernel, batched against
+   per-request generation; then on Gaussian frames the cross cache
+   against the encoder's K/V, the stream forward's last logits against
+   the prompt's replay and the dense forward, and against the
+   zero-frame run's (the cross-attention reached); zero-frame embedding
+   rows all equal (``drive_encdec_path``);
+14. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
    on the same bf16 inputs) and in fp32, at the new paths' shapes
-   (arctic's 64 padded heads, hymba's windowed and global layers: rows
-   of their own in the kernels JSON, with their path's launches), and at
+   (arctic's 64 padded heads, hymba's windowed and global layers,
+   seamless-m4t-medium's decoder: rows of their own in the kernels
+   JSON, with their path's launches), and at
    ``FLASH_CASES`` (bf16 at hd 64 and 128 on both kernels), timed on the
    card and on the host beside its plain version,
    ``scaled_dot_product_attention`` (on a boolean mask where there is a
    window; with the backend it took at the path shapes) and its bound.
 
 Each path's kernels must have launched in that path's run (counts set to
-0 just before it, read just after); the embedding path runs none. The
+0 just before it, read just after); the embedding and xlstm paths run
+none. The
 last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -169,6 +192,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2320,17 +2344,19 @@ def _first_divergence(a, b):
     return int(d[0]) if len(d) else None
 
 
-def _generation_runs(torch, eng, reqs, fa, ref, route: str,
-                     score_err: bool):
+def _generation_runs(torch, eng, reqs, fa, ref, route, score_err: bool,
+                     alone=None):
     """Three generations of ``reqs`` on ``eng``. Run 1 holds the flash
     kernel on every layer of each real prefill to its plain version
-    (``held_flash`` on ``route``) and records every step's logits; run 2
-    is timed (host clock, each batch's prefill and decode ending in a
+    (``held_flash`` on ``route``; a model without the kernel, xlstm,
+    passes ``route=None``) and records every step's logits; run 2 is
+    timed (host clock, each batch's prefill and decode ending in a
     synchronize), with the peak device memory; then each request alone
     (check 3: the batched tokens equal them, or the step where they part
-    has a top-2 margin below twice the logit difference there). Returns
-    (ok: checks 1 and 3, every launch routed, info, the buckets in
-    generate's order)."""
+    has a top-2 margin below twice the logit difference there), or those
+    of ``alone`` (request indices) where a path's time limit asks for
+    fewer. Returns (ok: checks 1 and 3, every launch routed, info, the
+    buckets in generate's order)."""
     import numpy as np
     vocab, max_new = eng.cfg.vocab_size, reqs[0].max_new
     lens = [len(r.prompt) for r in reqs]
@@ -2340,18 +2366,22 @@ def _generation_runs(torch, eng, reqs, fa, ref, route: str,
     logits, greedy = [], eng._greedy
     eng._greedy = lambda lg: logits.append(lg.float().cpu()) or greedy(lg)
     try:
-        with held_flash(torch, fa, ref, route, score_err) as checks:
+        with (held_flash(torch, fa, ref, route, score_err) if route
+              else contextlib.nullcontext([])) as checks:
             first = eng.generate(reqs)
     finally:
         del eng._greedy     # the class's method again: no cycle holds eng
-    info["flash_checked_launches"] = len(checks)
-    info[f"flash_{route}_launches"] = sum(c[5] for c in checks)
     failed = [not c[2] for c in checks]
-    info["flash_max_abs_err"] = max(c[3] for c in checks)
-    if score_err:
-        info["flash_over_tol_without_score_term"] = sum(c[4] for c in checks)
-    info["flash_shape"] = max(checks, key=lambda c: math.prod(c[0]))[:2]
-    if all(c[6] is not None for c in checks):
+    if route:
+        info["flash_checked_launches"] = len(checks)
+        info[f"flash_{route}_launches"] = sum(c[5] for c in checks)
+        info["flash_max_abs_err"] = max(c[3] for c in checks)
+        if score_err:
+            info["flash_over_tol_without_score_term"] = sum(
+                c[4] for c in checks)
+        info["flash_shape"] = max(checks,
+                                  key=lambda c: math.prod(c[0]))[:2]
+    if checks and all(c[6] is not None for c in checks):
         ex = [c[6] for c in checks]
         worst = {n: max(e[n][0] for e in ex) for n in ex[0]}
         bound = FP64_RATIO * worst["plain"] + 2e-5
@@ -2393,6 +2423,8 @@ def _generation_runs(torch, eng, reqs, fa, ref, route: str,
     # check 3: batched against each request alone
     ok3, info["per_request"] = True, []
     for i, r in enumerate(reqs):
+        if alone is not None and i not in alone:
+            continue
         logits.clear()
         eng._greedy = lambda lg: logits.append(lg.float().cpu()) \
             or greedy(lg)
@@ -2410,8 +2442,8 @@ def _generation_runs(torch, eng, reqs, fa, ref, route: str,
             if not entry["margin"] < 2 * entry["logit_diff"]:
                 ok3 = False
         info["per_request"].append(entry)
-    routed = info[f"flash_{route}_launches"] == len(checks) == \
-        len(buckets) * eng.cfg.num_layers
+    routed = route is None or info[f"flash_{route}_launches"] == \
+        len(checks) == len(buckets) * eng.cfg.num_layers
     info["tokens_ok"] = all(r.tokens.shape == (max_new,) for r in first)
     ok = info["flash_failed"] == 0 and routed and ok3 and info["tokens_ok"]
     return ok, info, buckets
@@ -2583,10 +2615,11 @@ def drive_olmo_fp32_path(args, dev, fa, ref):
 
 
 # ------------------------------------------------ (k) MoE, (l) hymba
-# (config, layers kept, prompts, new tokens): phi3.5-moe at 24 of 32
-# layers (58.6 GiB of bf16 weights; all 32 would be 77.96 GiB of the
-# card's ~79.6), arctic at 2 of 35 (51.8 GiB, full width)
-MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 24, (2048, 2048, 1000, 1000), 16),
+# (config, layers kept, prompts, new tokens): phi3.5-moe at 16 of 32
+# layers (all 32 would be 77.96 GiB of bf16 weights of the card's ~79.6;
+# 24, 58.6 GiB, fit, cut to 16 for the time limit: PERF.md §4), arctic
+# at 2 of 35 (51.8 GiB, full width)
+MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 16, (2048, 2048, 1000, 1000), 16),
             ("arctic-480b", 2, (1000, 1000), 8))
 # the kernels of a bf16 prefill by class, for its trace
 BF16_PREFILL_CLASSES = {"flash (wgmma)": r"flash_fwd_wgmma",
@@ -2635,17 +2668,18 @@ def moe_onehot(torch, cfg, p, x, capacity_factor: float = 1.25):
     return out, topk_i, slot, keep
 
 
-def _dense_logits(torch, eng, toks, norm=None):
+def _dense_logits(torch, eng, toks, norm=None, **inputs):
     """The dense forward's (``mode="train"``) last-position logits of the
-    prompts ``toks``; with ``norm`` (a layer's norm scale) that scale
-    times 1 + 2^-12 for the call (an eighth of a bf16 unit: a few of the
-    layer's bf16 inputs move by one unit), to show how far rounding alone
-    moves these logits."""
+    prompts ``toks`` (and the model's other ``inputs``, enc-dec's
+    frames); with ``norm`` (a layer's norm scale) that scale times 1 +
+    2^-12 for the call (an eighth of a bf16 unit: a few of the layer's
+    bf16 inputs move by one unit), to show how far rounding alone moves
+    these logits."""
     vocab = eng.cfg.vocab_size
     if norm is not None:
         norm.mul_(1 + 2.0 ** -12)
     try:
-        ld, _ = eng.model.forward(eng.params, {"tokens": toks},
+        ld, _ = eng.model.forward(eng.params, {"tokens": toks, **inputs},
                                   mode="train", last_only=True)
     finally:
         if norm is not None:
@@ -2888,6 +2922,328 @@ def drive_hymba_path(args, dev, fa, ref):
     del eng, seen, cache
     info["checks"] = dict(flash=ok1, stream_vs_replay_and_dense=ok2)
     return ok1 and ok2, info
+
+
+# (m)'s and (n)'s prompts: whole 64-position mLSTM chunks for xlstm;
+# (n)'s cut from 1,024 to 768 tokens for the time limit (PERF.md §4:
+# its prefill replays the prompt one decode step a token)
+XLSTM_PROMPTS = (2048, 2048, 1024, 1024)
+ENCDEC_PROMPTS = (768, 768, 512, 512)
+# the requests each path also runs alone (batched against per-request):
+# the shorter bucket's two, for the time limit (PERF.md §4)
+ALONE = (2, 3)
+# a traced xlstm prefill's kernels by class
+XLSTM_CLASSES = {"GEMM": BF16_PREFILL_CLASSES["GEMM"],
+                 "elementwise": r"elementwise|Elementwise",
+                 "reduce / scan": r"reduce|Reduce|scan|Scan"}
+
+
+def drive_xlstm_path(args, dev):
+    """Path (m): ``ServeEngine(xlstm-1.3b, max_len=2048 + 16,
+    batch_size=2)`` at full width and depth (48 blocks: 6 groups of 7
+    mLSTMs and 1 sLSTM, d_model 2048, 4 heads of hd 512, chunk 64, vocab
+    50,304), bf16, random weights from ``--seed``, on prompts of
+    ``XLSTM_PROMPTS`` tokens, 16 new each. No TPU kernel covers xlstm:
+    its products are plain torch, the sLSTM's steps one captured CUDA
+    graph replayed (``xlstm._scan_graphed``).
+
+    Checks: ``_generation_runs`` (without a flash kernel; batched against
+    per-request generation for the ``ALONE`` requests); layer 0's
+    ``mlstm_parallel`` at chunks 64 and 16 against the ``mlstm_step``
+    recurrence at full width over 256 positions
+    (``tests/test_models.py``, ``tests/test_perf_variants.py``): in
+    fp64 the outputs and C within 1e-9 of the largest magnitude (one
+    function, three evaluation orders), and in fp32 each chunked form's
+    root mean square error against the fp64 recurrence within 1e-3 of
+    the exact outputs' (the reference's element-by-element rule, rtol =
+    atol = 1e-3, holds at its reduced width but not here, where a few
+    outputs divide by a near-zero denominator and reach ~1e4-1e5, so no
+    fp32 form, the recurrence included, meets it against the exact
+    result: the outputs over it are printed);
+    the prefill's last logits against ``forward(mode="train",
+    last_only=True)``, and one decode step after it against the forward
+    over the prompt and that token (one 2,049-position chunk: the
+    chunking is a partition of one sum), each by ``_greedy_vs`` with the
+    forward's own spread under a 2^-12 change of the first norm scale.
+    Prints the state's bytes, the sLSTM scans' share of a 2 x 2048
+    prefill (host clock, synchronized around each scan) and a traced
+    prefill of 2 x 256 by class. Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+
+    cfg = get_config("xlstm-1.3b")
+    max_new, vocab = 16, cfg.vocab_size
+    info = {"resident_gib_before": _resident_gib(torch, dev),
+            "groups": xlstm.group_shape(cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=max(XLSTM_PROMPTS) + max_new, batch_size=2,
+                      seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    st = eng.model.init_cache(2, 0)
+    info["state_mib_batch_2"] = sum(
+        getattr(st, f).numel() * 4 for f in ("mc", "mn", "mm", "sc", "sn",
+                                             "sm", "sh")) / 2 ** 20
+    del st
+    rng = np.random.default_rng(args.seed + 19)
+    reqs = [GenRequest(rng.integers(0, vocab, n).astype(np.int32), max_new)
+            for n in XLSTM_PROMPTS]
+    ok13, runs, buckets = _generation_runs(torch, eng, reqs, None, None,
+                                           None, False, ALONE)
+    info.update(runs)
+
+    # layer 0 at full width: chunked against the recurrence and chunk 64
+    # against 16, in fp64 (the same function) and in fp32 (against fp64)
+    p0 = eng.params.mlstm[0][0]
+    x = torch.randn((2, 256, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(args.seed))
+
+    def forms(x):
+        st = xlstm.mlstm_zero_state(2, cfg.num_heads, cfg.hd(), dev)
+        ys = []
+        for t in range(x.shape[1]):
+            y, st = xlstm.mlstm_step(cfg, p0, x[:, t:t + 1], st)
+            ys.append(y)
+        y64, (c64, _, _) = xlstm.mlstm_parallel(cfg, p0, x)
+        y16, (c16, _, _) = xlstm.mlstm_parallel(
+            dataclasses.replace(cfg, mlstm_chunk=16), p0, x)
+        return {"steps": (torch.cat(ys, 1), st[0]), "chunk64": (y64, c64),
+                "chunk16": (y16, c16)}
+    exact = forms(x.double())
+    y_ex, c_ex = exact["steps"]
+    top, rms = float(y_ex.abs().max()), float(y_ex.square().mean().sqrt())
+    layer = dict(exact_max=top, exact_rms=rms)
+    for name in ("chunk64", "chunk16"):
+        y, c = exact[name]
+        layer[f"fp64_{name}_vs_steps_max_rel"] = float(
+            (y - y_ex).abs().max()) / top
+        layer[f"fp64_{name}_vs_steps_c_max_rel"] = float(
+            (c - c_ex).abs().max() / c_ex.abs().max())
+    for name, (y, _) in forms(x).items():
+        err = y.double() - y_ex
+        layer[f"fp32_{name}_rms_rel"] = float(err.square().mean().sqrt()) \
+            / rms
+        layer[f"fp32_{name}_max_rel"] = float(err.abs().max()) / top
+        # the reference test's rule, element by element, against the exact
+        # result: the outputs over it
+        layer[f"fp32_{name}_over_allclose_1e-3"] = int(
+            (err.abs() > 1e-3 + 1e-3 * y_ex.abs()).sum())
+    info["layer0"] = layer
+    ok4 = all(v <= 1e-9 for k, v in layer.items() if k.startswith("fp64")) \
+        and all(layer[f"fp32_{n}_rms_rel"] <= 1e-3
+                for n in ("chunk64", "chunk16"))
+    del x, exact, y_ex, c_ex
+
+    # the prefill against the train-mode forward; one decode step after
+    # it against the forward over prompt + token
+    toks = np.stack([reqs[i].prompt for i in buckets[-1]])
+    norm = eng.params.mlstm[0][0].norm
+    lp, state = eng.model.prefill(eng.params, {"tokens": toks}, eng.max_len)
+    ok_p, info["prefill_vs_forward"] = _greedy_vs(
+        torch, lp[:, -1, :vocab].float(), _dense_logits(torch, eng, toks),
+        _dense_logits(torch, eng, toks, norm))
+    nxt = lp[:, -1, :vocab].argmax(-1)[:, None]
+    ld, state = eng.model.decode(eng.params, state, nxt)
+    longer = np.concatenate([toks, nxt.cpu().numpy()], 1)
+    one_chunk = types.SimpleNamespace(cfg=cfg, params=eng.params,
+                                      model=build_model(dataclasses.replace(
+                                          cfg, mlstm_chunk=longer.shape[1]),
+                                          eng.device))
+    ok_d, info["decode_vs_forward"] = _greedy_vs(
+        torch, ld[:, -1, :vocab].float(),
+        _dense_logits(torch, one_chunk, longer),
+        _dense_logits(torch, one_chunk, longer, norm))
+    del state, lp, ld
+
+    # the sLSTM scans' share of one prefill, then the prefill traced
+    scan, spent = xlstm.slstm_scan, []
+
+    def timed_scan(*a, **kw):
+        _sync(torch, dev)
+        t0 = time.time()
+        out = scan(*a, **kw)
+        _sync(torch, dev)
+        spent.append(time.time() - t0)
+        return out
+    xlstm.slstm_scan = timed_scan
+    try:
+        _sync(torch, dev)
+        t0 = time.time()
+        eng.model.prefill(eng.params, {"tokens": toks}, eng.max_len)
+        _sync(torch, dev)
+        wall = time.time() - t0
+    finally:
+        xlstm.slstm_scan = scan
+    info["slstm"] = dict(prefill_s_synchronized=wall,
+                         scans=len(spent), scan_s=sum(spent),
+                         share=sum(spent) / wall,
+                         ms_per_step=sum(spent) / len(spent)
+                         / toks.shape[1] * 1e3)
+    # traced on the first 256 positions: a 2,048-token prefill is ~470,000
+    # kernels, which the tracer takes most of a minute to parse
+    info["prefill_trace"] = _trace(torch, lambda: eng.model.prefill(
+        eng.params, {"tokens": toks[:, :256]}, eng.max_len), 1,
+        XLSTM_CLASSES, cpu=False)
+    del eng
+    info["checks"] = dict(batched=ok13, layer0=ok4,
+                          prefill_vs_forward=ok_p,
+                          decode_vs_forward=ok_d)
+    return ok13 and ok4 and ok_p and ok_d, info
+
+
+def drive_encdec_path(args, dev, fa, ref):
+    """Path (n): ``ServeEngine(seamless-m4t-medium, max_len=768 + 16,
+    batch_size=2)`` at full width and depth (12 encoder + 12 decoder
+    layers, d_model 1024, 16 heads of hd 64, d_ff 4096, vocab 256,206
+    padded to 256,256, 4,096 frames), bf16, random weights from
+    ``--seed``, on prompts of ``ENCDEC_PROMPTS`` tokens, 16 new each, fed
+    zero frames as the reference's engine feeds them: the prefill is the
+    stream forward (each decoder layer's self-attention through the
+    wgmma flash kernel; the encoder and the cross-attention dense), the
+    cross cache, and the prompt's replay through decode (one captured
+    CUDA graph a step).
+
+    Checks: ``_generation_runs`` (every stream-prefill flash launch held
+    to its plain version, all on the wgmma route; batched against
+    per-request generation for the ``ALONE`` requests); then ``Model``
+    directly on Gaussian frames (2, 4096, 1024) from ``--seed`` and the
+    two 768-token prompts: the cross cache against
+    ``_enc_kv(encode(frames))`` layer by layer (the same products: bit for
+    bit, else within 2^-8 of the largest); the stream forward's last logits
+    against the replay's last decode step and against the dense forward
+    (``mode="train"``) by ``_greedy_vs`` (with the dense forward's own
+    spread under a 2^-12 change of the first decoder norm scale); the
+    cross-attention reached: layer 0's cross term on the embedded prompt
+    nonzero with Gaussian frames and exactly 0 with zero frames, and the
+    last logits moved by the frames; ``EmbeddingServer``'s
+    rows on zero frames all equal (all zero: no bias anywhere, the
+    reference's behaviour). Prints the encoder's seconds at 4,096 frames,
+    the replay's ms a step, decode ms a token, a traced prefill by class
+    and a traced decode step. Returns (ok, info)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.serve.engine import (EmbeddingServer, GenRequest,
+                                          ServeEngine)
+
+    cfg = get_config("seamless-m4t-medium")
+    max_new, vocab, f = 16, cfg.vocab_size, cfg.frontend_tokens
+    info = {"resident_gib_before": _resident_gib(torch, dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ServeEngine(cfg, device=None if dev.type == "cuda" else dev,
+                      max_len=max(ENCDEC_PROMPTS) + max_new, batch_size=2,
+                      seed=args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+    info["n_params"] = eng.model.n_params()
+    info["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                              eng.params.parameters()) / 2 ** 30
+    rng = np.random.default_rng(args.seed + 23)
+    reqs = [GenRequest(rng.integers(0, vocab, n).astype(np.int32), max_new)
+            for n in ENCDEC_PROMPTS]
+    ok13, runs, buckets = _generation_runs(torch, eng, reqs, fa, ref,
+                                           "wgmma", True, ALONE)
+    info.update(runs)
+
+    # Model directly, Gaussian frames
+    model, params = eng.model, eng.params
+    toks = np.stack([reqs[i].prompt for i in buckets[-1]])
+    s = toks.shape[1]
+    frames = torch.randn((2, f, cfg.d_model), device=dev,
+                         generator=torch.Generator(dev).manual_seed(
+                             args.seed + 29)).to(torch.bfloat16)
+    _sync(torch, dev)
+    t0 = time.time()
+    enc = encdec.encode(cfg, params, frames)
+    _sync(torch, dev)
+    info["encode_s"] = time.time() - t0
+    t0 = time.time()
+    lg, cache = model.prefill(params, {"tokens": toks, "frames": frames},
+                              s + max_new)
+    _sync(torch, dev)
+    info["prefill_s_gaussian"] = time.time() - t0
+    x0 = params.embed.tok[torch.as_tensor(toks, device=dev)].to(
+        torch.bfloat16)
+
+    def cross0(c):
+        """Layer 0's cross-attention term on the embedded prompt."""
+        return (encdec._cross(cfg, params.dec[0], x0, (c.xk[0], c.xv[0]))
+                - x0).float().abs().max()
+    cross_gauss = float(cross0(cache))
+    worst, equal = 0.0, True
+    for i, bp in enumerate(params.dec):
+        ek, ev = encdec._enc_kv(cfg, bp, enc)
+        for got, want in ((cache.xk[i], ek), (cache.xv[i], ev)):
+            equal &= bool(torch.equal(got, want))
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max() / want.float().abs().max()))
+    ok_x = worst <= 2.0 ** -8
+    info["cross_cache"] = dict(bit_equal=equal, max_rel_err=worst)
+    del enc
+    t0 = time.time()
+    for t in range(s):
+        lr, cache = model.decode(params, cache, toks[:, t:t + 1])
+    _sync(torch, dev)
+    info["replay_ms_per_step"] = (time.time() - t0) / s * 1e3
+    cur = lr[:, -1, :vocab].argmax(-1)[:, None]
+    t0 = time.time()
+    for _ in range(max_new - 1):
+        ln, cache = model.decode(params, cache, cur)
+        cur = ln[:, -1, :vocab].argmax(-1)[:, None]
+    _sync(torch, dev)
+    info["decode_ms_per_token_gaussian"] = (time.time() - t0) \
+        / (max_new - 1) * 1e3
+    # one decode step traced (the graph replayed at the last position)
+    info["decode_trace"] = _trace(torch, lambda: model.decode(
+        params, dataclasses.replace(cache, length=s + max_new - 1), cur),
+        1, cpu=False)
+    del cache
+    ls = lg[:, -1, :vocab].float()
+    ok_r, replay = _greedy_vs(torch, ls, lr[:, -1, :vocab].float())
+    ok_d, dense_vs = _greedy_vs(
+        torch, ls, _dense_logits(torch, eng, toks, frames=frames),
+        _dense_logits(torch, eng, toks, params.dec[0].norm1, frames=frames))
+    zero = torch.zeros_like(frames)
+    lz, zcache = model.prefill(params, {"tokens": toks, "frames": zero},
+                               s + max_new)
+    moved = float((lz[:, -1, :vocab].float() - ls).abs().max())
+    cross_zero = float(cross0(zcache))
+    ok_z = cross_gauss > 0 and cross_zero == 0 and moved > 0
+    info["stream_vs"] = dict(replay=replay, dense=dense_vs)
+    info["cross_attention"] = dict(
+        layer0_term_max_gaussian=cross_gauss, layer0_term_max_zero=cross_zero,
+        zero_vs_gaussian_frames_max_logit_diff=moved)
+    del lz, zcache, lr, ln, x0
+
+    emb = EmbeddingServer(cfg, params, device=None if dev.type == "cuda"
+                          else dev).embed(toks[:, :128])
+    ok_e = bool((emb == emb[:1]).all())
+    info["embedding_rows"] = dict(shape=list(emb.shape), all_equal=ok_e,
+                                  max_abs=float(np.abs(emb).max()))
+    info["prefill_trace"] = _trace(torch, lambda: model.prefill(
+        params, {"tokens": toks, "frames": frames}, s + max_new), 1,
+        BF16_PREFILL_CLASSES)
+    del eng, model, params, frames, zero
+    info["checks"] = dict(flash_and_batched=ok13, cross_cache=ok_x,
+                          stream_vs_replay_and_dense=ok_r and ok_d,
+                          cross_attention_reached=ok_z,
+                          zero_frame_embeddings_equal=ok_e)
+    return all(info["checks"].values()), info
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -3514,6 +3870,71 @@ def main() -> int:
         return fail(f"the hymba path's stream forward did not make 32 "
                     f"launches, all on the wgmma kernel: {hy_launches}")
 
+    # ---------------------------------------------- (m) xlstm path
+    starts.append(("xlstm path", time.time()))
+    _reset(kmods)
+    ok, xl = drive_xlstm_path(args, dev)
+    xl_launches = _counters(kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"xlstm path (xlstm-1.3b, 48 blocks, prompts "
+        f"{', '.join(map(str, XLSTM_PROMPTS))}, max_new 16): " + json.dumps(
+            {k: v for k, v in xl.items() if k != "prefill_trace"},
+            default=str))
+    for b in xl["buckets"]:
+        log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
+            f"{b['prefill_s']:.3f} s, decode "
+            f"{b['decode_ms_per_token']:.2f} ms per token")
+    log(f"  init {xl['init_s']:.1f} s, state {xl['state_mib_batch_2']:.1f} "
+        f"MiB for 2 rows, sLSTM scans {xl['slstm']['share']:.1%} of a "
+        f"{xl['slstm']['prefill_s_synchronized']:.3f} s prefill "
+        f"({xl['slstm']['ms_per_step'] * 1e3:.1f} us a step), peak device "
+        f"memory {xl['peak_gib']:.2f} GiB (weights {xl['weights_gib']:.2f} "
+        f"GiB, {xl['n_params']} parameters), resident before "
+        f"{xl['resident_gib_before']:.2f} GiB")
+    log("  prefill_trace (torch.profiler): "
+        + json.dumps(xl["prefill_trace"]))
+    log("launches on the xlstm path (no TPU kernel covers it): "
+        + json.dumps(xl_launches))
+    if not ok:
+        return fail(f"xlstm path: {xl['checks']}")
+
+    # ---------------------------------------------- (n) enc-dec path
+    starts.append(("enc-dec path", time.time()))
+    _reset(kmods)
+    ok, ed = drive_encdec_path(args, dev, flash_attention, ref)
+    ed_launches = _counters(kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"enc-dec path (seamless-m4t-medium, 12 + 12 layers, prompts "
+        f"{', '.join(map(str, ENCDEC_PROMPTS))}, max_new 16, zero "
+        f"frames): " + json.dumps(
+            {k: v for k, v in ed.items()
+             if k not in ("prefill_trace", "decode_trace")},
+            default=str))
+    for b in ed["buckets"]:
+        log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
+            f"(stream forward, cross cache, replay) {b['prefill_s']:.3f} "
+            f"s, decode {b['decode_ms_per_token']:.2f} ms per token")
+    log(f"  init {ed['init_s']:.1f} s, encoder at 4,096 frames "
+        f"{ed['encode_s']:.3f} s, Gaussian-frame prefill (stream forward "
+        f"+ cross cache) {ed['prefill_s_gaussian']:.3f} s, replay "
+        f"{ed['replay_ms_per_step']:.2f} ms per step of 2 rows, decode "
+        f"{ed['decode_ms_per_token_gaussian']:.2f} ms per token, peak "
+        f"device memory {ed['peak_gib']:.2f} GiB (weights "
+        f"{ed['weights_gib']:.2f} GiB, {ed['n_params']} parameters)")
+    log("  prefill_trace (torch.profiler): "
+        + json.dumps(ed["prefill_trace"]))
+    log("  decode_trace (torch.profiler, one step): "
+        + json.dumps(ed["decode_trace"]))
+    log("launches on the enc-dec path: " + json.dumps(ed_launches))
+    if not ok:
+        return fail(f"enc-dec path: {ed['checks']}")
+    if ed_launches["flash_attention_wgmma"] <= 0 or \
+            ed_launches["flash_attention"] != 0:
+        return fail(f"the enc-dec path's stream forwards did not all take "
+                    f"the wgmma kernel: {ed_launches}")
+
     starts.append(("flash_attention checks", time.time()))
     # flash_attention at each kernel's widest path launch: the two
     # kernels' rows (wgmma: llama3-8b's prefill; SIMT: olmo-1b's fp32
@@ -3536,8 +3957,11 @@ def main() -> int:
     cases += [(arctic_shape, dtype, True, 0, "normal", None),
               (hymba_shape, dtype, True, hy["window"], "normal", None),
               (hymba_shape, dtype, True, 0, "normal", None)]
+    # (n)'s widest launch: seamless-m4t-medium's 16 heads of hd 64
+    cases.append((ed["flash_shape"][0], dtype, True, 0, "normal", None))
     path_rows = {5: ("k", moe_runs["arctic-480b"][1]),
-                 6: ("l", hy_launches), 7: ("l", hy_launches)}
+                 6: ("l", hy_launches), 7: ("l", hy_launches),
+                 8: ("n", ed_launches)}
     for shp, dt, causal, window, inputs in FLASH_CASES:
         cases.append((shp, dt, causal, window, inputs, None))
         if flash_attention.route(getattr(torch, dt), shp[3]) == "wgmma":
@@ -3548,7 +3972,8 @@ def main() -> int:
               " at the prefill's shape", " at the prefill's shape",
               " on the MoE path's arctic shape",
               " on the hymba path's windowed layers",
-              " on the hymba path's global layers")
+              " on the hymba path's global layers",
+              " on the enc-dec path's decoder")
     for i, (shp, dt, causal, window, inputs, kern) in enumerate(cases):
         ok, row = check_flash(torch, flash_attention, ref, dev, gen, shp, dt,
                               causal, window, inputs, kern,

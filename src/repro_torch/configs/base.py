@@ -3,10 +3,10 @@
 
 ``ModelConfig``, ``ShapeConfig``, the shape cells and ``reduced()`` are
 the reference's, field for field, so a config means the same model in
-both packages. The registry holds the families whose model modules are
-ported (dense, MoE and the VLM backbone through ``models/transformer.py``,
-the hybrid through ``models/hymba.py``); ``get_config`` names the ROADMAP
-item that ports each of the others.
+both packages. The registry holds every reference architecture: dense,
+MoE and the VLM backbone (``models/transformer.py``), the hybrid
+(``models/hymba.py``), the SSM (``models/xlstm.py``) and the
+encoder-decoder (``models/encdec.py``).
 ``TrainConfig`` waits for training (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -219,14 +219,6 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-# Reference architectures whose model modules are not ported yet, with the
-# ROADMAP item (queue 1) that ports them.
-PENDING: Dict[str, str] = {
-    "xlstm-1.3b": "queue 1 item 6, xlstm (models/xlstm.py)",
-    "seamless-m4t-medium": "queue 1 item 6, enc-dec (models/encdec.py)",
-}
-
-
 def register(cfg: ModelConfig) -> ModelConfig:
     if cfg.name in _REGISTRY:
         raise ValueError(f"duplicate arch {cfg.name}")
@@ -236,9 +228,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
-    if name in PENDING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: ROADMAP {PENDING[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -259,5 +248,6 @@ def _ensure_loaded() -> None:
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
         internvl2_1b, olmo_1b, llama3_8b, yi_9b, deepseek_7b, mqrld_paper,
-        phi35_moe_42b, arctic_480b, hymba_1_5b,
+        phi35_moe_42b, arctic_480b, hymba_1_5b, xlstm_1_3b,
+        seamless_m4t_medium,
     )

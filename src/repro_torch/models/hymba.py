@@ -46,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models import graph as G
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ParamDef
 from repro_torch.models.transformer import (Group, layer_tree, stack_defs,
@@ -158,19 +159,13 @@ def _conv(p, xs: torch.Tensor, conv_state=None):
     return L.silu(out), xp[:, -(CONV_K - 1):]
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))
-    (``F.softplus`` returns x itself above its threshold)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _ssm_coeffs(cfg, p, xc: torch.Tensor):
     """a (decay), bu (drive), each (B, S, dm, N), and C (B, S, N), fp32,
     from the conv output."""
     n, r = cfg.ssm_state, _dt_rank(cfg)
     xdb = xc @ p.x_proj.to(xc.dtype)
     dt_low, bmat, cmat = xdb[..., :r], xdb[..., r:r + n], xdb[..., r + n:]
-    dt = _softplus((dt_low @ p.dt_proj.to(xc.dtype)).float()
+    dt = L.softplus((dt_low @ p.dt_proj.to(xc.dtype)).float()
                    + p.dt_bias.float())
     a_mat = -torch.exp(p.a_log.float())              # (dm, N)
     a = torch.exp(dt[..., None] * a_mat)              # (B, S, dm, N)
@@ -312,7 +307,7 @@ class HymbaCache:
     g_conv: torch.Tensor  # (G, B, K-1, dm)
     length: int           # tokens already in the cache (a host int)
     # on the card, the decode step captured for these tensors
-    graph: Optional["_StepGraph"] = field(default=None, repr=False)
+    graph: Optional[G.StepGraph] = field(default=None, repr=False)
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> HymbaCache:
@@ -387,37 +382,6 @@ def _step(cfg, params: Hymba, cache: HymbaCache, tokens: torch.Tensor,
     return L.logits(params.embed, x)
 
 
-class _StepGraph:
-    """``_step`` on one cache's tensors and one set of parameters,
-    captured as a CUDA graph; the tokens and the position enter through
-    two tensors of its own. Built by the first step on the cache, which
-    runs eagerly on the graph's stream before the capture (the real step,
-    and the warm-up a capture needs); every later step replays it."""
-
-    def __init__(self, cfg, params: Hymba, cache: HymbaCache,
-                 tokens: torch.Tensor, idx: int):
-        dev = tokens.device
-        self.params = params
-        self.tokens = tokens.clone()
-        self.idx = torch.full((), idx, dtype=torch.int64, device=dev)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self.first = _step(cfg, params, cache, self.tokens, self.idx)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.first.record_stream(torch.cuda.current_stream(dev))
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.logits = _step(cfg, params, cache, self.tokens, self.idx)
-
-    def run(self, tokens: torch.Tensor, idx: int) -> torch.Tensor:
-        self.tokens.copy_(tokens)
-        self.idx.fill_(idx)
-        self.graph.replay()
-        return self.logits.clone()
-
-
 def decode_step(cfg, params: Hymba, cache: HymbaCache, tokens):
     """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), the
     cache with the step written in place and length + 1).
@@ -425,18 +389,13 @@ def decode_step(cfg, params: Hymba, cache: HymbaCache, tokens):
     Port decision (speed): on the card a step is a few thousand small
     kernels, so launching them one by one holds the card idle most of
     the time; the cache's first step captures them as one CUDA graph
-    (``_StepGraph``) that every later step on that cache replays. The
-    arithmetic is ``_step``'s either way, which a CPU tensor runs as
+    (``graph.StepGraph``) that every later step on that cache replays.
+    The arithmetic is ``_step``'s either way, which a CPU tensor runs as
     is."""
     idx = cache.length
     if idx >= cache.gk.shape[2]:
         raise ValueError(f"the cache is full ({idx} positions)")
-    graph = cache.graph
-    if not tokens.is_cuda:
-        logits = _step(cfg, params, cache, tokens, torch.tensor(idx))
-    elif graph is None or graph.params is not params:
-        graph = _StepGraph(cfg, params, cache, tokens, idx)
-        logits = graph.first
-    else:
-        logits = graph.run(tokens, idx)
+    logits, graph = G.decode(
+        lambda t, i: _step(cfg, params, cache, t, i), params, cache.graph,
+        tokens, idx)
     return logits, dataclasses.replace(cache, length=idx + 1, graph=graph)

@@ -103,20 +103,24 @@ def head_map(cfg, device=None) -> torch.Tensor:
 
 def expand_kv(cfg, k: torch.Tensor) -> torch.Tensor:
     """(B, S, kvp, hd) -> (B, S, hp, hd) by a static gather (a new
-    contiguous tensor)."""
+    contiguous tensor); ``k`` itself where ``head_map`` is the identity
+    (as many kv heads as q heads, each its own group), which spares a
+    decode step a copy of every cache it reads."""
+    if cfg.kvp() == cfg.hp() and cfg.num_heads < 2 * cfg.num_kv_heads:
+        return k
     return k[:, :, head_map(cfg, k.device), :]
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk"): (B, S, d) x (d, h, k) -> (B, S, h, k)."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def qkv(cfg, p, x: torch.Tensor, positions: Optional[torch.Tensor]):
-    q = _proj(x, p.wq.to(x.dtype))
-    k = _proj(x, p.wk.to(x.dtype))
-    v = _proj(x, p.wv.to(x.dtype))
+    q = proj(x, p.wq.to(x.dtype))
+    k = proj(x, p.wk.to(x.dtype))
+    v = proj(x, p.wv.to(x.dtype))
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -234,11 +238,28 @@ def mlp_defs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
     }
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA evaluates it: the logistic expanded to
+    1 / (1 + exp(-x)), every operation rounded to x's dtype (for bf16
+    that differs from ``torch.sigmoid``, which rounds once)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA evaluates it: x * logistic(x), the logistic
-    expanded to 1 / (1 + exp(-x)), every operation rounded to x's dtype
-    (for bf16 that differs from ``F.silu``, which rounds once)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    """``jax.nn.silu`` as XLA evaluates it: x * logistic(x), each
+    rounded to x's dtype (``sigmoid``)."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))
+    (``F.softplus`` returns x itself above its threshold)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,22 @@
-"""Model API over the ported families (port of ``repro/models/zoo.py``).
+"""Model API over every family (port of ``repro/models/zoo.py``).
 
 ``Model = build_model(cfg, device=None)`` exposes, for the dense, MoE,
-VLM-backbone and hybrid (hymba) families:
+VLM-backbone, hybrid (hymba), SSM (xlstm) and enc-dec families:
   * ``defs``                        — ParamDef tree (single source of truth)
   * ``init(seed)``                  — random parameters on the device
   * ``n_params()``
   * ``forward(params, batch)``      — (logits, MoE aux loss), train-style
                                       dense attention
   * ``embedding(params, batch)``    — pooled features for the MQRLD platform
-  * ``prefill(params, batch, len)`` — last-token logits + cache
+  * ``prefill(params, batch, len)`` — last-token logits + cache or state
   * ``decode(params, cache, tok)``  — one token
   * ``init_cache(batch, len)``
-``params`` is the family's parameter module (``transformer.Transformer``
-or ``hymba.Hymba``) that ``init`` returns or ``params_from_numpy`` loads.
-``device=None`` means the CUDA card and raises without one. The SSM
-(xlstm) and enc-dec families wait for their model modules (ROADMAP
-queue 1 item 6); training (``loss``) for queue 1 item 9.
+``params`` is the family's parameter module (``transformer.Transformer``,
+``hymba.Hymba``, ``xlstm.XLSTM`` or ``encdec.EncDec``) that ``init``
+returns or ``params_from_numpy`` loads. A batch holds ``tokens``, with
+``patches`` for the VLM and ``frames`` (B, frontend_tokens, d_model) for
+enc-dec. ``device=None`` means the CUDA card and raises without one.
+Training (``loss``) waits for ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -27,30 +28,29 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
-from repro_torch.models import hymba, transformer
+from repro_torch.models import encdec, hymba, transformer, xlstm
 from repro_torch.models import spec as S
 
-_FAMILY_TODO = {
-    SSM: "xlstm (models/xlstm.py)",
-    AUDIO: "enc-dec (models/encdec.py)",
+# family -> (model module, its parameter module); every other family is
+# the transformer's
+_FAMILIES = {
+    HYBRID: (hymba, hymba.Hymba),
+    SSM: (xlstm, xlstm.XLSTM),
+    AUDIO: (encdec, encdec.EncDec),
 }
 
 
+def _family(cfg: ModelConfig):
+    return _FAMILIES.get(AUDIO if cfg.is_encdec else cfg.family,
+                         (transformer, transformer.Transformer))
+
+
 def _module(cfg: ModelConfig):
-    """The model module of the config's family: ``hymba`` for the hybrid,
-    ``transformer`` for dense, MoE and VLM; raises for the unported."""
-    todo = _FAMILY_TODO.get(AUDIO if cfg.is_encdec else cfg.family)
-    if todo is not None:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: ROADMAP "
-            f"queue 1 item 6, {todo}")
-    return hymba if cfg.family == HYBRID else transformer
+    return _family(cfg)[0]
 
 
 def _params_module(cfg: ModelConfig, flat: Dict[str, torch.Tensor]):
-    if cfg.family == HYBRID:
-        return hymba.Hymba(cfg, flat)
-    return transformer.Transformer(cfg, flat)
+    return _family(cfg)[1](cfg, flat)
 
 
 def _as_tokens(x, device) -> torch.Tensor:
@@ -67,10 +67,6 @@ class Model:
         self.mod = _module(self.cfg)
         self.defs = self.mod.model_defs(self.cfg)
 
-    @property
-    def hybrid(self) -> bool:
-        return self.mod is hymba
-
     def init(self, seed: int = 0):
         flat = S.init_params(
             self.defs, seed, self.device,
@@ -81,46 +77,59 @@ class Model:
         return S.count_params(self.defs)
 
     def _inputs(self, batch) -> Dict[str, Any]:
-        patches = batch.get("patches")
-        if patches is not None:
-            patches = torch.as_tensor(patches, device=self.device)
-        return {"tokens": _as_tokens(batch["tokens"], self.device),
-                "frontend_embeds": patches}
+        """The family's inputs by its functions' names: ``tokens``, with
+        ``frontend_embeds`` (the VLM's patches) for the transformer and
+        ``frames`` for enc-dec."""
+        out = {"tokens": _as_tokens(batch["tokens"], self.device)}
+        if self.mod is transformer:
+            patches = batch.get("patches")
+            out["frontend_embeds"] = None if patches is None else \
+                torch.as_tensor(patches, device=self.device)
+        elif self.mod is encdec:
+            out["frames"] = torch.as_tensor(batch["frames"],
+                                            device=self.device)
+        return out
 
     @torch.no_grad()
     def forward(self, params, batch, *, mode: str = "train",
                 last_only: bool = False):
-        b = self._inputs(batch)
-        if self.hybrid:
-            return hymba.forward(self.cfg, params, b["tokens"], mode=mode,
-                                 last_only=last_only)
-        return transformer.forward(self.cfg, params, b["tokens"],
-                                   frontend_embeds=b["frontend_embeds"],
-                                   mode=mode, last_only=last_only)
+        return self.mod.forward(self.cfg, params, **self._inputs(batch),
+                                mode=mode, last_only=last_only)
 
     @torch.no_grad()
     def embedding(self, params, batch) -> torch.Tensor:
-        """Mean-pooled final hidden state — the platform's feature vector."""
+        """Mean-pooled final hidden state — the platform's feature vector
+        (for enc-dec, the pooled encoder states)."""
         b = self._inputs(batch)
-        if self.hybrid:
-            return hymba.forward(self.cfg, params, b["tokens"],
-                                 return_hidden=True)
-        return transformer.pooled_embedding(
-            self.cfg, params, b["tokens"],
-            frontend_embeds=b["frontend_embeds"])
+        if self.mod is transformer:
+            return transformer.pooled_embedding(self.cfg, params, **b)
+        return self.mod.forward(self.cfg, params, **b, return_hidden=True)
 
     @torch.no_grad()
     def prefill(self, params, batch, max_len: int):
-        """Consume the prompt; return (last logits, cache). The hybrid
-        runs a stream forward for the logits and returns an empty cache
-        (length 0), which ``ServeEngine`` fills by replaying the prompt
-        through ``decode``, as the reference's does."""
+        """Consume the prompt; return (last logits, cache). The
+        transformer fills a KV cache and xlstm its recurrent state
+        (length = the prompt's). hymba and enc-dec run a stream forward
+        for the logits and return a cache of length 0 (enc-dec's holding
+        its cross-attention K/V), which ``ServeEngine`` fills by
+        replaying the prompt through ``decode``, as the reference's
+        does."""
         b = self._inputs(batch)
-        if self.hybrid:
-            lg, _ = hymba.forward(self.cfg, params, b["tokens"],
-                                  mode="stream", last_only=True)
-            return lg, self.init_cache(b["tokens"].shape[0], max_len)
-        return transformer.prefill(self.cfg, params, b["tokens"], max_len,
+        tokens = b["tokens"]
+        bsz = tokens.shape[0]
+        if self.mod is xlstm:
+            return xlstm.prefill(self.cfg, params, tokens,
+                                 self.init_cache(bsz, max_len))
+        if self.mod is hymba:
+            lg, _ = hymba.forward(self.cfg, params, tokens, mode="stream",
+                                  last_only=True)
+            return lg, self.init_cache(bsz, max_len)
+        if self.mod is encdec:
+            lg, _ = encdec.forward(self.cfg, params, tokens, b["frames"],
+                                   mode="stream", last_only=True)
+            return lg, encdec.build_cross_cache(
+                self.cfg, params, b["frames"], self.init_cache(bsz, max_len))
+        return transformer.prefill(self.cfg, params, tokens, max_len,
                                    frontend_embeds=b["frontend_embeds"])
 
     @torch.no_grad()
@@ -129,6 +138,8 @@ class Model:
                                     _as_tokens(tokens, self.device))
 
     def init_cache(self, batch: int, max_len: int):
+        if self.mod is xlstm:
+            return xlstm.init_state(self.cfg, batch, self.device)
         return self.mod.init_cache(self.cfg, batch, max_len, self.device)
 
 
@@ -138,9 +149,10 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """Carry a parameter tree in the reference's layout (nested dicts of
-    numpy arrays, blocks stacked (L, ...), hymba's ``win/*`` (G, W, ...),
-    as ``Model.init`` returns it in ``repro``) into the port's modules on
-    ``device``, each tensor in its serving type. Reference path
+    numpy arrays, blocks stacked (L, ...), hymba's ``win/*`` and xlstm's
+    ``mlstm/*`` (G, W, ...), as ``Model.init`` returns it in ``repro``)
+    into the port's modules on ``device``, each tensor in its serving
+    type. Reference path
     ``blocks/attn/wq`` becomes ``blocks.i.attn.wq`` for each layer i
     (``transformer.port_name``); every path of the family's
     ``model_defs(cfg)`` must be present, and no other."""

@@ -5,13 +5,18 @@ Straggler/fault posture, as in the reference: requests are grouped into
 same-length batches (no padding), decode runs a fixed number of steps
 per batch, and the engine is stateless between batches.
 
-``ServeEngine`` and ``EmbeddingServer`` take every ported family: the
-dense and VLM transformers, MoE (phi3.5-moe, arctic: a prefill's expert
+``ServeEngine`` and ``EmbeddingServer`` take every family: the dense
+and VLM transformers, MoE (phi3.5-moe, arctic: a prefill's expert
 capacity counts per batch row, so the equal-length buckets route each
-row as it would route alone) and the hybrid hymba, whose prefill
-returns an empty ``HymbaCache`` that ``ServeEngine`` fills by replaying
-the prompt through decode (its ring buffers, SSM and conv states), as
-the reference's engine does.
+row as it would route alone), xlstm, whose prefill returns its filled
+recurrent state, and the hybrid hymba and the encoder-decoder, whose
+prefill returns an empty cache that ``ServeEngine`` fills by replaying
+the prompt through decode (hymba's ring buffers, SSM and conv states;
+enc-dec's self-attention K/V beside the cross K/V its prefill built), as
+the reference's engine does. Enc-dec is fed zero frames (B,
+frontend_tokens, d_model) in ``cfg.dtype``, as the reference feeds
+them: with no bias anywhere its encoder's output is then exactly 0, so
+its embeddings are all zero and its cross-attention adds nothing.
 
 Port decision (serving types): a model's parameters are held in the
 type the reference reads them in (matrices in ``cfg.dtype``, bf16, cast
@@ -51,6 +56,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import query as Q
 from repro_torch.models import build_model
+from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve.pipeline import ChunkPipeline
 
 # bound on RetrievalServer's signature memo: keys are predicate archetype
@@ -86,6 +92,18 @@ def _params(model, params, seed: int):
         raise ValueError(f"params are on {params.device}, the engine on "
                          f"{model.device}")
     return params
+
+
+def _batch(cfg: ModelConfig, tokens, device: torch.device) -> dict:
+    """A model batch of ``tokens``; for enc-dec with zero frames (B,
+    frontend_tokens, d_model) in ``cfg.dtype`` on ``device``, as the
+    reference's engine feeds them."""
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros(
+            (len(tokens), cfg.frontend_tokens, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=device)
+    return batch
 
 
 class ServeEngine:
@@ -153,11 +171,11 @@ class ServeEngine:
         max_new = max(r.max_new for r in reqs)
 
         t0 = time.time()
-        logits, cache = self.model.prefill(self.params, {"tokens": toks},
-                                           self.max_len)
-        # the transformer families' prefill fills the cache; hymba's
-        # returns one of length 0 (``HymbaCache``: ring buffers, SSM and
-        # conv states), filled by replaying the prompt through decode
+        logits, cache = self.model.prefill(
+            self.params, _batch(self.cfg, toks, self.device), self.max_len)
+        # the transformer's and xlstm's prefill fill the cache or state;
+        # hymba's and enc-dec's return one of length 0, filled by
+        # replaying the prompt through decode
         if cache.length == 0:
             for t in range(plen):
                 _, cache = self.model.decode(self.params, cache,
@@ -205,10 +223,12 @@ class EmbeddingServer:
 
     def embed(self, tokens: np.ndarray) -> np.ndarray:
         if self._stream is None:
-            out = self.model.embedding(self.params, {"tokens": tokens})
+            out = self.model.embedding(self.params,
+                                       _batch(self.cfg, tokens, self.device))
             return out.cpu().numpy()
         with torch.cuda.stream(self._stream):
-            out = self.model.embedding(self.params, {"tokens": tokens})
+            out = self.model.embedding(self.params,
+                                       _batch(self.cfg, tokens, self.device))
             return out.cpu().numpy()
 
 

@@ -35,7 +35,11 @@ summation noise near zero; hymba's shape (bf16, hd 64, window 1024)
 among them. ``ServeEngine`` on the card at fp32 returns the CPU's tokens
 for the same weights. ``moe``'s index dispatch equals the one-hot
 formulation (``chip_smoke.moe_onehot``) on the card, routing identical
-and outputs within 2^-8 of their largest magnitude.
+and outputs within 2^-8 of their largest magnitude. Reduced xlstm (with
+sLSTM blocks) and enc-dec at fp32 on the card against the CPU port on
+the same weights within 1e-4 of the largest magnitude (sum order),
+tokens equal; their captured CUDA graphs (the sLSTM scan, the decode
+step) bit for bit against the same steps run eagerly.
 """
 import numpy as np
 import pytest
@@ -1197,3 +1201,148 @@ def test_hymba_graphed_decode_equals_eager_steps(cuda):
     for i, r in enumerate(reqs):
         np.testing.assert_array_equal(batched[i].tokens,
                                       eng.generate([r])[0].tokens)
+
+
+def _carry(cfg, params):
+    """The same parameters on the CPU."""
+    return params_from_numpy(cfg, params_to_numpy(cfg, params), "cpu")
+
+
+def _close_to(got, want, tol, msg=""):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape, msg
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (msg, err)
+
+
+@pytest.mark.cuda
+def test_xlstm_on_card_matches_cpu(cuda):
+    """Reduced xlstm with sLSTM blocks (4 layers, two groups of 1 mLSTM +
+    1 sLSTM) at fp32 on the card against the CPU port on the same weights
+    and tokens, within 1e-4 of the largest magnitude (sum order): the
+    forward, the prefill's state array for array and 4 decode steps;
+    ``ServeEngine``'s tokens equal the CPU's; the sLSTM scan's captured
+    step (``_scan_graphed``) and the graphed decode step equal the same
+    steps launched one by one bit for bit."""
+    from dataclasses import replace
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm
+    cfg = replace(get_config("xlstm-1.3b").reduced(), num_layers=4,
+                  slstm_every=2, dtype="float32")
+    m, mc = build_model(cfg, cuda), build_model(cfg, "cpu")
+    p = m.init(0)
+    pc = _carry(cfg, p)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 32))
+    _close_to(m.forward(p, {"tokens": toks})[0],
+              mc.forward(pc, {"tokens": toks})[0], 1e-4, "forward")
+    lg, st = m.prefill(p, {"tokens": toks}, 40)
+    lc, sc = mc.prefill(pc, {"tokens": toks}, 40)
+    _close_to(lg, lc, 1e-4, "prefill")
+    names = ("mc", "mn", "mm", "sc", "sn", "sm", "sh")
+    for name in names:
+        _close_to(getattr(st, name), getattr(sc, name), 1e-4, name)
+    eager = replace(st, **{n: getattr(st, n).clone() for n in names})
+    step_toks = torch.from_numpy(toks).to(cuda)
+    for t in range(4):
+        lg, st = m.decode(p, st, toks[:, t:t + 1])
+        lc, sc = mc.decode(pc, sc, toks[:, t:t + 1])
+        _close_to(lg, lc, 1e-4, f"step {t}")
+        # the captured step replays exactly what the step launches
+        assert torch.equal(lg, xlstm._step(cfg, p, eager,
+                                           step_toks[:, t:t + 1])), t
+    assert st.graph is not None
+    assert all(torch.equal(getattr(st, n), getattr(eager, n))
+               for n in names)
+    sp = p.slstm[1]
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(2, 24, cfg.d_model)).astype(np.float32)).to(cuda)
+    wx = (x @ sp.wx.reshape(cfg.d_model, -1)).view(2, 24, 4, 4, 16) + sp.b
+    r = sp.r.transpose(0, 1).reshape(4, 64, 16)
+    zero = xlstm.slstm_zero_state(2, 4, 16, cuda)
+    ys_g, st_g = xlstm._scan_graphed(r, wx, zero)
+    ys_e, st_e = xlstm._scan_eager(r, wx, zero)
+    assert torch.equal(ys_g, ys_e)
+    assert all(torch.equal(a, b) for a, b in zip(st_g, st_e))
+    reqs = [GenRequest(toks[i, :n].astype(np.int32), 5)
+            for i, n in ((0, 16), (1, 32), (1, 16))]
+    on_card = ServeEngine(cfg, p, device=cuda, max_len=40,
+                          batch_size=2).generate(reqs)
+    on_cpu = ServeEngine(cfg, pc, device="cpu", max_len=40,
+                         batch_size=2).generate(reqs)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+def test_encdec_on_card_matches_cpu(cuda):
+    """Reduced seamless-m4t-medium (2 + 2 layers, Gaussian frames) at fp32
+    on the card against the CPU port on the same weights and inputs,
+    within 1e-4 of the largest magnitude: the forward in both modes (the
+    stream one through the SIMT flash kernel at hd 16), the cross cache,
+    the prompt's replay through the graphed decode step and 2 steps
+    more; ``ServeEngine``'s tokens (zero frames) equal the CPU's."""
+    from dataclasses import replace
+    from repro_torch.models import build_model
+    cfg = replace(get_config("seamless-m4t-medium").reduced(),
+                  dtype="float32")
+    m, mc = build_model(cfg, cuda), build_model(cfg, "cpu")
+    p = m.init(0)
+    pc = _carry(cfg, p)
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 20)),
+             "frames": rng.normal(size=(2, cfg.frontend_tokens,
+                                        cfg.d_model)).astype(np.float32)}
+    for mode in ("train", "stream"):
+        before = flash_attention.launches_by_route["simt"]
+        _close_to(m.forward(p, batch, mode=mode)[0],
+                  mc.forward(pc, batch, mode=mode)[0], 1e-4, mode)
+        assert flash_attention.launches_by_route["simt"] - before == \
+            (cfg.num_layers if mode == "stream" else 0)
+    lg, cache = m.prefill(p, batch, 24)
+    lc, ccache = mc.prefill(pc, batch, 24)
+    _close_to(lg, lc, 1e-4, "prefill")
+    _close_to(cache.xk, ccache.xk, 1e-4, "xk")
+    toks = np.concatenate([batch["tokens"], batch["tokens"][:, :2]], 1)
+    for t in range(22):
+        lg, cache = m.decode(p, cache, toks[:, t:t + 1])
+        lc, ccache = mc.decode(pc, ccache, toks[:, t:t + 1])
+        _close_to(lg, lc, 1e-4, f"step {t}")
+    assert cache.graph is not None and cache.length == 22
+    _close_to(cache.k, ccache.k, 1e-4, "k")
+    reqs = [GenRequest(batch["tokens"][i, :n].astype(np.int32), 4)
+            for i, n in ((0, 7), (1, 12), (1, 7))]
+    on_card = ServeEngine(cfg, p, device=cuda, max_len=24,
+                          batch_size=2).generate(reqs)
+    on_cpu = ServeEngine(cfg, pc, device="cpu", max_len=24,
+                         batch_size=2).generate(reqs)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+def test_encdec_stream_prefill_takes_wgmma_and_is_held(cuda):
+    """The enc-dec prefill's stream forward at seamless-m4t-medium's head
+    shape (bf16, hd 64), narrowed to 4 heads, 128 frames: every decoder
+    layer launches the wgmma kernel once, each launch held to the plain
+    version (``chip_smoke.held_flash``), and nothing else launches a
+    flash kernel (the encoder and the cross-attention are dense)."""
+    from dataclasses import replace
+    cs = _chip_smoke()
+    cfg = replace(get_config("seamless-m4t-medium").reduced(), d_model=256,
+                  num_heads=4, num_kv_heads=4, head_dim=64,
+                  frontend_tokens=128)
+    eng = ServeEngine(cfg, device=cuda, max_len=80, batch_size=2, seed=0)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64))
+    before = dict(flash_attention.launches_by_route)
+    with cs.held_flash(torch, flash_attention, tref, "wgmma",
+                       True) as checks:
+        lg, cache = eng.model.prefill(eng.params, {
+            "tokens": toks, "frames": rng.normal(size=(
+                2, 128, 256)).astype(np.float32)}, 80)
+    assert bool(lg.isfinite().all()) and cache.length == 0
+    assert len(checks) == cfg.num_layers
+    assert all(c[2] and c[5] for c in checks), checks
+    assert {c[0] for c in checks} == {(2, 64, 4, 64)}
+    assert flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + cfg.num_layers, "simt": before["simt"]}

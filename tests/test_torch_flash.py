@@ -11,7 +11,8 @@ both, and the case that shows the split is needed; a numeric model of
 the SIMT kernel's tile walk (its query blocks, the 64-key tiles it skips,
 the tiles it masks) and arithmetic against the Pallas kernel and the
 reference; which kernel a CUDA call routes to, and with which query
-block, with the library faked (olmo-1b's fp32 prefill included). The CUDA kernels themselves are
+block, with the library faked (olmo-1b's fp32 prefill and the enc-dec
+stream forward included). The CUDA kernels themselves are
 held to the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 
@@ -364,6 +365,46 @@ def test_olmo_fp32_prefill_routes_every_layer_to_simt(fake_card,
     assert flash_attention.launches_by_route == {"wgmma": 0, "simt": 16}
 
 
+def test_encdec_stream_sends_only_decoder_self_attention(fake_card,
+                                                         monkeypatch):
+    """seamless-m4t-medium's stream forward, narrowed to 2 heads of hd 64
+    in bf16 (its head dim and type: the wgmma route), 24 frames: with the
+    decoder's ``attention_stream`` handed to the CUDA wrapper (the
+    libraries faked; the layer then takes the plain version's output),
+    each decoder layer launches the wgmma kernel once at the tokens'
+    (B, S, H, hd), causal; the encoder (frames against frames) and the
+    cross-attention (tokens against frames) take ``attention_dense``,
+    non-causal, and never the kernel."""
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
+                              d_model=128, num_heads=2, num_kv_heads=2,
+                              head_dim=64, frontend_tokens=24)
+    assert (cfg.dtype, cfg.hd(), cfg.enc_layers) == ("bfloat16", 64, 2)
+    m = build_model(cfg, "cpu")
+    p = m.init(0)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, 256, (2, 16)),
+             "frames": rng.normal(size=(2, 24, 128)).astype(np.float32)}
+    dense, dense_call = [], TL.attention_dense
+
+    def on_card(q, k, v, *, causal=True, window=0, chunk=1024):
+        flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window)
+        return tref.flash_attention(q, k, v, causal=causal, window=window)
+
+    def recording(q, k, v, **kw):
+        dense.append((q.shape[1], k.shape[1], kw.get("causal", True)))
+        return dense_call(q, k, v, **kw)
+    monkeypatch.setattr(TL, "attention_stream", on_card)
+    monkeypatch.setattr(TL, "attention_dense", recording)
+    logits, _ = m.forward(p, batch, mode="stream")
+    assert logits.shape == (2, 16, 256) and bool(logits.isfinite().all())
+    assert [c[0] for c in fake_card.calls] == ["wgmma"] * cfg.num_layers
+    assert {c[1][4:8] for c in fake_card.calls} == {(2, 16, 2, 64)}
+    assert flash_attention.launches_by_route == {"wgmma": 2, "simt": 0}
+    assert dense == [(24, 24, False)] * 2 + [(16, 24, False)] * 2
+
+
 @pytest.mark.parametrize("err", [1, 9000, 10001])
 def test_failing_wgmma_launch_raises(fake_card, err):
     """A launch error of the wgmma kernel (a CUDA error, no tensor-map
@@ -634,3 +675,16 @@ def test_expand_kv_and_head_mask_match_reference():
         np.float32)
     np.testing.assert_array_equal(TL.expand_kv(cfg, torch.from_numpy(k)),
                                   np.asarray(JL.expand_kv(jcfg, k)))
+    # as many kv heads as q heads (seamless-m4t-medium, olmo-1b): the map
+    # is the identity, and the tensor comes back as it is
+    for name in ("seamless-m4t-medium", "olmo-1b", "hymba-1.5b"):
+        cfg, jcfg = get_config(name), jget(name)
+        identity = np.array_equal(np.asarray(JL.head_map(jcfg)),
+                                  np.arange(jcfg.hp()))
+        t = torch.from_numpy(np.random.default_rng(10).normal(
+            size=(1, 3, cfg.kvp(), 4)).astype(np.float32))
+        np.testing.assert_array_equal(
+            TL.expand_kv(cfg, t),
+            np.asarray(JL.expand_kv(jcfg, t.numpy())))
+        assert (TL.expand_kv(cfg, t) is t) == identity == \
+            (name != "hymba-1.5b")

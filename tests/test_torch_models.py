@@ -25,7 +25,6 @@ from repro.configs import all_configs as jall_configs
 from repro.configs import get_config as jget
 from repro.models import build_model as jbuild
 from repro_torch.configs import all_configs, get_config
-from repro_torch.configs.base import PENDING
 from repro_torch.models import (build_model, params_from_numpy,
                                 params_to_numpy)
 from repro_torch.models import spec as S
@@ -172,20 +171,20 @@ def test_vlm_forward_with_patches_matches_reference(dtype):
 
 # ------------------------------------------------- configs, defs, weights
 def test_configs_match_reference():
-    """Every ported config equals the reference's, full and reduced,
-    with the same padded heads and vocabulary; the others name their
-    ROADMAP item."""
+    """Every config of the reference is the port's, equal to it full and
+    reduced, with the same padded heads and vocabulary."""
     ref = jall_configs()
-    assert set(all_configs()) | set(PENDING) == set(ref)
+    assert set(all_configs()) == set(ref)
     for name, cfg in all_configs().items():
         for t, j in ((cfg, ref[name]), (cfg.reduced(), ref[name].reduced())):
             assert dataclasses.asdict(t) == dataclasses.asdict(j)
             assert (t.hp(), t.kvp(), t.padded_vocab(), t.hd()) == \
                 (j.hp(), j.kvp(), j.padded_vocab(), j.hd())
             assert t.param_count() == j.param_count()
-    for name in PENDING:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    for name in ("xlstm-1.3b", "seamless-m4t-medium"):
+        assert get_config(name) == all_configs()[name]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_defs_and_init_law():
@@ -260,12 +259,16 @@ def test_weight_carry_round_trip(name):
 
 
 def test_device_rule_and_unported_families():
-    cfg = get_config("olmo-1b").reduced()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            build_model(cfg)
-    assert build_model(cfg, "cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        build_model(dataclasses.replace(cfg, enc_layers=2), "cpu")
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        build_model(dataclasses.replace(cfg, family="ssm"), "cpu")
+    """Every family builds on the CPU when asked (xlstm and enc-dec, the
+    last two ported, each through its own module) and needs the card
+    otherwise."""
+    from repro_torch.models import encdec, xlstm
+    for name, mod in (("olmo-1b", T), ("xlstm-1.3b", xlstm),
+                      ("seamless-m4t-medium", encdec)):
+        cfg = get_config(name).reduced()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build_model(cfg)
+        m = build_model(cfg, "cpu")
+        assert m.device.type == "cpu" and m.mod is mod
+        assert m.init(0).device.type == "cpu"

@@ -1,8 +1,9 @@
 """The port's serving engine on the CPU: ``ServeEngine``'s batching
 contract (the port of tests/test_serve.py's mixed-length parity and
-no-phantom-rows cases, dense, MoE and hybrid configs), its tokens against the
-reference's ``ServeEngine`` on the same weights, and ``EmbeddingServer``
-against the reference's.
+no-phantom-rows cases, dense, MoE, hybrid, xlstm and enc-dec configs),
+its tokens against the reference's ``ServeEngine`` on the same weights
+(dense, xlstm, enc-dec), and ``EmbeddingServer`` against the
+reference's.
 
 Tolerance: tokens identical; embeddings within 1e-4 of their largest
 magnitude at fp32 (fp32 summation order).
@@ -27,18 +28,22 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("name", ["olmo-1b", "llama3-8b",
                                   "phi3.5-moe-42b-a6.6b", "arctic-480b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "xlstm-1.3b",
+                                  "seamless-m4t-medium"])
 def test_mixed_length_batch_parity(name):
     """Batched generation over mixed-length prompts is token-identical to
     per-request generation (length-bucketed padding-free batches). MoE
     capacity counts per batch row, so equal-length rows route as they
-    would alone; hymba's cache is filled by replaying the prompt."""
+    would alone; hymba's and enc-dec's caches are filled by replaying the
+    prompt; xlstm's prompts are whole chunks (8) or shorter, as its
+    chunked form requires."""
     cfg = get_config(name).reduced()
     eng = ServeEngine(cfg, device="cpu", max_len=48, batch_size=4, seed=0)
     rng = np.random.default_rng(7)
+    lens = (5, 16, 7, 16) if name == "xlstm-1.3b" else (5, 9, 7, 9)
     reqs = [GenRequest(rng.integers(1, cfg.vocab_size // 2, size=n)
                        .astype(np.int32), 5)
-            for n in (5, 9, 7, 9)]
+            for n in lens]
     batched = eng.generate(reqs)
     assert len(batched) == len(reqs)
     for i, r in enumerate(reqs):
@@ -79,6 +84,30 @@ def test_tokens_match_reference_engine():
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, 200, size=n).astype(np.int32)
                for n in (6, 11, 6, 6)]
+    news = (6, 4, 3, 6)
+    want = jeng.generate([JGenRequest(p, m) for p, m in zip(prompts, news)])
+    got = teng.generate([GenRequest(p, m) for p, m in zip(prompts, news)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
+
+
+@pytest.mark.parametrize("name,kw,lens", [
+    ("xlstm-1.3b", dict(num_layers=4, slstm_every=2), (6, 16, 6, 8)),
+    ("seamless-m4t-medium", {}, (6, 11, 6, 6))])
+def test_recurrent_and_encdec_tokens_match_reference_engine(name, kw, lens):
+    """xlstm (with sLSTM blocks: its prefill's filled state, no replay)
+    and enc-dec (zero frames, the prompt replayed through decode) at
+    fp32: the port's ServeEngine generates the reference engine's tokens
+    from the same weights, over mixed lengths and max_new."""
+    jc = dataclasses.replace(jget(name).reduced(), dtype="float32", **kw)
+    tc = dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                             **kw)
+    jeng = JServeEngine(jc, max_len=40, batch_size=2, seed=3)
+    teng = ServeEngine(tc, params_from_numpy(
+        tc, jax.tree.map(np.asarray, jeng.params), "cpu"), device="cpu",
+        max_len=40, batch_size=2)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, 200, size=n).astype(np.int32) for n in lens]
     news = (6, 4, 3, 6)
     want = jeng.generate([JGenRequest(p, m) for p, m in zip(prompts, news)])
     got = teng.generate([GenRequest(p, m) for p, m in zip(prompts, news)])
