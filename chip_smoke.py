@@ -22,8 +22,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``pairwise_sq_l2``'s and its calls bit-identical — and timed beside
    its plain version, a PyTorch library yardstick and its roofline
    bound; then ``pairwise_sq_l2`` and ``topk_l2`` with NaN rows (the
-   ingest path's unused delta capacity) held to their plain versions:
-   NaN exactly where the plain version has NaN, the same bits elsewhere
+   ingest path's unused delta capacity), and ``lpgf_force``'s minima,
+   weights, W and F beside NaN rows, held to their plain versions: NaN
+   exactly where the plain version has NaN, the same bits elsewhere
    (``check_nan_rows``);
 3. fp32 path: ``MQRLD(table).prepare()`` on a 200,000 x 512 table, then
    ``session().plan(batch).execute()`` on a 256-query hybrid batch (warm,
@@ -62,6 +63,16 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    64 queries to the oracle's; the enqueue half of the engine's dispatch
    under ``set_sync_debug_mode("error")`` in fp32 and int8; save, load
    and engine seconds and the bytes on disk;
+   Then sharded execution on the live platform (``drive_sharded_path``,
+   path (o)), uncalibrated: ``session(shards=S)`` at S = 1, 2 and 8 in
+   fp32 and S = 8 in int8, each engine derived from the single-device
+   one, the hybrid batch warm and timed: every row equal to the live
+   platform's single-device rows of that precision, ids and order (or
+   shown to differ only by an exact tie at the k-th distance), the
+   first 64 to the oracle, ``stats.shards`` S; in fp32 a 16-query V.R
+   batch around one row through the sharded V.R tile route, its rows the
+   single-device loop's and the oracle's; engine build and batch
+   seconds by S and the peak device memory;
    Then retrieval serving on the loaded platform
    (``drive_serving_path``, path (i)): ``RetrievalServer(batch_size=64)``
    with ``EmbeddingServer(mqrld-embedder-100m)`` at full size in bf16 (on
@@ -112,14 +123,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    launch held to its plain version and on the SIMT kernel, tokens equal
    to the CPU's;
 9. olmo-1b fp32 serving path: ``ServeEngine(olmo-1b)`` in fp32, its
-   published type, at full width and 16 layers on prompts of 2032,
-   2032, 1000 and 1000 tokens, 16 new tokens each: the SIMT kernel held
-   to its plain version on all 32 layers of the real prefills, batched
+   published type, at full width and ``OLMO_LAYERS`` (12) of its 16
+   layers (cut for the time limit) on prompts of 2032, 2032, 1000 and
+   1000 tokens, 16 new tokens each: the SIMT kernel held to its plain
+   version on all 24 layers of the real prefills, batched
    against per-request generation; init, prefill and decode times, the
    peak device memory and a traced prefill (``drive_olmo_fp32_path``);
 10. MoE serving path (k): ``ServeEngine`` in bf16 at full width on
-   phi3.5-moe-42b-a6.6b at 16 of its 32 layers (all 32 do not fit
-   beside the cache; 24 do, cut to 16 for the time limit) on prompts of
+   phi3.5-moe-42b-a6.6b at 12 of its 32 layers (all 32 do not fit
+   beside the cache; 24 do, cut to 12 for the time limit) on prompts of
    2048, 2048, 1000 and 1000 tokens, 16 new tokens each, then on
    arctic-480b at 2 of its
    35 layers (51.8 GiB; 128 experts, the dense residual branch) on two
@@ -308,7 +320,7 @@ def _nan_equal(torch, a, b) -> bool:
         torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
 
 
-def check_nan_rows(torch, pw, ft, ref, dev, gen, rows: int, dim: int,
+def check_nan_rows(torch, pw, ft, lf, ref, dev, gen, rows: int, dim: int,
                    capacity: int = 32768, live: int = 20000):
     """``pairwise_sq_l2`` with NaN rows, at the dense V.R pass's shape on
     the ingest path: a 256-query batch against the base rows plus a delta
@@ -319,7 +331,12 @@ def check_nan_rows(torch, pw, ft, ref, dev, gen, rows: int, dim: int,
     inputs the entries off the NaN rows must equal the kernel's output
     without them, bit for bit. ``topk_l2`` on the same grid and on 40
     points of which 15 are NaN, k = 40: NaN rows rank last, ids and
-    distances the plain version's. Returns (ok, info)."""
+    distances the plain version's. ``lpgf_force`` on 1,000 Gaussian
+    points with the same NaN rows (``lpgf_nan_rows``): its per-tile
+    minima equal ``torch.amin`` over its own stored distances (NaN in the
+    same places, the same bits elsewhere), its weights the plain law's
+    on them bit for bit, W and F NaN where the plain formula's are.
+    Returns (ok, info)."""
     n = rows + capacity
     pad = list(range(rows + live, n))
     info = {"shape": f"(256, {n}, {dim})", "nan_point_rows": len(pad) + 1,
@@ -360,10 +377,43 @@ def check_nan_rows(torch, pw, ft, ref, dev, gen, rows: int, dim: int,
     info["gaussian_bits_unchanged"] = torch.equal(got[qok][:, pok], clean)
     info["gaussian_nan_rows_all_nan"] = bool(
         torch.isnan(got[~qok]).all() and torch.isnan(got[:, ~pok]).all())
+    del q, p, got, clean
+    info["lpgf_nan_rows"] = lpgf_nan_rows(torch, lf, ref, dev, gen, dim)
     ok = (info["grid_equal_to_plain"] and topk
           and info["gaussian_bits_unchanged"]
-          and info["gaussian_nan_rows_all_nan"])
+          and info["gaussian_nan_rows_all_nan"]
+          and all(info["lpgf_nan_rows"].values()))
     return ok, info
+
+
+def lpgf_nan_rows(torch, lf, ref, dev, gen, dim: int, n: int = 1000):
+    """``lpgf_force`` through ``lf._launch(keep=True)`` on ``n`` Gaussian
+    points of which two rows are NaN and one is NaN in one coordinate,
+    at a radius of 7.5 mean neighbour distances: {check: passed}."""
+    x = torch.randn((n, dim), generator=gen, device=dev)
+    d2 = ref.pairwise_sq_l2(x, x)
+    d2.fill_diagonal_(float("inf"))
+    g = float(d2.min(1).values.sqrt().mean())
+    x[[5, n // 2]] = float("nan")
+    x[n - 3, dim // 2] = float("nan")
+    gf, gw, s = lf._launch(x, 7.5 * g, g, keep=True)
+    off = s["d2"].clone()
+    off.fill_diagonal_(float("inf"))
+    t = -(-n // lf.TILE)
+    minima = torch.nn.functional.pad(
+        off, (0, t * lf.TILE - n), value=float("inf")).view(
+            n, t, lf.TILE).amin(2)
+    want_w, want_d1 = ref.lpgf_weights(s["d2"], 7.5 * g, g)
+    wf, ww = ref.lpgf_force(x, 7.5 * g, g, d2=s["d2"])
+    return dict(
+        minima_equal_plain=_nan_equal(torch, s["pmin"], minima),
+        minima_nan_and_finite=bool(torch.isnan(minima).any())
+        and bool(torch.isfinite(minima).any()),
+        d1_equal_plain=_nan_equal(torch, s["pmin"].min(1).values, want_d1),
+        weights_equal_plain=_nan_equal(torch, s["w"], want_w),
+        w_nan_where_plain=torch.equal(torch.isnan(gw), torch.isnan(ww))
+        and bool(torch.isnan(ww).any()),
+        f_nan_where_plain=torch.equal(torch.isnan(gf), torch.isnan(wf)))
 
 
 def check_topk_l2(torch, ft, pw, ref, build, dev, gen, rows: int, dim: int):
@@ -1466,7 +1516,7 @@ def check_sync_free_dispatch(torch, p, batch, precision: str):
     return None, t_enq
 
 
-def drive_persist_path(args, dev, p, batch, kmods):
+def drive_persist_path(args, dev, p, batch, kmods, keep=None):
     """Path (h), on (g)'s folded platform with ``default_precision =
     "int8"``: ``PERSIST_ROWS`` rows appended (a live delta), the fp32 and
     int8 batches on the live platform, ``save_platform`` into a temporary
@@ -1477,8 +1527,10 @@ def drive_persist_path(args, dev, p, batch, kmods):
     base layout; its planes the loaded arrays themselves, equal to the
     live engine's bit for bit). Then the enqueue half of the engine's
     dispatch under the sync guard, in fp32 and int8
-    (``check_sync_free_dispatch``). Returns (error or None, info, the
-    loaded platform)."""
+    (``check_sync_free_dispatch``). ``keep`` (a dict) receives the live
+    platform's rows by precision (``live``) and the oracle's rows of the
+    first ``PERSIST_CHECK`` queries (``truths``), which path (o) reuses.
+    Returns (error or None, info, the loaded platform)."""
     import tempfile
 
     import numpy as np
@@ -1561,9 +1613,11 @@ def drive_persist_path(args, dev, p, batch, kmods):
             return (f"persistence {prec}: query {bad[0]} of the loaded "
                     f"platform differs from the live platform's"), info, p2
         t0 = time.time()
-        bad, _ = oracle_mismatches(p2, batch[:PERSIST_CHECK],
-                                   got[:PERSIST_CHECK])
+        bad, truths = oracle_mismatches(p2, batch[:PERSIST_CHECK],
+                                        got[:PERSIST_CHECK])
         info["oracle_s"] = info.get("oracle_s", 0.0) + time.time() - t0
+        if keep is not None:
+            keep.update(live=live, truths=truths)
         if bad:
             return f"persistence {prec}: query {bad[0]} differs from the " \
                    f"oracle", info, p2
@@ -1574,6 +1628,175 @@ def drive_persist_path(args, dev, p, batch, kmods):
         if err:
             return f"persistence: {err}", info, p2
     return None, info, p2
+
+
+# (shards, precision, queries of the hybrid batch: None for all of it);
+# the S = 1 and int8 runs serve the first 64 queries, to keep the card
+# tests plus this script inside the call's time limit
+SHARD_RUNS = ((1, "fp32", 64), (2, "fp32", None), (8, "fp32", None),
+              (8, "int8", 64))
+SHARD_VR = 16            # queries of the V.R batch that takes the tile route
+
+
+def vr_batch(Q, np, vecs, radius: float, seed: int):
+    """``SHARD_VR`` queries around one row, half ``V.R`` and half ``V.R +
+    V.K`` (k = 20): one blob's tiles survive their triangle bounds, few
+    enough that the uncalibrated engine takes the V.R tile route (a
+    batch over every blob unions past ``_VR_DENSE_CUTOFF``)."""
+    rng = np.random.default_rng(seed)
+    v0 = vecs[int(rng.integers(0, len(vecs)))]
+    out = []
+    for j in range(SHARD_VR):
+        v = (v0 + rng.normal(size=v0.shape) * 0.1).astype(np.float32)
+        out.append(Q.VR.of("v", v, radius) if j % 2 == 0 else
+                   Q.And.of(Q.VR.of("v", v, radius), Q.VK.of("v", v, 20)))
+    return out
+
+
+def tie_at_kth(Q, np, col, q, got, want) -> bool:
+    """Whether ``got`` and ``want`` differ only by rows tied exactly at the
+    k-th distance of the query's one V.K: the same count, and every row
+    in one but not the other at the largest exact distance (the oracle's
+    own formula) of both results."""
+    vks = [b for b in Q.basic_queries(q) if isinstance(b, Q.VK)]
+    got, want = np.asarray(got), np.asarray(want)
+    if len(vks) != 1 or len(got) != len(want):
+        return False
+    v = vks[0].vec()
+    diff = np.setxor1d(got, want)
+    if not len(diff):
+        return False
+    d = lambda rows: ((col[rows] - v[None, :]) ** 2).sum(1)
+    kth = d(got).max()
+    return bool(kth == d(want).max() and (d(diff) == kth).all())
+
+
+def drive_sharded_path(args, dev, p, batch, radius: float, single, truths,
+                       kmods):
+    """Path (o), on (h)'s live platform (200,000 + 2,500 rows, a live
+    delta of 2,500, int8 default): ``session(shards=S, precision=...)``
+    for each of ``SHARD_RUNS`` through the entry points a user calls,
+    uncalibrated (``p.cost_model`` set aside, restored after), so the
+    V.R route is the fixed cutoff's. Each run serves the hybrid batch (or
+    its first queries, as ``SHARD_RUNS`` says) warm, then timed: every
+    row equal to ``single[precision]`` (the same platform's single-device
+    rows from path (h)) in ids and order, or differing only by an exact
+    tie at the k-th distance (``tie_at_kth``); the first ``len(truths)``
+    queries equal to ``truths`` (path (h)'s oracle); ``stats.shards ==
+    S``. In fp32 it also serves ``vr_batch``, which must take the sharded
+    V.R tile route, its rows equal to the single-device loop's and the
+    oracle's (both computed before any run). The launch counters are set
+    to 0 just before each run and read just after it, so a run's counts
+    are its own: every run must launch ``pairwise_sq_l2``, the fp32 runs
+    ``topk_l2_masked`` and the int8 run ``quant_lb2``. Each run's engine is
+    derived from the cached single-device one
+    (``HybridEngine.with_shards``) and dropped after it. Returns (error or
+    None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import query as Q
+
+    col = p.view().vector["v"]
+    info = {"runs": []}
+    saved_model = p.cost_model
+    p.cost_model = None
+    if dev.type == "cuda":
+        info["resident_gib_before"] = _resident_gib(torch, dev)
+    try:
+        vb = vr_batch(Q, np, p.table.vector["v"], radius, args.seed + 13)
+        single_vr, _ = p.session(shards=0, precision="fp32").plan(
+            vb).execute()
+        t0 = time.time()
+        vr_truth = [p.oracle(q) for q in vb]
+        info["vr_oracle_s"] = time.time() - t0
+        bad = [i for i, (a, t) in enumerate(zip(single_vr, vr_truth))
+               if not np.array_equal(a, t)]
+        if bad:
+            return f"sharded: V.R query {bad[0]} of the single-device " \
+                   f"loop differs from the oracle", info
+        for s, prec, nq in SHARD_RUNS:
+            qb = batch[:nq] if nq else batch
+            run = {"shards": s, "precision": prec, "queries": len(qb)}
+            info["runs"].append(run)
+            _sync(torch, dev)
+            _reset(kmods)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            sess = p.session(shards=s, precision=prec)
+            t0 = time.time()
+            eng = sess.engine()
+            _sync(torch, dev)
+            run["engine_s"] = time.time() - t0
+            got, st, run["warm_s"], run["batch_s"] = run_batch(
+                args, dev, sess, qb)
+            run["qps"] = len(qb) / run["batch_s"]
+            run.update(stats_shards=st.shards, knn_rounds=st.knn_rounds,
+                       rows_scanned=st.rows_scanned,
+                       knn_exact_fallbacks=st.knn_exact_fallbacks,
+                       mp_scanned=st.mp_scanned, mp_rescued=st.mp_rescued,
+                       vr_routes=sorted(k for k, _, _ in st.stage_samples
+                                        if k.startswith("vr:")))
+            got_vr = None
+            if prec == "fp32":
+                got_vr, st_vr = sess.plan(vb).execute()
+                run["vr_batch"] = dict(
+                    routes=sorted(k for k, _, _ in st_vr.stage_samples
+                                  if k.startswith("vr:")),
+                    vr_tiles_scanned=st_vr.vr_tiles_scanned,
+                    vr_dense_fallbacks=st_vr.vr_dense_fallbacks)
+            _sync(torch, dev)
+            run["launches"] = _counters(kmods)
+            if dev.type == "cuda":
+                run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            ties, bad = [], []
+            for i, (a, b) in enumerate(zip(got, single[prec])):
+                if not np.array_equal(a, b):
+                    (ties if tie_at_kth(Q, np, col, qb[i], a, b)
+                     else bad).append(i)
+            run["ties_at_kth"] = ties
+            if st.shards != s:
+                return f"sharded: stats.shards {st.shards} at S = {s}", info
+            if bad:
+                return (f"sharded S={s} {prec}: query {bad[0]} differs from "
+                        f"the single-device rows: {got[bad[0]][:10]} vs "
+                        f"{single[prec][bad[0]][:10]}"), info
+            bad = [i for i, t in enumerate(truths)
+                   if not np.array_equal(got[i], t)
+                   and not tie_at_kth(Q, np, col, qb[i], got[i], t)]
+            if bad:
+                return f"sharded S={s} {prec}: query {bad[0]} differs " \
+                       f"from the oracle", info
+            if got_vr is not None:
+                vrb = run["vr_batch"]
+                if vrb["vr_tiles_scanned"] <= 0 or vrb["vr_dense_fallbacks"]:
+                    return f"sharded S={s}: the V.R batch did not take " \
+                           f"the sharded tile route: {vrb}", info
+                bad = [i for i, (a, b, t) in enumerate(
+                    zip(got_vr, single_vr, vr_truth))
+                    if not (np.array_equal(a, b) and np.array_equal(a, t))]
+                if bad:
+                    return f"sharded S={s}: V.R query {bad[0]} differs " \
+                           f"from the single-device rows or the oracle", \
+                           info
+            need = ("pairwise_sq_l2",
+                    "topk_l2_masked" if prec == "fp32" else "quant_lb2")
+            if min(run["launches"][n] for n in need) <= 0:
+                return f"sharded S={s} {prec}: a kernel of the run never " \
+                       f"launched: {run['launches']}", info
+            key = p._engine_key(sess.beam, sess.tile, prec, s)
+            del eng
+            p._engines.pop(key, None)
+    finally:
+        p.cost_model = saved_model
+        for k in [k for k in p._sessions if k[3] is not None]:
+            p._sessions.pop(k)
+        for s, prec, _ in SHARD_RUNS:
+            p._engines.pop(p._engine_key(16, 128, prec, s), None)
+    info["launches"] = {n: sum(r["launches"][n] for r in info["runs"])
+                        for n in info["runs"][0]["launches"]}
+    if dev.type == "cuda":
+        info["peak_gib"] = max(r["peak_gib"] for r in info["runs"])
+    return None, info
 
 
 def drive_rollback(args, dev, sp, sbatch):
@@ -2564,16 +2787,20 @@ PREFILL_CLASSES = {"flash (SIMT)": r"flash_fwd",
                    "GEMM": r"gemm|Gemm|GEMM|cutlass|nvjet|xmma|matmul"}
 
 
+# olmo-1b's layers kept: 12 of 16, cut for the time limit (PERF.md §4)
+OLMO_LAYERS = 12
+
+
 def drive_olmo_fp32_path(args, dev, fa, ref):
     """``ServeEngine(olmo-1b in fp32, max_len=2048, batch_size=4)`` at
-    full width and depth (16 layers, d_model 2048, 16 heads of 128, d_ff
-    8192, vocab 50304; published in fp32), random weights from
-    ``--seed``, on 4 requests with prompts of 2032, 2032, 1000 and 1000
+    full width and ``OLMO_LAYERS`` of its 16 layers (d_model 2048, 16
+    heads of 128, d_ff 8192, vocab 50304; published in fp32), random
+    weights from ``--seed``, on 4 requests with prompts of 2032, 2032, 1000 and 1000
     tokens and 16 new tokens each (two buckets of batch 2; 2048 is the
     model's context). fp32 takes the SIMT flash kernel at hd 128.
 
     ``_generation_runs`` with the SIMT kernel held on every layer of each
-    real prefill, each of the 32 launches on the SIMT kernel: these
+    real prefill, each of the 24 launches on the SIMT kernel: these
     scores reach ~650, where their fp32 rounding alone moves the plain
     version ~5e-3 from the exact result, so each launch is held to the
     exact (fp64) result beside the plain version (``held_flash``,
@@ -2590,7 +2817,8 @@ def drive_olmo_fp32_path(args, dev, fa, ref):
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import GenRequest, ServeEngine
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32")
+    cfg = dataclasses.replace(get_config("olmo-1b"), dtype="float32",
+                              num_layers=OLMO_LAYERS)
     info = {"resident_gib_before": _resident_gib(torch, dev)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -2615,11 +2843,11 @@ def drive_olmo_fp32_path(args, dev, fa, ref):
 
 
 # ------------------------------------------------ (k) MoE, (l) hymba
-# (config, layers kept, prompts, new tokens): phi3.5-moe at 16 of 32
+# (config, layers kept, prompts, new tokens): phi3.5-moe at 12 of 32
 # layers (all 32 would be 77.96 GiB of bf16 weights of the card's ~79.6;
-# 24, 58.6 GiB, fit, cut to 16 for the time limit: PERF.md §4), arctic
+# 24, 58.6 GiB, fit, cut to 12 for the time limit: PERF.md §4), arctic
 # at 2 of 35 (51.8 GiB, full width)
-MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 16, (2048, 2048, 1000, 1000), 16),
+MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 12, (2048, 2048, 1000, 1000), 16),
             ("arctic-480b", 2, (1000, 1000), 8))
 # the kernels of a bf16 prefill by class, for its trace
 BF16_PREFILL_CLASSES = {"flash (wgmma)": r"flash_fwd_wgmma",
@@ -3387,14 +3615,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # NaN rows (the delta's unused capacity) through the distance tile
-    ok, nan_info = check_nan_rows(torch, pairwise_l2, fused_topk, ref, dev,
-                                  gen, args.rows, args.dim)
+    ok, nan_info = check_nan_rows(torch, pairwise_l2, fused_topk,
+                                  lpgf_force, ref, dev, gen, args.rows,
+                                  args.dim)
     torch.cuda.synchronize()
-    log("kernel pairwise_sq_l2 / topk_l2 with NaN rows: ok=" + str(ok)
-        + " " + json.dumps(nan_info))
+    log("kernel pairwise_sq_l2 / topk_l2 / lpgf_force with NaN rows: ok="
+        + str(ok) + " " + json.dumps(nan_info))
     if not ok:
-        return fail("pairwise_sq_l2 / topk_l2 with NaN rows disagree with "
-                    "their plain versions")
+        return fail("pairwise_sq_l2 / topk_l2 / lpgf_force with NaN rows "
+                    "disagree with their plain versions")
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------- fp32 path
@@ -3592,7 +3821,8 @@ def main() -> int:
     # ---------------------------------------------- persistence path
     starts.append(("persistence path", time.time()))
     t0 = time.time()
-    err, per, p2 = drive_persist_path(args, dev, p, batch, kmods)
+    kept_h = {}
+    err, per, p2 = drive_persist_path(args, dev, p, batch, kmods, kept_h)
     log(f"persistence: {time.time() - t0:.1f} s; save {per.get('save_s', 0):.1f}"
         f" s, load {per.get('load_s', 0):.1f} s, "
         f"{per.get('bytes', {}).get('total', 0)} bytes on disk; loaded int8 "
@@ -3607,6 +3837,29 @@ def main() -> int:
                                         "quant_lb2")) <= 0:
         return fail(f"a kernel of the persistence path never launched: "
                     f"{per['launches']}")
+
+    # ------------------------------------------------- sharded path
+    starts.append(("sharded path", time.time()))
+    t0 = time.time()
+    err, sh = drive_sharded_path(args, dev, p, batch, radius,
+                                 kept_h["live"], kept_h["truths"], kmods)
+    for run in sh["runs"]:
+        log(f"sharded: S={run['shards']} {run['precision']}, "
+            f"{run['queries']} queries ({card}): engine build "
+            f"{run['engine_s']:.2f} s, warm batch {run['warm_s']:.2f} s, "
+            f"timed batch {run['batch_s']:.3f} s, qps {run['qps']:.1f}; "
+            + json.dumps({k: v for k, v in run.items() if k not in (
+                "shards", "precision", "queries", "engine_s", "warm_s",
+                "batch_s", "qps")}))
+    log(f"sharded: {time.time() - t0:.1f} s; {card}; " + json.dumps(
+        {k: v for k, v in sh.items() if k != "runs"}))
+    if err:
+        return fail(err)
+    if min(sh["launches"][n] for n in ("pairwise_sq_l2", "topk_l2_masked",
+                                       "quant_lb2")) <= 0:
+        return fail(f"a kernel of the sharded path never launched: "
+                    f"{sh['launches']}")
+    del kept_h, sh
     # (h)'s live platform p stays for path (j); its engines go
     p._engines.clear()
     p._sessions.clear()
@@ -3767,7 +4020,8 @@ def main() -> int:
     ok, olmo = drive_olmo_fp32_path(args, dev, flash_attention, ref)
     olmo_launches = _counters(kmods)
     torch.cuda.empty_cache()
-    log("olmo-1b fp32 serving path (16 layers, prompts 2032, 2032, 1000, "
+    log(f"olmo-1b fp32 serving path ({OLMO_LAYERS} of 16 layers, prompts "
+        "2032, 2032, 1000, "
         "1000, max_new 16): " + json.dumps(olmo))
     for b in olmo["buckets"]:
         log(f"  bucket of {b['batch']} x {b['prompt']} tokens: prefill "
@@ -3802,10 +4056,11 @@ def main() -> int:
         + json.dumps(olmo_launches))
     if not ok:
         return fail(f"olmo-1b fp32 serving path: {olmo}")
-    if olmo["flash_checked_launches"] != 32 or \
+    olmo_want = 2 * OLMO_LAYERS       # both buckets' prefills, every layer
+    if olmo["flash_checked_launches"] != olmo_want or \
             olmo_launches["flash_attention_wgmma"] != 0:
-        return fail(f"the olmo-1b fp32 path's prefills did not make 32 "
-                    f"checked launches, all on the SIMT kernel: "
+        return fail(f"the olmo-1b fp32 path's prefills did not make "
+                    f"{olmo_want} checked launches, all on the SIMT kernel: "
                     f"{olmo_launches}")
 
     # ------------------------------------------------ (k) MoE paths

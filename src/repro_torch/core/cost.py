@@ -8,20 +8,20 @@ that are right on one host only. This module replaces them with a small
 model fitted on the host that serves:
 
   stage kinds     one linear model per stage family: "knn:host",
-                  "knn:device", "vr:tile", "vr:dense" (the reference's
-                  "knn:sharded:sN" kinds wait for sharding; a carried
-                  model that holds one keeps it, and no choice here
-                  ever reads it)
+                  "knn:device", "knn:sharded:sN" (the device loop over
+                  N shards), "vr:tile", "vr:dense"
   features        analytic per-stage vectors (``knn_features`` /
                   ``vr_features``): queries, first-round scan work scaled
                   by the scan precision's bytes, candidate rows staged,
                   top-k work, the straggler round budget, collective
-                  volume (0 on one device)
+                  volume (the per-round heap merge's shards*g*k; 0
+                  unsharded)
   fit             ridge regression over (features, observed seconds)
                   samples from the QBS cost rings, which every executed
                   engine stage fills (``EngineStats.stage_samples``)
   calibration     ``calibrate_platform`` runs synthetic hybrid batches
-                  through both loops and fits from the recorded rings
+                  through both loops and each requested shard count, and
+                  fits from the recorded rings
   online refit    ``maybe_refit`` refits after ``_REFIT_EVERY`` new
                   samples; the planner calls it after every executed plan
 
@@ -67,17 +67,36 @@ def prec_scale(precision: str) -> float:
     return _SCAN_BYTES[precision] / _SCAN_BYTES["fp32"]
 
 
-def knn_kind(device_loop: bool) -> str:
+def knn_kind(device_loop: bool, shards: int = 0) -> str:
     """Stage-kind key for one KNN group execution."""
+    if device_loop and shards:
+        return f"knn:sharded:s{int(shards)}"
     return "knn:device" if device_loop else "knn:host"
 
 
-def loop_widths(device_loop: bool, beam: int, tiles: int,
+def shards_of_kind(kind: str) -> Optional[int]:
+    """Inverse of ``knn_kind`` for sharded kinds: the shard count, or
+    None for the other kinds."""
+    if kind.startswith("knn:sharded:s"):
+        try:
+            return int(kind.rsplit("s", 1)[1])
+        except ValueError:
+            return None
+    return None
+
+
+def loop_widths(device_loop: bool, shards: int, beam: int, tiles: int,
                 seed: Optional[int] = None) -> Tuple[int, int]:
     """(first-round width, straggler/doubling width) in tiles of the
-    loop's scan layout — mirrors ``HybridEngine._run_jobs``."""
+    loop's scan layout (per shard on the sharded loop) — mirrors
+    ``HybridEngine._run_jobs``."""
     tiles = max(1, int(tiles))
     beam = max(1, int(beam))
+    if device_loop and shards:
+        s = max(1, int(shards))
+        w1 = max(1, min(-(-max(1, beam // 2) // s), tiles))
+        ws = max(1, _next_pow2(seed)) if seed else max(1, -(-beam // s))
+        return w1, ws
     if device_loop:
         w1 = max(1, min(max(1, beam // 2), tiles))
         ws = max(beam, _next_pow2(seed)) if seed else beam
@@ -88,10 +107,11 @@ def loop_widths(device_loop: bool, beam: int, tiles: int,
 
 
 def knn_features(g: int, w1: int, ws: int, cap: int, dim: int, k: int,
-                 tiles: int, precision: str) -> Tuple[float, ...]:
+                 tiles: int, shards: int, precision: str
+                 ) -> Tuple[float, ...]:
     """[bias, queries, first-round scan MFLOP-equivalents, candidate rows
     staged (1e6), top-k merge work (1e3), straggler round budget,
-    collective volume (0 on one device)]."""
+    collective volume (1e3; 0 unsharded)]."""
     g = max(1, int(g))
     w1 = max(1, int(w1))
     ws = max(1, int(ws))
@@ -103,15 +123,19 @@ def knn_features(g: int, w1: int, ws: int, cap: int, dim: int, k: int,
     gather = g * w1 * cap / 1e6
     topk = g * k * math.log2(max(2.0, float(w1 * cap))) / 1e3
     rounds = float(-(-(tiles - w1) // ws)) if tiles > w1 else 1.0
-    return (1.0, float(g), scan, gather, topk, rounds, 0.0)
+    coll = (shards * g * k / 1e3) if shards else 0.0
+    return (1.0, float(g), scan, gather, topk, rounds, coll)
 
 
 def knn_plan_features(*, device_loop: bool, g: int, k: int, beam: int,
                       tiles: int, cap: int, dim: int, precision: str,
-                      seed: Optional[int] = None) -> Tuple[float, ...]:
-    """``knn_features`` with the round widths from ``loop_widths``."""
-    w1, ws = loop_widths(device_loop, beam, tiles, seed)
-    return knn_features(g, w1, ws, cap, dim, k, tiles, precision)
+                      seed: Optional[int] = None, shards: int = 0
+                      ) -> Tuple[float, ...]:
+    """``knn_features`` with the round widths from ``loop_widths``: the
+    one builder of the engine's recordings and the planner's
+    predictions."""
+    w1, ws = loop_widths(device_loop, shards, beam, tiles, seed)
+    return knn_features(g, w1, ws, cap, dim, k, tiles, shards, precision)
 
 
 def vr_features(kind: str, g: int, union_tiles: int, cap: int, dim: int,
@@ -331,24 +355,35 @@ def _calibration_batches(p, rng: np.random.Generator, batch: int):
     return batches
 
 
-def calibrate_platform(p, *, batch: int = 16, repeats: int = 2,
+def calibrate_platform(p, *, shard_counts: Optional[Sequence[int]] = None,
+                       batch: int = 16, repeats: int = 2,
                        seed: int = 0) -> CostModel:
     """Run the calibration sweep and fit (or refresh) ``p.cost_model``.
 
-    The synthetic batches run through the host loop and the device loop,
-    each at four sizes (one sample per stage group and execution, so the
-    sizes multiply the samples past the fit floor and spread the group
-    size); the engine's stage timers fill the QBS cost rings, and one
-    ridge model is fitted per observed kind. Warm the platform's engine
-    first: its first launches carry one-off costs. ``sweep_s`` on the
-    returned (installed) model holds the seconds each loop took."""
+    The synthetic batches run through the host loop, the device loop and
+    the device loop over each of ``shard_counts`` (default: the
+    platform's ``default_shards``, when set), each at four sizes (one
+    sample per stage group and execution, so the sizes multiply the
+    samples past the fit floor and spread the group size); the engine's
+    stage timers fill the QBS cost rings, and one ridge model is fitted
+    per observed kind. Any shard count runs on the devices there are, so
+    none is dropped (the reference keeps those up to its device count).
+    Warm the platform's engines first: their first launches carry
+    one-off costs. ``sweep_s`` on the returned (installed) model holds
+    the seconds each loop took ("host", "device", "sharded:sN")."""
     rng = np.random.default_rng(seed)
-    sessions = [(p.session(device_loop=False), False),
-                (p.session(device_loop=True), True)]
-    sweep = {"host": 0.0, "device": 0.0}
+    if shard_counts is None:
+        shard_counts = [s for s in {p.default_shards or 0} if s]
+    shard_counts = sorted({int(s) for s in shard_counts if int(s) >= 1})
+    sessions = [(p.session(device_loop=False, shards=0), False, "host"),
+                (p.session(device_loop=True, shards=0), True, "device")]
+    for s in shard_counts:
+        sessions.append((p.session(device_loop=True, shards=s), True,
+                         f"sharded:s{s}"))
+    sweep = {name: 0.0 for _, _, name in sessions}
     for _ in range(max(1, repeats)):
         batches = _calibration_batches(p, rng, batch)
-        for sess, dl in sessions:
+        for sess, dl, name in sessions:
             t0 = time.time()
             for qs in batches:
                 for sub in (qs, qs[::2], qs[1::2],
@@ -357,7 +392,7 @@ def calibrate_platform(p, *, batch: int = 16, repeats: int = 2,
                         sess.plan(sub, device_loop=dl).execute()
             if p.device.type == "cuda":
                 torch.cuda.synchronize(p.device)
-            sweep["device" if dl else "host"] += time.time() - t0
+            sweep[name] += time.time() - t0
     model = p.cost_model if p.cost_model is not None else CostModel()
     model.fit_from_qbs(p.qbs)
     model.host = host_fingerprint(p.device)

@@ -83,6 +83,7 @@ too.
 """
 from __future__ import annotations
 
+import copy
 import math
 import time
 from collections import defaultdict
@@ -99,6 +100,9 @@ from repro_torch.core import query as Q
 from repro_torch.core.lake import _next_pow2
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import stable_topk
+from repro_torch.sharding.partitioning import (TileMesh, shard_put,
+                                               strided_tile_layout,
+                                               tile_mesh)
 from repro_torch.utils import quant
 
 # candidates kept past the stopping rank for the re-rank: a margin for
@@ -226,6 +230,8 @@ class EngineStats:
     mp_scanned: int = 0
     mp_rescued: int = 0
     time_s: float = 0.0
+    shards: int = 0              # the shard count the device loop ran on
+    #                              (0: one device, or the host loop)
     # (archetype, converged width in tiles) per executed KNN group — the
     # feedback signal Session records into QBS for query-aware seeding
     knn_group_widths: List[Tuple[str, int]] = field(default_factory=list)
@@ -314,14 +320,20 @@ def _knn_prologue(qs, centroid, radius, masks_tiles=None):
 
 
 def _knn_prologue_fast(qs, centroid, radius, masks_tiles=None):
-    """``_knn_prologue`` with a packed single-key sort (below 4096 tiles).
+    """``_knn_prologue`` with a packed single-key sort (below 4096 tiles,
+    ``_sort_packed``)."""
+    return _sort_packed(_lower_bounds(qs, centroid, radius, masks_tiles))
+
+
+def _sort_packed(lb):
+    """Each row of ``lb`` (at most 4096 columns) sorted by one packed key.
 
     The fp32 bound's bit pattern is order-preserving for non-negative
     floats, so bound and tile index share one int32 key: the low 12
     mantissa bits are truncated and replaced by the tile index.
     Truncation only lowers the reported bound, so the stopping rule stays
-    conservative; near-equal bounds order by tile index."""
-    lb = _lower_bounds(qs, centroid, radius, masks_tiles)
+    conservative; near-equal bounds order by tile index. Returns (order,
+    sorted bounds)."""
     bits = lb.contiguous().view(torch.int32)
     l = lb.shape[1]
     key = (bits & ~4095) | torch.arange(l, dtype=torch.int32,
@@ -872,6 +884,370 @@ class PendingBatch:
 
 
 # ---------------------------------------------------------------------------
+# Sharded execution (the tile-major layout sharded along T)
+# ---------------------------------------------------------------------------
+# The tile axis is the shard axis: tiles are self-contained (ball, row ids,
+# data rows), so splitting T over a ``TileMesh`` gives shared-nothing
+# partitions whose only cross-talk is a per-round k-way merge of (G, k)
+# heaps. Layout (``sharding.partitioning``): the padded tile axis is
+# permuted strided (tile t -> shard t mod S); pad tiles are dead (lower
+# bound +inf, invisible to every pruning rule). Delta tiles (ingest) are
+# not sharded: every shard sees them after its own tiles, and only shard
+# 0's copies are live, so the delta keeps the single-device loop's
+# freshness with no row on two shards.
+#
+# Shards that share one device share the layout's arrays: a shard is a
+# list of tile indices into them (``ShardedTiles.local``), and the S local
+# scans of a round run as one kernel launch over S*G rows (shard-major:
+# row s*G + g), each gathering its own tiles. Each shard keeps its own
+# LOCAL top-k heap over its own (disjoint) tiles; every round ends with
+# the merge: all_gather the S local heaps in shard order and keep the best
+# k with one ``stable_topk`` over (G, S*k), which gives the GLOBAL heap. A
+# query retires when its global k_stop-th distance is at most the least,
+# over shards (pmin), of the next unscanned LOCAL lower bound, which is
+# the next unscanned GLOBAL bound: the scalar executor's stopping rule.
+# Keeping local heaps local is what makes the merge exact: merging the
+# global heap back into shard carries would put rows on two shards and let
+# copies crowd out true neighbours. The engine's certified re-rank then
+# orders the candidates as the oracle does, so every shard count returns
+# the single-device rows.
+@dataclass
+class ShardedTiles:
+    """A tile layout's placement over a ``TileMesh``, as indices into the
+    layout's own arrays (its ``t_base`` base tiles, then ``td`` delta
+    tiles): ``local[s, j]`` is shard s's j-th tile, base tiles strided
+    then the delta's, which every shard sees and only shard 0's are
+    ``live``. Pad slots point at tile 0 and are not live; a slot that is
+    not live bounds +inf, so no scan reads it."""
+    mesh: TileMesh
+    perm: np.ndarray           # padded position -> base tile (>= t_base: pad)
+    t_local: int
+    t_base: int
+    td: int
+    local_np: np.ndarray       # (S, t_local + td) int64
+    live_np: np.ndarray        # (S, t_local + td) bool
+    local: torch.Tensor
+    live: torch.Tensor
+
+    @property
+    def shards(self) -> int:
+        return self.mesh.shards
+
+    @property
+    def t_total(self) -> int:
+        """Tiles each shard's scan sees (its own plus the delta's)."""
+        return self.t_local + self.td
+
+
+def shard_tiles(mesh: TileMesh, t_base: int, td: int = 0) -> ShardedTiles:
+    """The strided placement of ``t_base`` base tiles over ``mesh``, with
+    ``td`` delta tiles (indices ``t_base ...``) seen after every shard's
+    own and live on shard 0 only."""
+    s = mesh.shards
+    perm, tl, _ = strided_tile_layout(t_base, s)
+    pad = (perm >= t_base).reshape(s, tl)
+    local = np.empty((s, tl + td), np.int64)
+    local[:, :tl] = np.where(pad, 0, perm.reshape(s, tl))
+    local[:, tl:] = t_base + np.arange(td)
+    live = np.ones((s, tl + td), bool)
+    live[:, :tl] = ~pad
+    live[1:, tl:] = False
+    return ShardedTiles(
+        mesh=mesh, perm=perm, t_local=tl, t_base=t_base, td=td,
+        local_np=local, live_np=live,
+        local=shard_put(local.reshape(-1), mesh),
+        live=shard_put(live.reshape(-1), mesh))
+
+
+def _sharded_tile_masks(masks: Optional[torch.Tensor], st: ShardedTiles,
+                        bucket_rows: torch.Tensor):
+    """Per-row masks (G, n) as each shard's tile-major (S, G, L, cap)."""
+    if masks is None:
+        return None
+    s, l = st.shards, st.t_total
+    g = masks.shape[0]
+    cap = bucket_rows.shape[1]
+    flat = bucket_rows[st.local].reshape(-1).clamp_min(0)
+    return masks[:, flat].view(g, s, l, cap).transpose(0, 1).contiguous()
+
+
+def _sharded_prologue(qs, st: ShardedTiles, geom: LeafGeometry, mt):
+    """Each shard's tile lower bounds for every query, sorted: (order,
+    sorted bounds), both (S, G, L). One distance launch covers every
+    tile's centroid; slots that are not live, and tiles with no masked
+    row, bound +inf."""
+    s, l = st.shards, st.t_total
+    g = qs.shape[0]
+    d2c = ops.pairwise_sq_l2(qs, geom.centroid)
+    dc = torch.sqrt(torch.clamp_min(d2c, 0.0))[:, st.local]   # (G, S, L)
+    rad = torch.where(st.live, geom.radius[st.local],
+                      torch.full_like(st.local, -_INF, dtype=torch.float32))
+    lb = torch.clamp_min(dc - rad[None], 0.0).transpose(0, 1)
+    if mt is not None:
+        lb = torch.where(mt.any(dim=3), lb, torch.full_like(lb, _INF))
+    lb = lb.reshape(s * g, l)
+    if l <= 4096:
+        order, lb_sorted = _sort_packed(lb)
+    else:
+        order = torch.argsort(lb, dim=1, stable=True)
+        lb_sorted = torch.gather(lb, 1, order)
+    return order.view(s, g, l), lb_sorted.view(s, g, l)
+
+
+def _shard_heap_merge(coll, lbd, lbr, k: int):
+    """The k-way merge of the shards' local heaps (S, G, k): gather them
+    in shard order (the deterministic tie-break) and keep the best k of
+    each query's S*k with one ``stable_topk``. Local heaps cover disjoint
+    rows, so the result is the exact top-k of everything scanned."""
+    ad = coll.all_gather(lbd)
+    ar = coll.all_gather(lbr)
+    s, g, _ = ad.shape
+    ad = ad.transpose(0, 1).reshape(g, s * k)
+    ar = ar.transpose(0, 1).reshape(g, s * k)
+    d, pick = stable_topk(ad, k)
+    return d, torch.gather(ar, 1, pick)
+
+
+def _sharded_local_scan(st: ShardedTiles, lay, qs_rep, sel, colv, act, lbd,
+                        lbr, mt, k: int, k_stop: int, lb_col=None,
+                        precision: str = "fp32", kth0=None,
+                        host_exit: bool = True):
+    """Every shard's beam scan of its selected local tiles ``sel`` (S, G, w)
+    of the layout ``lay`` (bucket rows, data tiles, planes) as one launch
+    over S*G rows (``qs_rep``: the queries repeated
+    shard-major), merged into each shard's LOCAL heap (S, G, k), carry
+    first, so earlier (lower-bound) tiles keep the visit-order tie-break.
+    ``colv`` (S, G, w) marks real columns, ``act`` (G,) the active
+    queries, ``lb_col`` (S, G, w) the tiles' bounds (the kernel's early-out
+    and, on a reduced-precision scan, the rescue's ball bounds), ``kth0``
+    (G,) the previous round's GLOBAL k_stop-th squared distance (reduced
+    precision: it refutes from the rescue's first iteration). Returns
+    (local d2 and rows (S, G, k), valid rows (S, G), rescued (S, G),
+    least refuted bounds (S, G, 2))."""
+    bucket_rows, data_tiles, planes = lay
+    s, g, w = sel.shape
+    cap = bucket_rows.shape[1]
+    r = s * g
+    dev = qs_rep.device
+    fsel = torch.gather(st.local[:, None, :].expand(s, g, -1), 2,
+                        sel).reshape(r, w)
+    cand = bucket_rows[fsel].reshape(r, w * cap)
+    valid = (cand >= 0) & colv.reshape(r, w).repeat_interleave(cap, dim=1)
+    if act is not None:
+        valid = valid & act.repeat(s)[:, None]
+    if mt is not None:
+        valid = valid & _gather_tiles(mt.reshape(r, -1, cap),
+                                      sel.reshape(r, w)).reshape(r, -1)
+    lb2 = None
+    if lb_col is not None:
+        lb2 = (lb_col * lb_col).reshape(r, w).repeat_interleave(cap, dim=1)
+    if precision != "fp32":
+        d2, idx, resc, refuted = ops.topk_l2_masked_mp(
+            qs_rep, fsel, valid, data_tiles, *planes, k, lb2=lb2,
+            kth0=None if kth0 is None else kth0.repeat(s),
+            precision=precision, k_rescue=k_stop, host_exit=host_exit)
+    else:
+        pts = data_tiles[fsel].reshape(r, w * cap, -1)
+        d2, idx = ops.topk_l2_masked(qs_rep, pts, valid, k, lb2=lb2)
+        resc = torch.zeros(r, dtype=torch.int64, device=dev)
+        refuted = torch.full((r, 2), _INF, device=dev)
+    rows = torch.gather(cand, 1, idx.clamp_min(0))
+    rows = torch.where(idx >= 0, rows, torch.full_like(rows, -1))
+    md, pick = stable_topk(torch.cat([lbd.reshape(r, k), d2], dim=1), k)
+    mr = torch.gather(torch.cat([lbr.reshape(r, k), rows], dim=1), 1, pick)
+    return (md.view(s, g, k), mr.view(s, g, k), valid.sum(1).view(s, g),
+            resc.view(s, g), refuted.view(s, g, 2))
+
+
+def _sharded_start(st: ShardedTiles, geom: LeafGeometry, lay, qs, masks, *,
+                   w1: int, k: int, k_stop: int, precision: str):
+    """The mask relayout, each shard's prologue, its first round of ``w1``
+    local tiles (global coverage S*w1), the merge and the stopping rule:
+    a query stays active iff its global k_stop-th distance exceeds the
+    pmin over shards of the next local bound."""
+    coll = st.mesh.collectives
+    s, l = st.shards, st.t_total
+    g = qs.shape[0]
+    dev = qs.device
+    mt = _sharded_tile_masks(masks, st, geom.bucket_rows)
+    order, lb_sorted = _sharded_prologue(qs, st, geom, mt)
+    qs_rep = qs.repeat(s, 1)
+    lbd = torch.full((s, g, k), _INF, device=dev)
+    lbr = torch.full((s, g, k), -1, dtype=torch.int64, device=dev)
+    colv = ~torch.isinf(lb_sorted[..., :w1])
+    lbd, lbr, nvalid, resc, refuted = _sharded_local_scan(
+        st, lay, qs_rep, order[..., :w1], colv, None, lbd, lbr, mt, k, k_stop,
+        lb_col=lb_sorted[..., :w1] if precision != "fp32" else None,
+        precision=precision, host_exit=False)
+    gbd, gbr = _shard_heap_merge(coll, lbd, lbr, k)
+    kth = torch.sqrt(gbd[:, k_stop - 1])
+    nxt = coll.pmin(lb_sorted[..., w1]) if w1 < l else \
+        torch.full((g,), _INF, device=dev)
+    return (order, lb_sorted, mt, lbd, lbr, gbd, gbr, kth > nxt,
+            coll.psum(nvalid.sum(1)), coll.psum(resc.sum(1)),
+            coll.pmin(refuted))
+
+
+def _sharded_loop(st: ShardedTiles, lay, idx, active0, qs_f, lbd_f, lbr_f,
+                  order_f, lb_f, mt_f, *, w1: int, w: int, budget: int,
+                  k: int, k_stop: int, precision: str = "fp32"):
+    """The sharded straggler loop over the compacted stragglers ``idx``
+    (padded to a power of two; ``active0`` marks the real rows): each
+    round every shard scans its next ``w`` local tiles into its local
+    heap, the merge recomputes the global heap, and queries whose global
+    k_stop-th distance is at most the pmin over shards of the next local
+    bound retire. The host reads the (G,) active mask once per round, as
+    ``_knn_device_loop`` does. Returns (global d2, rows, [rounds,
+    buckets, rows scanned, rescued], per-query retirement round, least
+    refuted bounds (G, 2))."""
+    coll = st.mesh.collectives
+    s, l = st.shards, st.t_total
+    qs = qs_f[idx]
+    g = qs.shape[0]
+    dev = qs.device
+    lbd, lbr = lbd_f[:, idx], lbr_f[:, idx]
+    order_pad = F.pad(order_f[:, idx][..., w1:], (0, budget * w - (l - w1)))
+    lb_pad = F.pad(lb_f[:, idx][..., w1:], (0, budget * w + 1 - (l - w1)),
+                   value=_INF)
+    mt = None if mt_f is None else mt_f[:, idx]
+    qs_rep = qs.repeat(s, 1)
+    gbd, gbr = _shard_heap_merge(coll, lbd, lbr, k)
+    active = active0.clone()
+    rr = torch.zeros(g, dtype=torch.int64, device=dev)
+    nbuck = torch.zeros((), dtype=torch.int64, device=dev)
+    nrows = torch.zeros((), dtype=torch.int64, device=dev)
+    nresc = torch.zeros((), dtype=torch.int64, device=dev)
+    refuted = torch.full((g, 2), _INF, device=dev)
+    r = 0
+    while r < budget and bool(active.any()):
+        start = r * w
+        sel = order_pad[..., start:start + w]
+        lb_col = lb_pad[..., start:start + w]
+        colv = ~torch.isinf(lb_col)
+        lbd, lbr, nv, resc, rlb = _sharded_local_scan(
+            st, lay, qs_rep, sel, colv, active, lbd, lbr, mt, k, k_stop,
+            lb_col=lb_col, precision=precision,
+            kth0=gbd[:, k_stop - 1] if precision != "fp32" else None)
+        gbd2, gbr2 = _shard_heap_merge(coll, lbd, lbr, k)
+        kth = torch.sqrt(gbd2[:, k_stop - 1])
+        nxt = coll.pmin(lb_pad[..., start + w])
+        active2 = active & ~(kth <= nxt)
+        rr = torch.where(active & ~active2, r + 1, rr)
+        nbuck = nbuck + coll.psum((colv & active[None, :, None]).sum((1, 2)))
+        nrows = nrows + coll.psum(nv.sum(1))
+        nresc = nresc + coll.psum(resc.sum(1))
+        refuted = torch.minimum(refuted, coll.pmin(rlb))
+        gbd, gbr, active = gbd2, gbr2, active2
+        r += 1
+    rr = torch.where(active, r, rr)
+    return gbd, gbr, (r, int(nbuck), int(nrows), int(nresc)), rr, refuted
+
+
+def batched_knn_sharded(st: ShardedTiles, geom: LeafGeometry, data_tiles,
+                        qs, k: int, *,
+                        masks: Optional[torch.Tensor] = None, beam: int = 8,
+                        w1: Optional[int] = None, ws: Optional[int] = None,
+                        k_stop: Optional[int] = None,
+                        planes: Optional[quant.TilePlanes] = None,
+                        precision: str = "fp32",
+                        stats: Optional[EngineStats] = None,
+                        conv_out: Optional[list] = None,
+                        next_lb_out: Optional[list] = None,
+                        refuted_out: Optional[list] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact batched (optionally row-masked) KNN over the layout
+    (``geom``, ``data_tiles``, ``planes``) placed T-sharded by ``st``: the
+    contract of ``batched_knn_device``, run per shard.
+
+    One start (mask relayout, each shard's prologue, the first round, the
+    merge), one (G,) active-mask read, then the compacted straggler loop
+    (``_sharded_loop``). Round widths are PER-SHARD tile counts: by
+    default ``w1 = ceil(max(1, beam/2)/S)`` and ``w = ceil(beam/S)``, so
+    the global first-round coverage S*w1 matches the single-device
+    default; both are capped to ``_round_tiles`` of the S*G rows a round
+    scans. ``conv_out`` receives per-query converged widths in per-shard
+    tiles, ``next_lb_out`` the least bound over shards among tiles that
+    may hold rows the scan left out, ``refuted_out`` the least refuted
+    bounds (G, 2), as ``batched_knn_device`` gives them."""
+    t0 = time.time()
+    k_stop = k if k_stop is None else k_stop
+    dev = st.mesh.device
+    qs = qs.float().to(dev)
+    s, l = st.shards, st.t_total
+    g = int(qs.shape[0])
+    if precision == "fp32":
+        planes = None
+    lay = (geom.bucket_rows, data_tiles, planes)
+    w1 = max(1, min(w1 if w1 else max(1, -(-max(1, beam // 2) // s)), l,
+                    _round_tiles(s * g, data_tiles, planes)))
+    (order, lb_sorted, mt, lbd, lbr, d2, rows, active, nvalid, resc,
+     refuted) = _sharded_start(st, geom, lay, qs, masks, w1=w1, k=k,
+                               k_stop=k_stop, precision=precision)
+    if stats is not None:
+        stats.knn_rounds += 1
+        stats.knn_buckets += g * w1 * s
+        stats.rows_scanned += int(nvalid)
+        if precision != "fp32":
+            stats.mp_scanned += int(nvalid)
+            stats.mp_rescued += int(resc)
+    conv = np.full(g, w1, np.int64)
+    act = np.nonzero(active.cpu().numpy())[0]
+    d2f = d2.cpu().numpy()
+    rowsf = rows.cpu().numpy()
+    refuted_f = refuted.cpu().numpy()
+    if len(act) and w1 < l:
+        na = len(act)
+        gp = _next_pow2(na)
+        padded = np.zeros(gp, np.int64)
+        padded[:na] = act
+        idx = torch.as_tensor(padded, device=dev)
+        active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
+        w = max(1, min(ws if ws else max(1, -(-beam // s)),
+                       _round_tiles(s * gp, data_tiles, planes)))
+        budget = -(-(l - w1) // w)
+        bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
+            _sharded_loop(st, lay, idx, active0, qs, lbd, lbr, order,
+                          lb_sorted, mt, w1=w1, w=w, budget=budget, k=k, k_stop=k_stop,
+                          precision=precision)
+        refuted_f = refuted_f.copy()
+        refuted_f[act] = np.minimum(refuted_f[act], rlb[:na].cpu().numpy())
+        d2f = d2f.copy()
+        rowsf = rowsf.copy()
+        d2f[act] = bd[:na].cpu().numpy()
+        rowsf[act] = br[:na].cpu().numpy()
+        conv[act] = np.minimum(
+            w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w, l)
+        if stats is not None:
+            stats.knn_rounds += rounds
+            stats.knn_buckets += nbuck
+            stats.rows_scanned += nrows
+            if precision != "fp32":
+                stats.mp_scanned += nrows
+                stats.mp_rescued += nresc
+    if stats is not None:
+        stats.time_s += time.time() - t0
+    if conv_out is not None:
+        conv_out.append(conv)
+    if next_lb_out is not None:
+        # per shard, as batched_knn_device_async: the least bound among its
+        # tiles past the converged width or at or above the final k-th
+        # expansion distance (the lb2 early-out's skips); then the least
+        # over shards
+        lbs = F.pad(lb_sorted, (0, 1), value=_INF).double().reshape(
+            s * g, l + 1)
+        thr = np.sqrt(d2f[:, -1].astype(np.float64) * (1 - 4 * _U32))
+        pos = torch.minimum(
+            torch.searchsorted(lbs, torch.as_tensor(
+                np.tile(thr, s), device=dev)[:, None]),
+            torch.as_tensor(np.tile(conv, s), device=dev)[:, None])
+        next_lb_out.append(st.mesh.collectives.pmin(
+            torch.gather(lbs, 1, pos).view(s, g)).cpu().numpy())
+    if refuted_out is not None:
+        refuted_out.append(refuted_f)
+    return np.sqrt(d2f), rowsf.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
 # Grouped predicate masks (one call per (type, attr) group)
 # ---------------------------------------------------------------------------
 def _ne_group_masks(col, num_lo, num_hi, row_leaf, v, tol):
@@ -957,10 +1333,13 @@ def plannable(q: Q.Query) -> bool:
 
 
 def knn_archetype(attr: str, kmax: int, masked: bool,
-                  device_loop: bool) -> str:
+                  device_loop: bool, shards: int = 0) -> str:
     """QBS convergence key for one KNN job group (widths are in tiles of
-    the layout the loop scans, hence the loop tag)."""
+    the layout the loop scans, hence the loop tag; the sharded loop's are
+    per-shard tile counts, so each shard count keys apart: ``:sN``)."""
     tag = "dl" if device_loop else "hl"
+    if shards:
+        tag += f":s{shards}"
     return (f"VK:{attr}:k{kmax}:{'masked' if masked else 'plain'}"
             f":{tag}")
 
@@ -976,7 +1355,8 @@ class KnnGroupSpec:
 
 
 def group_job_specs(job_specs: Sequence[Tuple[str, int, bool]],
-                    device_loop: bool) -> Tuple[KnnGroupSpec, ...]:
+                    device_loop: bool, shards: int = 0
+                    ) -> Tuple[KnnGroupSpec, ...]:
     """The grouping policy, shared by the engine and the planner: the
     device loop runs ONE group per attribute (unmasked jobs get an
     all-true mask); the host loop keeps masked jobs apart. Within a
@@ -994,7 +1374,7 @@ def group_job_specs(job_specs: Sequence[Tuple[str, int, bool]],
         specs.append(KnnGroupSpec(
             attr=attr, jobs=tuple(idxs), kmax=kmax, n_masked=n_masked,
             archetype=knn_archetype(attr, kmax, n_masked > 0,
-                                    device_loop)))
+                                    device_loop, shards)))
     return tuple(specs)
 
 
@@ -1007,6 +1387,8 @@ class EnginePlan:
     job_specs: Tuple[Tuple[str, int, bool], ...]  # (attr, k, masked)/job
     groups: Tuple[KnnGroupSpec, ...]
     seeds: Optional[Dict[str, int]] = None        # archetype -> width
+    shards: int = 0   # the shard count the grouping was keyed for (0:
+    #                   one device); must match the executing engine
     precision: str = "fp32"   # scan precision the plan was keyed for;
     #                           must match the executing engine
 
@@ -1041,13 +1423,22 @@ class HybridEngine:
     ``cost.CostModel`` or None) steers the V.R dense-vs-tile route once
     both V.R kinds are reliably fitted (``_vr_masks``); the owning
     platform refreshes it on every ``engine()`` call, and unions its
-    un-folded appends in through ``sync_delta``."""
+    un-folded appends in through ``sync_delta``.
+
+    ``shards``: None keeps the single-device paths; S >= 1 also places
+    both layouts' tiles over a ``TileMesh`` of S shards (``mesh``, default
+    ``tile_mesh(S, device)``), and the device loop and the V.R tile route
+    run sharded (S = 1 runs the whole sharded program on one shard),
+    reading the same arrays as the single-device paths through that
+    placement. The host loop, the dense V.R pass and the re-rank's
+    widening run as on one device."""
 
     def __init__(self, tree, table, meta, *, beam: int = 16,
                  tile: int = 128, device_loop: bool = True,
                  device_tile: Optional[int] = None, device=None,
                  precision: str = "fp32", quant_cache=None,
-                 cost_model=None):
+                 cost_model=None, shards: Optional[int] = None,
+                 mesh: Optional[TileMesh] = None):
         if precision not in quant.PRECISIONS:
             raise ValueError(f"precision must be one of {quant.PRECISIONS},"
                              f" got {precision!r}")
@@ -1141,6 +1532,39 @@ class HybridEngine:
         self.delta_epoch = 0
         self.delta_rows = 0
         self.delta_tiles = 0
+        self.delta_tiles_dev = 0      # the device loop's layout's
+        self.shards: Optional[int] = None
+        self.mesh: Optional[TileMesh] = None
+        self.sharded_dev: Optional[ShardedTiles] = None
+        self.sharded_vr: Optional[ShardedTiles] = None
+        if shards is not None:
+            self._shard(shards, mesh)
+
+    def _shard(self, shards: int, mesh: Optional[TileMesh]):
+        """The placement of both layouts over the mesh, their delta tiles
+        included: the device loop's finer layout drives the sharded beam
+        loop, the coarse one the sharded V.R route. Every attribute shares
+        one tile layout, so one placement each serves them all; the scans
+        read the engine's own arrays through it."""
+        self.shards = shards
+        self.mesh = mesh if mesh is not None else tile_mesh(shards,
+                                                            self.device)
+        self.sharded_dev = shard_tiles(
+            self.mesh, int(self.bucket_rows_dev.shape[0]),
+            self.delta_tiles_dev)
+        self.sharded_vr = shard_tiles(self.mesh, self._base["n_tiles"],
+                                      self.delta_tiles)
+
+    def with_shards(self, shards: int,
+                    mesh: Optional[TileMesh] = None) -> "HybridEngine":
+        """A sharded engine over this engine's state: it shares the
+        single-device layouts, the delta union of this engine's write
+        epoch included (``sync_delta`` replaces them and never writes
+        them), and builds only their placement over the mesh, so no
+        layout is derived from the table again."""
+        eng = copy.copy(self)
+        eng._shard(shards, mesh)
+        return eng
 
     def _make_planes(self, layout: str, attr: str, tiles_np: np.ndarray,
                      valid: np.ndarray) -> quant.TilePlanes:
@@ -1283,7 +1707,9 @@ class HybridEngine:
             for k, v in base.items():
                 setattr(self, k, v)
             self.delta_rows = 0
-            self.delta_tiles = 0
+            self.delta_tiles = self.delta_tiles_dev = 0
+            if self.mesh is not None:
+                self._shard(self.shards, self.mesh)
             return
         dev = self.device
         nb = self.n_base
@@ -1305,6 +1731,7 @@ class HybridEngine:
              torch.as_tensor(base["n_tiles"] + row_tile_h, device=dev)])
         rows_d, local_d, valid_d, _ = self._delta_layout(
             delta, self.cap_dev, groups)
+        self.delta_tiles_dev = len(rows_d)
         br_dev_u = torch.cat([self.bucket_rows_dev,
                               torch.as_tensor(rows_d, device=dev)])
         vec, vec_np, vt, vpp, vmax2, geom = {}, {}, {}, {}, {}, {}
@@ -1345,6 +1772,10 @@ class HybridEngine:
                         quant.plan_tiles(pts, ok, self.precision))
                     out[a] = quant.TilePlanes(*(
                         torch.cat([b, x]) for b, x in zip(base[key][a], dpl)))
+        if self.mesh is not None:
+            # every shard sees the delta tiles after its own (live on
+            # shard 0 only)
+            self._shard(self.shards, self.mesh)
         self.vec, self.vec_np, self.vec_max2 = vec, vec_np, vmax2
         self.vec_tiles, self.vec_tile_pp, self.geom = vt, vpp, geom
         self.vec_tiles_dev, self.geom_dev = vt_dev, geom_dev
@@ -1424,19 +1855,26 @@ class HybridEngine:
         pass is chosen instead: by predicted cost when ``cost_model`` is
         reliably fitted for both "vr:dense" and "vr:tile" and predicts
         both, else when the survivors cover more than
-        ``_VR_DENSE_CUTOFF`` of the table. tile_route=False (oracle
-        path): always the dense pass. Both routes return the same masks;
-        rows near the boundary are re-checked on the host with the exact
-        formula either way."""
+        ``_VR_DENSE_CUTOFF`` of the table. On a sharded engine the bound
+        and the union pass run per shard (``_vr_plan_sharded``,
+        ``_vr_union_sharded``); the dense pass stays on the single-device
+        column. tile_route=False (oracle path): always the dense pass.
+        Both routes return the same masks; rows near the boundary are
+        re-checked on the host with the exact formula either way."""
         t_vr0 = time.time()
         vecs = np.stack([b.vec() for b in grp])
         r = np.asarray([b.radius for b in grp], np.float32)
         r2 = r.astype(np.float32) ** 2
         qs = torch.as_tensor(vecs, dtype=torch.float32, device=self.device)
         r_t = torch.as_tensor(r, device=self.device)
-        leaf_ok_t = _vr_leaf_plan(qs, r_t, self.geom[attr].centroid,
-                                  self.geom[attr].radius)
-        leaf_ok = leaf_ok_t.cpu().numpy()
+        sharded = tile_route and self.sharded_vr is not None
+        if sharded:
+            leaf_ok, cols = self._vr_plan_sharded(attr, qs, r_t)
+            leaf_ok_t = torch.as_tensor(leaf_ok, device=self.device)
+        else:
+            leaf_ok_t = _vr_leaf_plan(qs, r_t, self.geom[attr].centroid,
+                                      self.geom[attr].radius)
+            leaf_ok = leaf_ok_t.cpu().numpy()
         touched = int(leaf_ok.sum())
         g = len(grp)
         stats.vr_tiles_pruned += g * self.n_tiles - touched
@@ -1470,6 +1908,11 @@ class HybridEngine:
                 ("vr:dense", feats_dense, time.time() - t_vr0))
             return m, touched
         stats.vr_tiles_scanned += touched
+        if sharded:
+            m = self._vr_union_sharded(attr, cols, qs, r2, vecs)
+            stats.stage_samples.append(
+                ("vr:tile", feats_tile, time.time() - t_vr0))
+            return m, touched
         # pad the union to a power of two (bounded shape universe, as in
         # the reference); pad columns have no members
         u = len(union)
@@ -1497,6 +1940,57 @@ class HybridEngine:
         stats.stage_samples.append(
             ("vr:tile", feats_tile, time.time() - t_vr0))
         return m, touched
+
+    def _vr_plan_sharded(self, attr: str, qs, r_t
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """The triangle bound over every tile ball (one distance launch),
+        read per shard through its placement: each shard's own tiles and
+        the delta's (live on shard 0). Returns (the survival matrix in the
+        single-device tile order, (g, n_tiles); each shard's local
+        survival (g, S, L))."""
+        st = self.sharded_vr
+        geom = self.geom[attr]
+        surv = _vr_leaf_plan(qs, r_t, geom.centroid, geom.radius)
+        cols = (surv[:, st.local] & st.live[None]).cpu().numpy()
+        leaf_ok = np.zeros((cols.shape[0], self.n_tiles), bool)
+        leaf_ok[:, st.local_np[st.live_np]] = cols[:, st.live_np]
+        return leaf_ok, cols
+
+    def _vr_union_sharded(self, attr: str, cols: np.ndarray, qs,
+                          r2: np.ndarray, vecs: np.ndarray) -> np.ndarray:
+        """The exact radius test per shard over the union of its own
+        surviving tiles, padded to one width u (a power of two) for every
+        shard, as one GEMM over the S*u tiles; the packed verdicts decode
+        on the host as the single-device route's do."""
+        st = self.sharded_vr
+        g = cols.shape[0]
+        sel_lists = [np.nonzero(cols[:, s].any(axis=0))[0]
+                     for s in range(st.shards)]
+        u = max(1, _next_pow2(max(len(x) for x in sel_lists)))
+        sel_u = np.zeros((st.shards, u), np.int64)
+        member = np.zeros((g, st.shards, u), bool)
+        for s, loc in enumerate(sel_lists):
+            sel_u[s, :len(loc)] = loc
+            member[:, s, :len(loc)] = cols[:, s, loc]
+        flat = np.take_along_axis(st.local_np, sel_u, axis=1).reshape(-1)
+        dev = self.device
+        packed = _vr_union_eval(
+            qs, torch.as_tensor(r2, device=dev),
+            torch.as_tensor(flat, device=dev),
+            torch.as_tensor(member.reshape(g, -1), device=dev),
+            self.vec_tiles[attr], self.vec_tile_pp[attr],
+            self.bucket_rows).cpu().numpy()
+        within, near = (packed & 1).astype(bool), (packed & 2).astype(bool)
+        rows = self.bucket_rows_np[flat].reshape(-1)
+        m = np.zeros((g, self.n), bool)
+        gis, cis = np.nonzero(within)
+        m[gis, rows[cis]] = True
+        gis, cis = np.nonzero(near)
+        if len(gis):
+            rws = rows[cis]
+            col = self.vec_np[attr]
+            m[gis, rws] = (((col[rws] - vecs[gis]) ** 2).sum(1) <= r2[gis])
+        return m
 
     # --------------------------------------------------------------- stage 3
     def _walk(self, q, ambient, pred_masks, jobs, job_rows, ctr):
@@ -1550,7 +2044,8 @@ class HybridEngine:
 
     def _group_jobs(self, jobs, device_loop: bool) -> List[KnnGroupSpec]:
         specs = tuple((vk.attr, vk.k, m is not None) for vk, m in jobs)
-        return list(group_job_specs(specs, device_loop))
+        shards = (self.shards or 0) if device_loop else 0
+        return list(group_job_specs(specs, device_loop, shards))
 
     def _run_jobs(self, jobs, stats: EngineStats, device_loop: bool,
                   groups: Optional[Sequence[KnnGroupSpec]] = None,
@@ -1577,13 +2072,15 @@ class HybridEngine:
         the first round (``batched_knn_device_async``); its finisher (the
         fence, the straggler loop, the re-rank and the widening, and the
         width and cost records) runs in ``_PendingJobs.finish()``, in
-        group order. The host loop runs at dispatch, as in the reference.
-        The device loop's dispatch takes no host sync. ``eager=True`` runs
+        group order. The host loop and the sharded device loop run at
+        dispatch, as in the reference. The single-device loop's dispatch
+        takes no host sync. ``eager=True`` runs
         each finisher right after its dispatch, which is ``_run_jobs``.
         ``record_cost=False`` leaves out the KNN
         stages' wall-time samples (under overlap they would time other
         work too)."""
         pend = _PendingJobs(len(jobs))
+        sharded = device_loop and self.mesh is not None
         if groups is None:
             groups = self._group_jobs(jobs, device_loop)
         # while un-folded delta tiles are unioned in, scans converge wider:
@@ -1619,7 +2116,19 @@ class HybridEngine:
                           else self.vec_planes)[attr]
             l = geom.n_leaves
             k_scan = kmax + _RERANK_EXTRA
-            if device_loop:
+            feat_shards, feat_tiles, feat_cap = 0, l, geom.cap
+            if sharded:
+                st = self.sharded_dev
+                ws = max(1, _next_pow2(seed)) if seed else None
+                knn = _ReadyKnn(batched_knn_sharded(
+                    st, geom, tiles, qs, k_scan, masks=masks,
+                    beam=self.beam, ws=ws, k_stop=kmax, planes=planes,
+                    precision=self.precision, stats=stats, conv_out=conv,
+                    next_lb_out=next_lb, refuted_out=refuted))
+                w_base = max(1, min(-(-max(1, self.beam // 2)
+                                      // st.shards), st.t_total))
+                feat_shards, feat_tiles = st.shards, st.t_total
+            elif device_loop:
                 ws = max(self.beam, _next_pow2(seed)) if seed else None
                 knn = batched_knn_device_async(
                     geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
@@ -1637,15 +2146,16 @@ class HybridEngine:
                     stats=stats, conv_out=conv, next_lb_out=next_lb,
                     refuted_out=refuted))
                 w_base = max(1, min(beam_eff, l))
+            kind = costm.knn_kind(device_loop, feat_shards)
             feats = costm.knn_plan_features(
-                device_loop=device_loop, g=len(idxs), k=kmax,
-                beam=self.beam, tiles=l, cap=geom.cap, dim=qv.shape[1],
-                precision=self.precision, seed=seed)
+                device_loop=device_loop, shards=feat_shards, g=len(idxs),
+                k=kmax, beam=self.beam, tiles=feat_tiles, cap=feat_cap,
+                dim=qv.shape[1], precision=self.precision, seed=seed)
 
             def _fin(out, knn=knn, conv=conv, next_lb=next_lb,
                      refuted=refuted, idxs=idxs, attr=attr, arch=arch,
                      qs=qs, qv=qv, masks=masks, geom=geom, w_base=w_base,
-                     feats=feats, t_g0=t_g0):
+                     kind=kind, feats=feats, t_g0=t_g0):
                 dist, rows = knn.finish()
                 signal = np.maximum(conv[0] - w_base, 0)
                 width = int(np.ceil(np.quantile(signal, 0.9))) \
@@ -1653,8 +2163,7 @@ class HybridEngine:
                 stats.knn_group_widths.append((arch, width))
                 if record_cost:
                     stats.stage_samples.append(
-                        (costm.knn_kind(device_loop), feats,
-                         time.time() - t_g0))
+                        (kind, feats, time.time() - t_g0))
                 fails, failed = [], []
                 stats.knn_jobs += len(idxs)
                 for pos, i in enumerate(idxs):
@@ -1693,6 +2202,14 @@ class HybridEngine:
     def _resolve_loop(self, device_loop: Optional[bool],
                       plan: Optional[EnginePlan]) -> bool:
         if plan is not None:
+            # only the device loop runs sharded: host-loop plans carry
+            # shards=0 and run on any engine
+            want = (self.shards or 0) if plan.device_loop else 0
+            if plan.shards != want:
+                raise ValueError(
+                    f"EnginePlan was grouped for shards={plan.shards} but "
+                    f"this engine runs shards={want} (stale or mis-keyed "
+                    f"plan cache)")
             if plan.precision != self.precision:
                 raise ValueError(
                     f"EnginePlan was keyed for precision="
@@ -1726,7 +2243,8 @@ class HybridEngine:
         against this batch's walk."""
         device_loop = self._resolve_loop(device_loop, plan)
         t0 = time.time()
-        stats = EngineStats(queries=len(queries))
+        stats = EngineStats(queries=len(queries),
+                            shards=(self.shards or 0) if device_loop else 0)
         pred_masks = self._stage_batch(queries, stats, device_loop, plan)
         jobs, groups, seeds = self._plan_jobs(queries, pred_masks, plan)
         job_rows = self._run_jobs(jobs, stats, device_loop,
@@ -1752,7 +2270,8 @@ class HybridEngine:
         dispatched between the two halves."""
         device_loop = self._resolve_loop(device_loop, plan)
         t0 = time.time()
-        stats = EngineStats(queries=len(queries))
+        stats = EngineStats(queries=len(queries),
+                            shards=(self.shards or 0) if device_loop else 0)
         pred_masks = self._stage_batch(queries, stats, device_loop, plan)
         jobs, groups, seeds = self._plan_jobs(queries, pred_masks, plan)
         pending = self._dispatch_jobs(jobs, stats, device_loop,

@@ -187,7 +187,9 @@ def save_platform(platform, directory: str):
     """Lake table + index + transform in one crash-atomic generation
     snapshot, with the live (un-folded) delta rows beside it, so a
     restart serves the freshest data without a fold. ``default_shards``
-    rides in platform.json.
+    rides in platform.json; the sharded layout itself is derived state
+    (permuted from the tiles by the first sharded engine), never
+    stored.
 
     The snapshot lands as ``<directory>/gen-XXXX`` (XXXX =
     ``platform.generation``, or the next free number when that one is
@@ -234,8 +236,11 @@ def _resolve_snapshot(directory: str,
 
 
 def _device_count(device: torch.device) -> int:
-    """Devices a restored shard topology may span: the CUDA devices on
-    a CUDA device, one on the CPU."""
+    """The device count a restored shard count is clamped to, as the
+    reference clamps it to ``jax.device_count()``: the CUDA devices on a
+    CUDA device, one on the CPU. (A mesh of any S runs on one device, but
+    the clamp keeps the reference's loaded topology; ``shards`` at
+    ``load_platform`` or ``engine(shards=...)`` asks for another.)"""
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
@@ -248,8 +253,10 @@ def load_platform(directory: str, shards: Optional[int] = None,
     Resolves the versioned layout through ``CURRENT`` (``generation``
     pins a retained snapshot instead: the durable rollback's read path);
     a directory without ``CURRENT`` loads as a legacy flat snapshot. The
-    saved ``default_shards`` is restored (``shards`` overrides it) and
-    clamped to the devices this host has. A ``quant.npz`` becomes the
+    saved ``default_shards`` is restored (``shards`` overrides it, None
+    keeps the saved one) and clamped to the devices this host has, as
+    the reference does; the first sharded engine permutes its layout from
+    the loaded tiles. A ``quant.npz`` becomes the
     platform's ``_quant_cache``, which its engines take in place of
     quantizing."""
     from repro_torch.core.platform import MQRLD

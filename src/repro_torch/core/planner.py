@@ -1,9 +1,10 @@
 """MOAPI v2 query planner: ``Session.plan(queries) -> ExecutablePlan``.
-Port of ``repro/core/planner.py`` for one device.
+Port of ``repro/core/planner.py``.
 
 Per batch: ``Q.normalize`` -> ``Q.signature`` -> a ``LogicalPlan``
 (per-query fragment, V.K job layout, KNN grouping), cached per (batch
-signatures, loop kind, scan precision, platform build id) -> an
+signatures, loop kind, shard count, scan precision, platform build id)
+-> an
 ``ExecutablePlan`` bound to this batch's constants, which runs through
 ``HybridEngine`` with beam seeds read from the QBS convergence rings and
 records its widths, stage costs and workload back. An append does not
@@ -39,7 +40,14 @@ the scalar fallbacks and makes every QBS write; its rows and stats are
 coalesces requests by, and ``Session.prewarm`` inserts plan skeletons
 ahead of use. ``explain()`` reports each fragment's served latency.
 
-Not ported yet: sharded topologies (ROADMAP queue 1 item 8).
+Sharded sessions (``Session(shards=S)``): the device loop runs over S
+shards of the tile layout; each shard count has its own plans and QBS
+archetype keys (``:sS``: widths are per-shard tile counts), and
+``explain()["shards"]`` reports it. Host-loop plans always carry 0. A
+session whose shard count nobody pinned (``auto_topology``) lets the
+calibrated model choose among every shard count it has a reliable kind
+for; a pinned one chooses between the host loop and its own count.
+Results are the same rows at every shard count.
 """
 from __future__ import annotations
 
@@ -74,6 +82,7 @@ class LogicalPlan:
     scalar_idx: Tuple[int, ...]     # positions needing the scalar path
     job_specs: Tuple[Tuple[str, int, bool], ...]   # (attr, k, masked)/job
     groups: Tuple[KnnGroupSpec, ...]
+    shards: int = 0       # the device loop's shard count (0: one device)
 
 
 def _collect_job_specs(q: Q.Query, ambient: bool,
@@ -101,8 +110,8 @@ def _collect_job_specs(q: Q.Query, ambient: bool,
     raise TypeError(q)
 
 
-def build_logical_plan(norm: Sequence[Q.Query],
-                       device_loop: bool) -> LogicalPlan:
+def build_logical_plan(norm: Sequence[Q.Query], device_loop: bool,
+                       shards: int = 0) -> LogicalPlan:
     """Derive the plan skeleton for one batch of normalized queries."""
     sigs = tuple(Q.signature(q) for q in norm)
     engine_idx, scalar_idx = [], []
@@ -121,11 +130,13 @@ def build_logical_plan(norm: Sequence[Q.Query],
             scalar_idx.append(i)
             fragments.append(FragmentPlan(
                 signature=sigs[i], path="scalar", job_slots=()))
+    eff = shards if device_loop else 0
     return LogicalPlan(
         signatures=sigs, device_loop=device_loop,
         fragments=tuple(fragments), engine_idx=tuple(engine_idx),
         scalar_idx=tuple(scalar_idx), job_specs=tuple(job_specs),
-        groups=group_job_specs(tuple(job_specs), device_loop))
+        groups=group_job_specs(tuple(job_specs), device_loop, eff),
+        shards=eff)
 
 
 def _delta_suffix(platform) -> str:
@@ -135,15 +146,20 @@ def _delta_suffix(platform) -> str:
 
 
 def _knn_group_features(eng, grp: KnnGroupSpec, device_loop: bool,
-                        beam: int, precision: str,
+                        shards: int, beam: int, precision: str,
                         seed: Optional[int] = None) -> Tuple[float, ...]:
     """Plan-time cost features for one KNN group, read off the layout
     the loop would scan: the features the engine records its observed
-    seconds against."""
+    seconds against. Any engine prices every shard count: the sharded
+    loop's per-shard tile count is ceil(T / shards), the strided
+    layout's t_local."""
     geom = eng.geom_dev[grp.attr] if device_loop else eng.geom[grp.attr]
+    tiles = geom.n_leaves
+    if device_loop and shards:
+        tiles = -(-tiles // max(1, int(shards)))
     return costm.knn_plan_features(
-        device_loop=device_loop, g=len(grp.jobs), k=grp.kmax, beam=beam,
-        tiles=geom.n_leaves, cap=geom.cap,
+        device_loop=device_loop, shards=shards if device_loop else 0,
+        g=len(grp.jobs), k=grp.kmax, beam=beam, tiles=tiles, cap=geom.cap,
         dim=eng.vec_np[grp.attr].shape[1], precision=precision, seed=seed)
 
 
@@ -201,18 +217,19 @@ class ExecutablePlan:
             if w is not None:
                 seeds[grp.archetype + suffix] = w
         cm = sess.platform.cost_model
-        kind = costm.knn_kind(lp.device_loop)
+        kind = costm.knn_kind(lp.device_loop, lp.shards)
         if cm is not None and seeds and cm.reliable(kind):
-            eng = sess.engine()
+            eng = sess.engine(lp.shards)
             for grp in lp.groups:
                 key = grp.archetype + suffix
                 if key not in seeds:
                     continue
                 ps = cm.predict(kind, _knn_group_features(
-                    eng, grp, lp.device_loop, sess.beam, sess.precision,
-                    seed=seeds[key]))
+                    eng, grp, lp.device_loop, lp.shards, sess.beam,
+                    sess.precision, seed=seeds[key]))
                 pn = cm.predict(kind, _knn_group_features(
-                    eng, grp, lp.device_loop, sess.beam, sess.precision))
+                    eng, grp, lp.device_loop, lp.shards, sess.beam,
+                    sess.precision))
                 if ps is not None and pn is not None and pn < ps:
                     seeds.pop(key)
         return seeds
@@ -229,9 +246,9 @@ class ExecutablePlan:
         if lp.engine_idx:
             eng_plan = EnginePlan(
                 device_loop=lp.device_loop, job_specs=lp.job_specs,
-                groups=lp.groups, seeds=self._seeds(),
+                groups=lp.groups, seeds=self._seeds(), shards=lp.shards,
                 precision=self.session.precision)
-            eng = self.session.engine()
+            eng = self.session.engine(lp.shards)
             rows, stats = eng.execute_batch(
                 [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
             for i, r in zip(lp.engine_idx, rows):
@@ -279,9 +296,9 @@ class ExecutablePlan:
         if lp.engine_idx:
             eng_plan = EnginePlan(
                 device_loop=lp.device_loop, job_specs=lp.job_specs,
-                groups=lp.groups, seeds=self._seeds(),
+                groups=lp.groups, seeds=self._seeds(), shards=lp.shards,
                 precision=self.session.precision)
-            pending = self.session.engine().execute_batch_async(
+            pending = self.session.engine(lp.shards).execute_batch_async(
                 [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
         t_disp = time.time() - t0
 
@@ -325,18 +342,18 @@ class ExecutablePlan:
         sess = self.session
         qbs = sess.platform.qbs
         suffix = _delta_suffix(sess.platform)
-        eng = sess.engine() if lp.engine_idx else None
+        eng = sess.engine(lp.shards) if lp.engine_idx else None
         cm = sess.platform.cost_model
         # predicted (None without a model or fit) and observed (the
         # median of the kind's QBS cost ring) seconds per KNN group
-        kind = costm.knn_kind(lp.device_loop)
+        kind = costm.knn_kind(lp.device_loop, lp.shards)
         grp_cost = {}
         for gi, grp in enumerate(lp.groups):
             pred = None
             if cm is not None and eng is not None:
                 pred = cm.predict(kind, _knn_group_features(
-                    eng, grp, lp.device_loop, sess.beam, sess.precision,
-                    seed=seeds.get(grp.archetype + suffix)))
+                    eng, grp, lp.device_loop, lp.shards, sess.beam,
+                    sess.precision, seed=seeds.get(grp.archetype + suffix)))
             grp_cost[gi] = {"kind": kind, "predicted_s": pred,
                             "observed_s": qbs.cost_observed(kind)}
         job_of_group = {j: gi for gi, grp in enumerate(lp.groups)
@@ -380,6 +397,7 @@ class ExecutablePlan:
         return {
             "cache": "hit" if self.cache_hit else "miss",
             "device_loop": lp.device_loop,
+            "shards": lp.shards,
             "device": str(sess.platform.device),
             # calibration state and how this plan's loop was chosen
             "cost_model": {
@@ -436,16 +454,28 @@ class ExecutablePlan:
 
 class Session:
     """One planning/execution context over a prepared ``MQRLD`` platform:
-    the plan cache (keyed on batch signatures + loop kind + precision +
-    platform build id) and the engine configuration."""
+    the plan cache (keyed on batch signatures + loop kind + shard count +
+    precision + platform build id) and the engine configuration.
+    ``shards``: None takes the platform's ``default_shards``, 0 (or None
+    there) one device, S >= 1 the sharded device loop over S shards;
+    ``auto_topology`` lets the calibrated model choose the shard count
+    (``MQRLD.session`` sets it when nobody pinned one)."""
 
     def __init__(self, platform, *, device_loop: bool = True,
                  beam: int = 16, tile: int = 128,
-                 precision: Optional[str] = None):
+                 shards: Optional[int] = None,
+                 precision: Optional[str] = None,
+                 auto_topology: bool = False):
         self.platform = platform
         self.device_loop = device_loop
         self.beam = beam
         self.tile = tile
+        self.auto_topology = auto_topology
+        # resolved here so plan keys and the executing engine never
+        # disagree
+        if shards is None:
+            shards = platform.default_shards
+        self.shards: Optional[int] = shards or None
         # resolved here (explicit > MQRLD_PRECISION > platform default)
         # so plan keys and the executing engine never disagree
         self.precision = platform._resolve_precision(precision)
@@ -458,16 +488,25 @@ class Session:
         self.cache_hits = 0
         self.cache_misses = 0
 
-    def engine(self):
+    def engine(self, shards: Optional[int] = None):
+        """The engine of this session's shard count, or of a plan's own
+        (``ExecutablePlan`` passes ``lp.shards``: host-loop plans carry 0,
+        so the oracle path never builds a sharded engine)."""
+        if shards is None:
+            shards = self.shards or 0
         return self.platform.engine(beam=self.beam, tile=self.tile,
-                                    precision=self.precision)
+                                    shards=shards, precision=self.precision)
 
     def _cost_choice(self, norm: Sequence[Q.Query]
                      ) -> Optional[Tuple[bool, dict]]:
-        """The beam loop of least predicted KNN cost for one batch, as
-        (device_loop, provenance), or None when no choice can be made: no
-        fitted model, no plannable V.K work, the session's own loop kind
-        unfitted or unreliable, or fewer than two candidates priced."""
+        """The loop and shard count of least predicted KNN cost for one
+        batch, as (device_loop, provenance; its ``chosen`` holds the
+        shard count), or None when no choice can be made: no fitted
+        model, no plannable V.K work, the session's own kind unfitted or
+        unreliable, or fewer than two candidates priced. Candidates: the
+        host loop; the single-device loop unless a shard count is pinned;
+        the pinned shard count; with ``auto_topology``, every shard count
+        the model has a kind for (any runs on the devices there are)."""
         cm = self.platform.cost_model
         if cm is None or not cm.calibrated():
             return None
@@ -477,56 +516,72 @@ class Session:
                 _collect_job_specs(q, False, specs)
         if not specs:
             return None
-        if not cm.reliable(costm.knn_kind(self.device_loop)):
+        own = (self.shards or 0) if self.device_loop else 0
+        if not cm.reliable(costm.knn_kind(self.device_loop, own)):
             return None
-        eng = self.engine()
+        cands = [(False, 0)]
+        if self.auto_topology or not self.shards:
+            cands.append((True, 0))
+        if self.shards:
+            cands.append((True, self.shards))
+        if self.auto_topology:
+            for kind in cm.kinds:
+                s = costm.shards_of_kind(kind)
+                if s and s >= 1 and (True, s) not in cands:
+                    cands.append((True, s))
+        eng = self.engine(0)   # the single-device layouts price them all
         suffix = _delta_suffix(self.platform)
         scored = []
-        for dl in (False, True):
-            kind = costm.knn_kind(dl)
+        for dl, sh in cands:
+            kind = costm.knn_kind(dl, sh)
             if not cm.reliable(kind):
                 continue
             total = 0.0
-            for grp in group_job_specs(tuple(specs), dl):
+            for grp in group_job_specs(tuple(specs), dl, sh):
                 seed = self.platform.qbs.convergence_width(
                     grp.archetype + suffix)
                 pred = cm.predict(kind, _knn_group_features(
-                    eng, grp, dl, self.beam, self.precision, seed=seed))
+                    eng, grp, dl, sh, self.beam, self.precision,
+                    seed=seed))
                 if pred is None:
                     total = None
                     break
                 total += pred
             if total is not None:
-                scored.append((total, dl, kind))
+                scored.append((total, dl, sh, kind))
         if len(scored) < 2:
             return None
         scored.sort(key=lambda t: t[0])
         best = scored[0]
         return best[1], {
             "by": "cost_model",
-            "candidates": [{"device_loop": dl, "shards": 0, "kind": kind,
+            "candidates": [{"device_loop": dl, "shards": sh, "kind": kind,
                             "predicted_s": tot}
-                           for tot, dl, kind in scored],
-            "chosen": {"device_loop": best[1], "shards": 0}}
+                           for tot, dl, sh, kind in scored],
+            "chosen": {"device_loop": best[1], "shards": best[2]}}
 
     def plan(self, queries: Sequence[Q.Query], *,
              device_loop: Optional[bool] = None) -> ExecutablePlan:
         """Normalize + sign the batch and return an ``ExecutablePlan``,
         reusing the cached skeleton for a batch archetype planned before
-        under the same loop kind and index build. The loop: an explicit
-        ``device_loop`` wins, then the cost model's choice
-        (``_cost_choice``), then the session's default."""
+        under the same loop kind, shard count and index build. The loop
+        and shard count: an explicit ``device_loop`` wins (with the
+        session's shard count on the device loop), then the cost model's
+        choice (``_cost_choice``), then the session's defaults."""
         norm = [Q.normalize(q) for q in queries]
         choices: Optional[dict] = None
         if device_loop is not None:
             dl = device_loop
+            shards = (self.shards or 0) if dl else 0
             choices = {"by": "explicit"}
         else:
             sel = self._cost_choice(norm)
             if sel is not None:
                 dl, choices = sel
+                shards = choices["chosen"]["shards"]
             else:
                 dl = self.device_loop
+                shards = (self.shards or 0) if dl else 0
         if self._cache_build != self.platform.build_id:
             # entries of dead builds go; entries prewarmed for this build
             # (keyed on it before it was installed) stay
@@ -534,15 +589,15 @@ class Session:
             self._cache = {k: v for k, v in self._cache.items()
                            if k[-1] == b}
             self._cache_build = b
-        key = (tuple(Q.signature(q) for q in norm), dl, self.precision,
-               self.platform.build_id)
+        key = (tuple(Q.signature(q) for q in norm), dl, shards,
+               self.precision, self.platform.build_id)
         logical = self._cache.get(key)
         hit = logical is not None
         if hit:
             self.cache_hits += 1
         else:
             self.cache_misses += 1
-            logical = build_logical_plan(norm, dl)
+            logical = build_logical_plan(norm, dl, shards)
             self._cache[key] = logical
         return ExecutablePlan(self, logical, queries, norm, hit,
                               choices=choices)
@@ -557,16 +612,17 @@ class Session:
         number of skeletons inserted (shapes already cached are
         skipped)."""
         dl = self.device_loop if device_loop is None else device_loop
+        shards = (self.shards or 0) if dl else 0
         b = self.platform.build_id if build_id is None else build_id
         n_new = 0
         for q in queries:
             norm = Q.normalize(q)
             sig = Q.signature(norm)
             for size in sizes:
-                key = ((sig,) * int(size), dl, self.precision, b)
+                key = ((sig,) * int(size), dl, shards, self.precision, b)
                 if key not in self._cache:
                     self._cache[key] = build_logical_plan(
-                        [norm] * int(size), dl)
+                        [norm] * int(size), dl, shards)
                     n_new += 1
         return n_new
 

@@ -68,8 +68,11 @@ oracle-exact across a swap: only which transform and index serve
 changes, never the rows a query answers over. ``objectives_for_morbo``
 is the offline (time, CBR, -accuracy) evaluator of Algorithm 1.
 
-Not ported yet: sharding (ROADMAP queue 1 item 8; a persisted
-``default_shards`` is only stored and restored).
+Sharded execution: ``engine(shards=S)`` and ``session(shards=S)`` run the
+device loop and the V.R tile route over S shards of the tile layout
+(``core/engine.py``, ``sharding/partitioning.py``); ``shards=None`` takes
+``default_shards`` (persisted in platform.json), ``shards=0`` forces one
+device. Each shard count keeps its own cached engine and session.
 """
 from __future__ import annotations
 
@@ -246,8 +249,8 @@ class MQRLD:
         # do not pass ``precision`` use it, after the MQRLD_PRECISION
         # environment override
         self.default_precision: str = "fp32"
-        # sharded serving topology: persisted in platform.json and restored
-        # by load_platform; nothing reads it until sharding is ported
+        # the shard count engine() and session() default to (None: one
+        # device); persisted in platform.json and restored by load_platform
         self.default_shards: Optional[int] = None
         # a loaded snapshot's int8 planes (``snapshot_planes`` plus a
         # ``precision`` entry), handed to every engine built; cleared when
@@ -469,11 +472,15 @@ class MQRLD:
 
     # -------------------------------------------------- index generations
     @staticmethod
-    def _engine_key(beam: int, tile: int, precision: str) -> Tuple:
-        """The cache key of ``engine()``, exposed so the re-optimization
-        warm-up can prewarm a ``Generation.engines`` entry under the key
-        ``swap()`` serves it from."""
-        return (beam, tile, precision)
+    def _engine_key(beam: int, tile: int, precision: str,
+                    shards: Optional[int] = None) -> Tuple:
+        """The cache key of ``engine()`` (``shards``: the effective shard
+        count, None on one device, where the key has no shard entry),
+        exposed so the re-optimization warm-up can prewarm a
+        ``Generation.engines`` entry under the key ``swap()`` serves it
+        from."""
+        key = (beam, tile, precision)
+        return key + (shards,) if shards else key
 
     def snapshot_generation(self) -> Generation:
         """The current serving state as a ``Generation`` (references, no
@@ -670,11 +677,16 @@ class MQRLD:
 
     def engine(self, *, beam: int = 16, tile: int = 128,
                device_loop: Optional[bool] = None,
+               shards: Optional[int] = None,
                precision: Optional[str] = None):
         """The device-resident batched executor (built lazily, one per
-        (beam, tile, precision), invalidated by ``prepare``).
+        (beam, tile, shards, precision), invalidated by ``prepare``).
         ``device_loop`` sets the engine's default beam loop only when
-        passed explicitly; ``precision`` as in ``_resolve_precision``.
+        passed explicitly; ``shards`` (None: ``default_shards``; 0: one
+        device) the shard count of its device loop and V.R tile route;
+        ``precision`` as in ``_resolve_precision``. A sharded engine is
+        derived from the cached single-device engine of the same
+        configuration when there is one (``HybridEngine.with_shards``).
 
         At most ``MAX_ENGINES`` are kept, least recently used first out
         (the reference's bound): each engine holds device copies of the
@@ -686,16 +698,26 @@ class MQRLD:
             raise RuntimeError("call prepare() first")
         from repro_torch.core.engine import HybridEngine
         prec = self._resolve_precision(precision)
-        key = self._engine_key(beam, tile, prec)
+        if shards is None:
+            shards = self.default_shards
+        shards = shards or None
+        key = self._engine_key(beam, tile, prec, shards)
         eng = self._engines.pop(key, None)
         if eng is None:
+            twin = self._engines.get(self._engine_key(beam, tile, prec)) \
+                if shards else None
             while len(self._engines) >= MAX_ENGINES:
                 self._engines.pop(next(iter(self._engines)))
-            eng = HybridEngine(
-                self.tree, self.table, self.meta, beam=beam, tile=tile,
-                device_loop=True if device_loop is None else device_loop,
-                device=self.device, precision=prec,
-                quant_cache=self._quant_cache)
+            if twin is not None:
+                eng = twin.with_shards(shards)
+                eng.device_loop = True if device_loop is None \
+                    else device_loop
+            else:
+                eng = HybridEngine(
+                    self.tree, self.table, self.meta, beam=beam, tile=tile,
+                    device_loop=True if device_loop is None else device_loop,
+                    device=self.device, precision=prec,
+                    quant_cache=self._quant_cache, shards=shards)
         elif device_loop is not None:
             eng.device_loop = device_loop
         self._engines[key] = eng      # (re-)inserted last: LRU order
@@ -708,31 +730,40 @@ class MQRLD:
         return eng
 
     def session(self, *, device_loop: bool = True, beam: int = 16,
-                tile: int = 128, precision: Optional[str] = None):
+                tile: int = 128, shards: Optional[int] = None,
+                precision: Optional[str] = None):
         """The MOAPI v2 entry point: a ``Session`` over this platform
-        (cached per configuration, precision included).
-        ``session().plan(queries)`` gives an ``ExecutablePlan`` with
-        ``execute()`` / ``explain()``."""
+        (cached per configuration, the effective shard count and precision
+        included). ``session().plan(queries)`` gives an ``ExecutablePlan``
+        with ``execute()`` / ``explain()``. ``shards``: None takes
+        ``default_shards``, 0 forces one device; a session whose shard
+        count nobody pinned (no argument, no default) lets a calibrated
+        cost model choose among the shard counts it has fitted
+        (``auto_topology``), which is part of the cache key too."""
         from repro_torch.core.planner import Session
+        eff = self.default_shards if shards is None else shards
+        eff = eff or None
         prec = self._resolve_precision(precision)
-        key = (device_loop, beam, tile, prec)
+        auto = shards is None and self.default_shards is None
+        key = (device_loop, beam, tile, eff, prec, auto)
         if key not in self._sessions:
-            self._sessions[key] = Session(self, device_loop=device_loop,
-                                          beam=beam, tile=tile,
-                                          precision=prec)
+            self._sessions[key] = Session(
+                self, device_loop=device_loop, beam=beam, tile=tile,
+                shards=0 if eff is None else eff, precision=prec,
+                auto_topology=auto)
         return self._sessions[key]
 
-    def calibrate(self, *, batch: int = 16, repeats: int = 2,
-                  seed: int = 0):
+    def calibrate(self, *, shard_counts=None, batch: int = 16,
+                  repeats: int = 2, seed: int = 0):
         """Fit (or refresh) this host's execution cost model from a
-        synthetic sweep through both beam loops
-        (``cost.calibrate_platform``) and install it as ``cost_model``:
-        from then on ``Session.plan`` picks the loop and the engine the
-        V.R route by predicted cost, and observed stage times refit it
-        online."""
+        synthetic sweep through both beam loops and the device loop over
+        each of ``shard_counts`` (``cost.calibrate_platform``) and install
+        it as ``cost_model``: from then on ``Session.plan`` picks the loop
+        and shard count and the engine the V.R route by predicted cost,
+        and observed stage times refit it online."""
         from repro_torch.core.cost import calibrate_platform
-        return calibrate_platform(self, batch=batch, repeats=repeats,
-                                  seed=seed)
+        return calibrate_platform(self, shard_counts=shard_counts,
+                                  batch=batch, repeats=repeats, seed=seed)
 
     def execute_batch(self, queries: Sequence[Q.Query], *,
                       device_loop: bool = True):

@@ -338,13 +338,14 @@ class ReoptController:
                      sizes=self.config.prewarm_sizes)
         try:
             from repro_torch.core.engine import HybridEngine, plannable
+            shards = sess.shards or None
             key = self.platform._engine_key(sess.beam, sess.tile,
-                                            sess.precision)
+                                            sess.precision, shards)
             eng = HybridEngine(
                 gen.tree, gen.table, gen.meta, beam=sess.beam,
                 tile=sess.tile, device_loop=sess.device_loop,
                 device=self.platform.device, precision=sess.precision,
-                quant_cache=None)
+                quant_cache=None, shards=shards)
             warm = [q for q in queries if plannable(q)][:4]
             if warm:
                 eng.execute_batch(warm)

@@ -54,6 +54,13 @@ __device__ __forceinline__ float inf_f() {
   return __int_as_float(0x7f800000);
 }
 
+// min that keeps NaN, as the plain version's torch.min and the reference's
+// jnp.minimum do (fminf returns the other operand); every other pair of
+// operands gets fminf's bits
+__device__ __forceinline__ float min_keep_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
 // The g-th tile pair (rt <= ct), column tile by column tile.
 __device__ __forceinline__ void upper_tile(int g, int& rt, int& ct) {
   int c = (int)((sqrtf(8.f * (float)g + 1.f) - 1.f) * 0.5f);
@@ -99,23 +106,23 @@ lpgf_d2_kernel(const float* __restrict__ x, float* __restrict__ d2,
           d2[(size_t)m * N + n] = d;
           if (!diag) d2[(size_t)n * N + m] = d;
           if (n != m) {
-            rmin = fminf(rmin, d);
-            cmin[j] = fminf(cmin[j], d);
+            rmin = min_keep_nan(rmin, d);
+            cmin[j] = min_keep_nan(cmin[j], d);
           }
         }
       }
       // the 8 lanes (tx) of this warp that share row i
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
-        rmin = fminf(rmin, __shfl_xor_sync(0xffffffffu, rmin, off));
+        rmin = min_keep_nan(rmin, __shfl_xor_sync(0xffffffffu, rmin, off));
       if (L.tx == 0) rmin_s[L.wn * BM + L.row(i)] = rmin;
     }
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       // the 4 lanes (ty) of this warp that share column j
       float v = cmin[j];
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      v = min_keep_nan(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = min_keep_nan(v, __shfl_xor_sync(0xffffffffu, v, 16));
       if (L.ty == 0) cmin_s[L.wm * BN + L.col(j)] = v;
     }
     __syncthreads();
@@ -123,13 +130,13 @@ lpgf_d2_kernel(const float* __restrict__ x, float* __restrict__ d2,
       const int m = m0 + L.tid;
       if (m < N)
         pmin[(size_t)m * T + n0 / BN] =
-            fminf(rmin_s[L.tid], rmin_s[BM + L.tid]);
+            min_keep_nan(rmin_s[L.tid], rmin_s[BM + L.tid]);
     } else if (!diag) {
       const int c = L.tid - BM, n = n0 + c;
       if (n < N)
         pmin[(size_t)n * T + m0 / BM] =
-            fminf(fminf(cmin_s[c], cmin_s[BN + c]),
-                  fminf(cmin_s[2 * BN + c], cmin_s[3 * BN + c]));
+            min_keep_nan(min_keep_nan(cmin_s[c], cmin_s[BN + c]),
+                  min_keep_nan(cmin_s[2 * BN + c], cmin_s[3 * BN + c]));
     }
     // the walk's next barrier comes before the buffers are written again
   };
@@ -149,15 +156,15 @@ lpgf_weights_kernel(const float* d2, float* w, const float* __restrict__ pmin,
   const int lane = tid & 31, warp = tid >> 5;
   float v = inf_f();
   for (int t = tid; t < T; t += kRowThreads)
-    v = fminf(v, pmin[(size_t)i * T + t]);
+    v = min_keep_nan(v, pmin[(size_t)i * T + t]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = min_keep_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (tid == 0) {
     float m = red[0];
-    for (int k = 1; k < kRowThreads / 32; ++k) m = fminf(m, red[k]);
+    for (int k = 1; k < kRowThreads / 32; ++k) m = min_keep_nan(m, red[k]);
     d1_s = m;
   }
   __syncthreads();

@@ -11,8 +11,8 @@ Attention comes in the reference's three executions of one function:
   * decode — ``attention_dense`` of one query against the cache.
 Parameters are read as the modules hold them: matrices in the serving
 type (``cfg.dtype``), norm scales in fp32 (see ``models/transformer.py``).
-The reference's ``shard`` hooks belong to sharding (ROADMAP queue 1
-item 8) and are left out.
+The reference's ``shard`` hooks come with training (ROADMAP queue 1
+item 9) and are left out.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Each model declares its parameters once as a nested dict of ``ParamDef``
 (shape, logical axes, init law). ``init_params`` draws them; the model
 modules then hold them under the same names. The reference's abstract
-shapes and partition specs belong to sharding (ROADMAP queue 1 item 8).
+shapes and partition specs come with training (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 

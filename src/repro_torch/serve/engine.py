@@ -39,8 +39,8 @@ on a stream of its own (``EmbeddingServer``) and the engine dispatches on
 the current stream, so a chunk's embedding does not wait for the KNN work
 enqueued before it. ``attach_reopt`` hands the server an online
 re-optimization controller (``core/reopt.py``), which ``poll()`` steps
-between micro-batches. Not ported yet: sharded serving (ROADMAP queue 1
-item 8).
+between micro-batches. ``RetrievalServer(shards=S)`` serves through the
+sharded device loop.
 """
 from __future__ import annotations
 
@@ -337,7 +337,9 @@ class RetrievalServer:
     chunk stays pending and unresolved, and the next flush retries it.
 
     ``project`` maps the embedder's output (numpy) onto the searched
-    column's space. ``device_loop`` and ``precision`` pick the session.
+    column's space. ``device_loop``, ``shards`` (None: the platform's
+    ``default_shards``; 0: one device) and ``precision`` pick the
+    session.
     ``append(...)`` ingests rows between micro-batches. At
     ``pipeline_depth`` >= 2 chunks overlap in a ``ChunkPipeline`` (same
     rows, FIFO retirement); ``drain()`` is its quiescent barrier.
@@ -352,8 +354,7 @@ class RetrievalServer:
     ``flush()`` never steps it. Results stay oracle-exact across a swap,
     compared by logical row identity (``platform.view().row_ids``), since
     a new generation re-permutes the physical layout. ``stats()["reopt"]``
-    is the controller's ``status()``. Not ported yet: ``shards`` (ROADMAP
-    queue 1 item 8)."""
+    is the controller's ``status()``."""
 
     def __init__(self, platform, embedder: EmbeddingServer, *,
                  batch_size: int = 64, pad_token: int = 0,
@@ -366,10 +367,6 @@ class RetrievalServer:
                  adaptive_window: bool = False,
                  pipeline_depth: int = 1,
                  clock: Callable[[], float] = time.monotonic):
-        if shards is not None and shards > 1:
-            raise NotImplementedError(
-                "sharded serving comes with the port of sharding "
-                "(ROADMAP queue 1 item 8)")
         self.platform = platform
         self.embedder = embedder
         self.batch_size = batch_size
@@ -388,7 +385,7 @@ class RetrievalServer:
             raise ValueError("max_queue must be >= 1")
         self._clock = clock
         self.session = platform.session(device_loop=device_loop,
-                                        precision=precision)
+                                        shards=shards, precision=precision)
         self._pending: List[_Pending] = []   # admission FIFO
         self._sig_cache: Dict[Tuple, str] = {}
         self.pipeline_depth = int(pipeline_depth)

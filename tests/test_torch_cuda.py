@@ -22,7 +22,11 @@ Gaussian points its stored squared distances are symmetric and equal
 the pairwise kernel's bit for bit, its weights equal the plain law's on
 those distances bit for bit, and F and W are held to the plain formula
 fed the same distances, to the same tolerances; two calls give the same
-bits.
+bits. Beside NaN rows its per-tile minima, d1 and weights keep NaN
+where the plain version's do and their bits elsewhere.
+The sharded beam loop (S = 2 and 8 on the one card) returns the
+single-device loop's rows, ids and order, and distances (bit for bit in
+fp32; in int8 within rtol 1e-6, the rescue's batched product).
 ``flash_attention`` (both routes, the SIMT kernel and the wgmma one;
 the SIMT kernel also at its block edges, windows inside a tile, strided
 rows, bf16 widened and olmo-1b's width, ``SIMT_CASES``):
@@ -480,6 +484,48 @@ def test_nan_rows_leave_self_distances_and_symmetry(cuda):
     assert _nan_equal(s["d2"], d2)
 
 
+def _tile_row_minima(d2, tile: int = lpgf_force.TILE):
+    """Each row's least squared distance over each column tile, self
+    excluded, by ``torch.amin`` (which keeps NaN, as the plain version's
+    ``torch.min`` does): the plain counterpart of ``lpgf_force``'s
+    per-tile minima."""
+    off = d2.clone()
+    off.fill_diagonal_(float("inf"))
+    n = d2.shape[0]
+    t = -(-n // tile)
+    off = torch.nn.functional.pad(off, (0, t * tile - n),
+                                  value=float("inf"))
+    return off.view(n, t, tile).amin(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1000, 512), (300, 37)])
+def test_lpgf_force_keeps_nan(cuda, n, d):
+    """Rows with a NaN coordinate: the kernel's minima keep NaN where the
+    plain version's do (``fminf`` alone returns the other operand, so
+    d1 would be finite and the weights beside a NaN row would not be
+    NaN), and keep their bits elsewhere: the per-tile minima equal
+    ``torch.amin`` over the kernel's own distances, NaN in the same
+    places and the same bits off them; the weights equal the plain law's
+    on those distances bit for bit; W and F are NaN where the plain
+    formula's are. A radius of 7.5 mean neighbour distances puts
+    neighbours inside it, so NaN reaches W through d1. The NaN rows lie
+    in the first column tiles, so the last tile's minima stay finite."""
+    x, g = _gauss_lpgf_case(n, d, n + d + 1, cuda)
+    x = _with_nan_rows(x, [5, 130], 9)
+    gf, gw, s = lpgf_force._launch(x, 7.5 * g, g, keep=True)
+    want = _tile_row_minima(s["d2"])
+    assert bool(torch.isnan(want).any()) and bool(torch.isfinite(want).any())
+    assert _nan_equal(s["pmin"], want)
+    want_w, want_d1 = tref.lpgf_weights(s["d2"], 7.5 * g, g)
+    assert _nan_equal(s["w"], want_w)
+    assert _nan_equal(s["pmin"].min(1).values, want_d1)
+    wf, ww = tref.lpgf_force(x, 7.5 * g, g, d2=s["d2"])
+    assert bool(torch.isnan(ww).any())
+    assert torch.equal(torch.isnan(gw), torch.isnan(ww))
+    assert torch.equal(torch.isnan(gf), torch.isnan(wf))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(40, 2), (40, 40), (5003, 2), (5003, 300),
                                  (5003, 1000)])
@@ -634,6 +680,70 @@ def test_mp_engine_rows_equal_oracle_on_card(card_platform, precision):
             np.testing.assert_array_equal(g, p.oracle(q))
             np.testing.assert_array_equal(g, w)
         assert 0 < st.mp_rescued <= st.mp_scanned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_batched_knn_sharded_on_card(card_platform, shards, precision):
+    """The sharded beam loop on the card (all shards on the one card):
+    rows and distances equal the single-device loop's, with and without a
+    mask, at k = 20 and 300; the sharded engine's batch equals the
+    single-device engine's, ids and order, and the oracle's; and the
+    distance, top-k and (int8) lower-bound kernels launched within the
+    sharded calls (the single-device references' launches not counted)."""
+    from repro_torch.core.engine import (EngineStats, batched_knn_device,
+                                         batched_knn_sharded)
+    p = card_platform
+    eng = p.engine(shards=shards, precision=precision)
+    single = p.engine(shards=0, precision=precision)
+    tab = p.table.vector["v"]
+    qs = torch.as_tensor(tab[[0, 1234, 4321, 77]] + 0.05, device="cuda")
+    mask = torch.as_tensor(p.table.numeric["price"] < 40.0, device="cuda")
+    planes = single.vec_planes_dev.get("v")
+    counted = [0, 0, 0]     # launches inside the sharded calls only
+
+    def sharded(call):
+        before = (pairwise_l2.launches, fused_topk.topk_l2_masked_launches,
+                  quant_lb2.launches)
+        out = call()
+        torch.cuda.synchronize()
+        for i, n in enumerate((pairwise_l2.launches,
+                               fused_topk.topk_l2_masked_launches,
+                               quant_lb2.launches)):
+            counted[i] += n - before[i]
+        return out
+
+    for masks in (None, mask[None].expand(len(qs), -1).contiguous()):
+        for k in (20, 300):
+            st = EngineStats()
+            ds, rs = sharded(lambda: batched_knn_sharded(
+                eng.sharded_dev, eng.geom_dev["v"], eng.vec_tiles_dev["v"],
+                qs, k, masks=masks, beam=16,
+                planes=eng.vec_planes_dev.get("v"), precision=precision,
+                stats=st))
+            dd, rd = batched_knn_device(
+                single.geom_dev["v"], single.vec_tiles_dev["v"], qs, k,
+                masks=masks, beam=16, planes=planes, precision=precision)
+            np.testing.assert_array_equal(rs, rd)
+            if precision == "fp32":    # one kernel forms both sides' bits
+                np.testing.assert_array_equal(ds, dd)
+            else:   # the rescue's batched product: its shape may pick the
+                #     library kernel, so allow its fp32 rounding
+                np.testing.assert_allclose(ds, dd, rtol=1e-6, atol=0)
+            assert st.rows_scanned > 0
+    qb = [Q.VK.of("v", tab[i], 20) for i in (0, 1234, 4321)]
+    qb.append(Q.And.of(Q.NR("price", 25, 75), Q.VK.of("v", tab[7], 20)))
+    qb.append(Q.And.of(Q.VR.of("v", tab[9], 6.0), Q.VK.of("v", tab[9], 9)))
+    want, _ = p.session(shards=0, precision=precision).plan(qb).execute()
+    got, st = sharded(lambda: p.session(
+        shards=shards, precision=precision).plan(qb).execute())
+    assert st.shards == shards
+    for q, g, w in zip(qb, got, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p.oracle(q))
+    assert counted[0] > 0, counted
+    assert counted[1 if precision == "fp32" else 2] > 0, counted
 
 
 @pytest.mark.cuda

@@ -258,9 +258,14 @@ def test_max_queue_validation(platform):
 
 
 def test_later_items_raise(platform):
-    """Sharded serving is not ported yet, and says so."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RetrievalServer(platform, _StubEmbedder(platform.table), shards=2)
+    """Nothing of the server raises for a later item any more: ``shards=2``
+    serves through a two-shard session, rows the oracle's."""
+    srv = RetrievalServer(platform, _StubEmbedder(platform.table), shards=2)
+    assert srv.session.shards == 2
+    req = RetrievalRequest(tokens=np.asarray([3, 1], np.int32), attr="img",
+                           k=5)
+    (res,) = srv.serve([req])
+    assert np.array_equal(res.rows, platform.oracle(res.query))
 
 
 def test_attach_reopt_steps_the_controller(platform):
