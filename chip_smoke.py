@@ -123,15 +123,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    launch held to its plain version and on the SIMT kernel, tokens equal
    to the CPU's;
 9. olmo-1b fp32 serving path: ``ServeEngine(olmo-1b)`` in fp32, its
-   published type, at full width and ``OLMO_LAYERS`` (12) of its 16
+   published type, at full width and ``OLMO_LAYERS`` (8) of its 16
    layers (cut for the time limit) on prompts of 2032, 2032, 1000 and
    1000 tokens, 16 new tokens each: the SIMT kernel held to its plain
-   version on all 24 layers of the real prefills, batched
+   version on all 16 layers of the real prefills, batched
    against per-request generation; init, prefill and decode times, the
    peak device memory and a traced prefill (``drive_olmo_fp32_path``);
 10. MoE serving path (k): ``ServeEngine`` in bf16 at full width on
-   phi3.5-moe-42b-a6.6b at 12 of its 32 layers (all 32 do not fit
-   beside the cache; 24 do, cut to 12 for the time limit) on prompts of
+   phi3.5-moe-42b-a6.6b at 8 of its 32 layers (all 32 do not fit
+   beside the cache; 24 do, cut to 8 for the time limit) on prompts of
    2048, 2048, 1000 and 1000 tokens, 16 new tokens each, then on
    arctic-480b at 2 of its
    35 layers (51.8 GiB; 128 experts, the dense residual branch) on two
@@ -171,7 +171,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the prompt's replay and the dense forward, and against the
    zero-frame run's (the cross-attention reached); zero-frame embedding
    rows all equal (``drive_encdec_path``);
-14. ``flash_attention`` against its plain version, each kernel at its
+14. training path (p): ``mqrld-embedder-100m`` trained at full size
+   through ``train()`` (bf16 compute, fp32 masters, block remat; 20
+   steps of 16 x 512 tokens in two microbatches): one step's loss and
+   gradient held to fp64 and AdamW on the card held to the CPU bit for
+   bit (``check_train_numerics``), the loss falling, the step-10
+   checkpoint restored equal to what was saved, a resume to step 24, 3
+   steps in int8 state; then the trained embedder feeds
+   ``MQRLD(...).prepare()`` over the example's 2,000 documents and 64
+   hybrid queries return the oracle's rows; step seconds, tokens/s,
+   MFU and peak memory (``drive_train_path``);
+15. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
@@ -186,7 +196,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding and xlstm paths run
-none. The
+none, the training path ``pairwise_sq_l2`` and ``topk_l2_masked``
+through its platform. The
 last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -2787,8 +2798,8 @@ PREFILL_CLASSES = {"flash (SIMT)": r"flash_fwd",
                    "GEMM": r"gemm|Gemm|GEMM|cutlass|nvjet|xmma|matmul"}
 
 
-# olmo-1b's layers kept: 12 of 16, cut for the time limit (PERF.md §4)
-OLMO_LAYERS = 12
+# olmo-1b's layers kept: 8 of 16, cut for the time limit (PERF.md §4)
+OLMO_LAYERS = 8
 
 
 def drive_olmo_fp32_path(args, dev, fa, ref):
@@ -2843,11 +2854,11 @@ def drive_olmo_fp32_path(args, dev, fa, ref):
 
 
 # ------------------------------------------------ (k) MoE, (l) hymba
-# (config, layers kept, prompts, new tokens): phi3.5-moe at 12 of 32
+# (config, layers kept, prompts, new tokens): phi3.5-moe at 8 of 32
 # layers (all 32 would be 77.96 GiB of bf16 weights of the card's ~79.6;
-# 24, 58.6 GiB, fit, cut to 12 for the time limit: PERF.md §4), arctic
+# 24, 58.6 GiB, fit, cut to 8 for the time limit: PERF.md §4), arctic
 # at 2 of 35 (51.8 GiB, full width)
-MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 12, (2048, 2048, 1000, 1000), 16),
+MOE_RUNS = (("phi3.5-moe-42b-a6.6b", 8, (2048, 2048, 1000, 1000), 16),
             ("arctic-480b", 2, (1000, 1000), 8))
 # the kernels of a bf16 prefill by class, for its trace
 BF16_PREFILL_CLASSES = {"flash (wgmma)": r"flash_fwd_wgmma",
@@ -3472,6 +3483,448 @@ def drive_encdec_path(args, dev, fa, ref):
                           cross_attention_reached=ok_z,
                           zero_frame_embeddings_equal=ok_e)
     return all(info["checks"].values()), info
+
+
+# ----------------------------------------------------------- (p) training
+TRAIN_ARCH = "mqrld-embedder-100m"
+TRAIN_SEQ = 512          # train()'s default seq_len
+TRAIN_MB = 2             # microbatches: a global batch of 8 x 2 rows
+TRAIN_STEPS = 20
+TRAIN_EVERY = 10         # checkpoint_every: the step-10 checkpoint
+TRAIN_RESUME = 24        # the second train()'s total_steps
+TRAIN_INT8_STEPS = 3      # cut from 5 for the time limit (PERF.md §4)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_DOCS = (2000, 64)  # examples/train_embedder.py's documents
+TRAIN_QUERIES = 64
+# The fp32 step against fp64's. At the reference's init law the q and k
+# projections draw with the head count as fan-in (``shape[-2]``), so the
+# q.k scores run to the hundreds and attention is one-hot: a move of the
+# masters by one fp32 rounding (PERTURB, random signs) moves fp64's own
+# gradient by over 100% of its RMS at full width (whole percents at 4
+# layers on the CPU). There the step's loss is held (the bf16 loss within
+# BF16_LOSS_RTOL of fp64's) and each fp32 gradient leaf within FP64_COND
+# times that move. The gradient itself is held at the same step from the
+# masters with q and k scaled to the d_model fan-in (``_tempered``),
+# where the scores are O(1): each fp32 leaf's RMS error within
+# FP64_GRAD_RTOL of the leaf's RMS (1e-6 measured on the CPU at 8 layers
+# of 512).
+FP64_GRAD_RTOL = 1e-3
+FP64_COND = 64.0
+BF16_LOSS_RTOL = 2.0 ** -7
+PERTURB = 2.0 ** -24
+LAW_ROWS = 256           # rows of each embedding table in the AdamW law
+# a train step's kernels by class, for its trace (first match wins)
+TRAIN_CLASSES = {"GEMM": r"gemm|Gemm|GEMM|cutlass|nvjet|xmma|matmul",
+                 "softmax": r"softmax|logsumexp",
+                 "index (embedding, CE)": r"index|scatter|gather",
+                 "reduce": r"reduce"}
+
+
+def _rms(x) -> float:
+    return float(x.double().pow(2).mean().sqrt())
+
+
+def max_ulps(torch, a, b) -> int:
+    """The largest distance between two fp32 tensors in units in the last
+    place (0: bit for bit); between int8 codes, in codes."""
+    if a.dtype == torch.int8:
+        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    # sign-magnitude bits to one monotone integer line (-0 meets +0)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _tempered(cfg, masters):
+    """The masters with the q and k projections scaled by
+    sqrt(hp / d_model): drawn at the fan-in of d_model instead of the
+    head count, which puts the attention scores at O(1)."""
+    f = math.sqrt(cfg.hp() / cfg.d_model)
+    return {k: t * f if k in ("blocks/attn/wq", "blocks/attn/wk") else t
+            for k, t in masters.items()}
+
+
+def _leaf_errors(runs, keys):
+    """{leaf: RMS errors over fp64's leaf RMS} of each run but fp64."""
+    g64 = runs["fp64"][1]
+    out = {}
+    for k in keys:
+        r = _rms(g64[k])
+        out[k] = {"rms": r, **{n: _rms(g[k].double() - g64[k]) / r
+                               for n, (_, g) in runs.items()
+                               if n != "fp64"}}
+    return out
+
+
+def check_train_numerics(args, dev, cfg):
+    """Before the loop, on step 0's batch (``8 * TRAIN_MB`` rows of
+    ``TRAIN_SEQ`` tokens, two microbatches): the step's loss and gradient
+    (``loss_and_grads``) from the masters ``train()`` starts from, in
+    fp64, in fp64 from masters moved by ``PERTURB``, in fp32 and in bf16;
+    and from those masters ``_tempered``, in fp64 and fp32. Holds the
+    bf16 loss to fp64's (``BF16_LOSS_RTOL``), every fp32 leaf at the init
+    law within ``FP64_COND`` times the moved gradient's distance, and
+    every tempered fp32 leaf within ``FP64_GRAD_RTOL`` of its RMS (the
+    block comment above says why). Then the AdamW law: two updates on the
+    card (fp32 state; the fp32 step's gradient, then the bf16 step's) and
+    one in int8 state, each against the same update on the CPU from
+    copies of the same masters, state and gradients, with the card's
+    global norm: new masters and every state array bit for bit; the norms
+    themselves within 1e-6 relative (sums of squares in another order).
+    Returns (error or None, info)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import PipelineSpec, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.step import loss_and_grads
+
+    batch = SyntheticLM(PipelineSpec(cfg.vocab_size, TRAIN_SEQ,
+                                     8 * TRAIN_MB, seed=args.seed)).batch(0)
+    masters = build_model(cfg, dev).init_masters(args.seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 7)
+    moved = {k: t.double() * (1 + PERTURB * (2 * torch.randint(
+        0, 2, t.shape, generator=gen, device=dev) - 1)) for k, t in
+        masters.items()}
+    tempered = _tempered(cfg, masters)
+    runs, temp, secs = {}, {}, {}
+    for name, dt, ps, out in (("fp64", "float64", masters, runs),
+                              ("fp64 moved", "float64", moved, runs),
+                              ("fp32", "float32", masters, runs),
+                              ("bf16", "bfloat16", masters, runs),
+                              ("fp64", "float64", tempered, temp),
+                              ("fp32", "float32", tempered, temp)):
+        m = build_model(dataclasses.replace(cfg, dtype=dt), dev)
+        t0 = time.time()
+        loss, grads = loss_and_grads(m, ps, batch, TRAIN_MB)
+        _sync(torch, dev)
+        secs[name + (" tempered" if out is temp else "")] = time.time() - t0
+        out[name] = (float(loss), grads)
+    del moved, tempered
+    leaves = _leaf_errors(runs, masters)
+    t_leaves = _leaf_errors(temp, masters)
+    l64 = runs["fp64"][0]
+    rel = {n: abs(runs[n][0] - l64) / abs(l64) for n in ("fp32", "bf16")}
+    info = dict(seconds=secs, loss_fp64=l64, loss_rel_err=rel,
+                leaves=leaves, tempered_leaves=t_leaves,
+                tempered_loss_rel_err=abs(temp["fp32"][0] - temp["fp64"][0])
+                / abs(temp["fp64"][0]),
+                worst_fp32=max(v["fp32"] for v in leaves.values()),
+                worst_fp32_over_moved=max(
+                    v["fp32"] / max(v["fp64 moved"], 1e-300)
+                    for v in leaves.values()),
+                worst_tempered_fp32=max(v["fp32"]
+                                        for v in t_leaves.values()))
+    g1 = runs["fp32"][1]
+    g2 = {k: g.float() for k, g in runs["bf16"][1].items()}
+    del runs, temp
+    bad = [k for k, v in leaves.items()
+           if not v["fp32"] <= FP64_COND * v["fp64 moved"]]
+    bad += [f"{k} (tempered)" for k, v in t_leaves.items()
+            if not v["fp32"] <= FP64_GRAD_RTOL]
+    if bad:
+        return (f"train numerics: the fp32 gradient of {bad} is further "
+                f"from fp64's than the rules allow"), info
+    if not rel["bf16"] <= BF16_LOSS_RTOL:
+        return (f"train numerics: the bf16 loss lies {rel['bf16']:.3g} "
+                f"from fp64's (rule {BF16_LOSS_RTOL})"), info
+
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS)
+    cpu = torch.device("cpu")
+    law = {}
+    for sd, gs in (("float32", (g1, g2)), ("int8", (g1,))):
+        card = (masters, O.init_adam(masters, sd))
+        part = {k: _law_part(k, t).to(cpu) for k, t in masters.items()}
+        host = (part, O.init_adam(part, sd))
+        ulps, norms = {}, []
+        t_card = 0.0
+        for g in gs:
+            t0 = time.time()
+            p, s, n = O.adam_update(tc, card[0], g, card[1], sd)
+            _sync(torch, dev)
+            t_card += time.time() - t0
+            n_host = O.global_norm({k: t.to(cpu) for k, t in g.items()})
+            hp, hs, _ = O.adam_update(
+                tc, host[0], {k: _law_part(k, t).to(cpu)
+                              for k, t in g.items()},
+                host[1], sd, gnorm=n.to(cpu))
+            norms.append(abs(float(n) - float(n_host)) / float(n_host))
+            card, host = (p, s), (hp, hs)
+        for k, t in card[0].items():
+            ulps[f"params/{k}"] = max_ulps(
+                torch, _law_part(k, t).cpu(), host[0][k])
+        for name in ("m", "v"):
+            for k, enc in getattr(card[1], name).items():
+                want = getattr(host[1], name)[k]
+                pairs = zip(enc, want) if isinstance(enc, tuple) else \
+                    [(enc, want)]
+                for j, (a, b) in enumerate(pairs):
+                    ulps[f"{name}/{k}/{j}"] = max_ulps(
+                        torch, _law_part(k, a).cpu(), b)
+        worst = max(ulps.values())
+        law[sd] = dict(updates=len(gs), max_ulps=worst,
+                       arrays=len(ulps), norm_rel_diff=norms,
+                       elements_held=sum(t.numel() for t in part.values()),
+                       card_update_s=t_card / len(gs),
+                       int8_moments=sum(isinstance(e, tuple)
+                                        for e in card[1].m.values()))
+        if worst or max(norms) > 1e-6:
+            info["adamw"] = law
+            bad = sorted(k for k, u in ulps.items() if u)[:5]
+            return (f"AdamW ({sd} state) on the card differs from the CPU: "
+                    f"{worst} ulps ({bad}), norms {norms}"), info
+    info["adamw"] = law
+    return None, info
+
+
+def _law_part(key: str, t):
+    """The part of a leaf whose update the CPU repeats: a stacked
+    block leaf's first layer, an embedding table's first ``LAW_ROWS``
+    rows, a vector whole. Each element's update reads only its own
+    entries and its last-axis channel's int8 scale, so a leading slice
+    of the whole update is the update of the slice."""
+    if t.dim() < 2:
+        return t
+    return t[:1] if key.startswith("blocks/") else t[:LAW_ROWS]
+
+
+def _doc_queries(Q, np, emb, lengths, radius: float, n: int, seed: int):
+    """``n`` hybrid queries over the documents' embeddings, the example's
+    ``And(NR, VK k=10)`` first, then the four archetypes in turn."""
+    rng = np.random.default_rng(seed)
+    out = [Q.And.of(Q.NR("length", 100, 400), Q.VK.of("text", emb[0], 10))]
+    for j, i in enumerate(rng.integers(0, len(emb), n - 1)):
+        v = emb[i]
+        out.append([
+            Q.VK.of("text", v, 10),
+            Q.And.of(Q.NR("length", 100, 400), Q.VK.of("text", v, 10)),
+            Q.And.of(Q.VR.of("text", v, radius), Q.NR("length", 50, 300)),
+            Q.And.of(Q.VR.of("text", v, radius), Q.VK.of("text", v, 10)),
+        ][j % 4])
+    return out
+
+
+def drive_train_path(args, dev):
+    """Path (p): ``mqrld-embedder-100m`` trained at full size (12 layers,
+    768 wide, 12 heads padded to 16, vocab 32,768; bf16 compute, fp32
+    masters, ``remat="block"``) through the port's ``train()``:
+    ``check_train_numerics`` first; then ``TRAIN_STEPS`` steps of
+    ``8 * TRAIN_MB`` x ``TRAIN_SEQ`` SyntheticLM tokens with a checkpoint
+    every ``TRAIN_EVERY``: the mean loss of the last 5 steps below the
+    first step's; the step-10 checkpoint restored with every hash checked
+    and equal, array for array, to the state handed to ``save`` (captured
+    on the card); a second ``train(total_steps=TRAIN_RESUME)`` restoring
+    step 20 and running 4 steps; ``TRAIN_INT8_STEPS`` steps in int8 state
+    (finite, m and v int8 codes with (..., 1) scales). Then the trained
+    masters feed the platform as ``examples/train_embedder.py`` does:
+    ``EmbeddingServer`` embeds its 2,000 x 64 documents (two topical
+    groups), ``MQRLD(...).prepare(min_leaf=16, max_leaf=256)`` builds
+    over them, and the example's query plus 63 hybrid queries run through
+    ``session().plan().execute()``, every row the oracle's. Returns
+    (error or None, info)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.core import query as Q
+    from repro_torch.core.lake import MMOTable
+    from repro_torch.core.platform import MQRLD
+    from repro_torch.data.pipeline import PipelineSpec, SyntheticLM
+    from repro_torch.models import build_model, params_from_masters
+    from repro_torch.serve.engine import EmbeddingServer
+    from repro_torch.train import loop
+    from repro_torch.utils.roofline import model_flops_for, peak_flops
+
+    cfg = get_config(TRAIN_ARCH)
+    on = None if dev.type == "cuda" else dev
+    info = dict(n_params=build_model(cfg, dev).n_params(),
+                resident_gib_before=_resident_gib(torch, dev))
+    t0 = time.time()
+    err, info["numerics"] = check_train_numerics(args, dev, cfg)
+    info["numerics_s"] = time.time() - t0
+    if err:
+        return err, info
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="train_path_")
+    lines = []
+    try:
+        tc = TrainConfig(total_steps=TRAIN_STEPS, learning_rate=TRAIN_LR,
+                         warmup_steps=TRAIN_WARMUP, microbatches=TRAIN_MB,
+                         checkpoint_every=TRAIN_EVERY, seed=args.seed,
+                         checkpoint_dir=os.path.join(root, "run"))
+        saved = {}
+        real_save = loop.Checkpointer.save
+
+        def save(self, step, tree, extra=None, block=False):
+            if step == TRAIN_EVERY:
+                saved.update({k: v.clone() for k, v in
+                              C._flatten(tree).items()})
+            return real_save(self, step, tree, extra, block)
+        loop.Checkpointer.save = save
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            res = loop.train(cfg, tc, seq_len=TRAIN_SEQ, log_every=5,
+                             log_fn=lines.append, device=on)
+        finally:
+            loop.Checkpointer.save = real_save
+        info["train_s"] = time.time() - t0
+        info["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if dev.type == "cuda" else 0.0)
+        step_s = float(np.median(res.step_s[1:]))
+        shape = ShapeConfig("train_path", TRAIN_SEQ, 8 * TRAIN_MB, "train")
+        info.update(
+            steps=res.steps_run, first_step_s=res.step_s[0],
+            step_s=step_s, step_s_all=res.step_s,
+            tokens_per_s=TRAIN_SEQ * 8 * TRAIN_MB / step_s,
+            model_flops=model_flops_for(cfg, shape),
+            mfu=model_flops_for(cfg, shape) / step_s / peak_flops("bf16"),
+            loss_first=res.losses[0], loss_last=res.losses[-1],
+            loss_last5_mean=float(np.mean(res.losses[-5:])),
+            losses=res.losses, skipped=res.skipped_steps, log=lines)
+        if res.steps_run != TRAIN_STEPS or res.skipped_steps:
+            return f"train: {res.steps_run} steps, {res.skipped_steps} " \
+                   f"skipped", info
+        if not info["loss_last5_mean"] < res.losses[0]:
+            return (f"train: the last 5 steps' mean loss "
+                    f"{info['loss_last5_mean']:.4f} is not below the "
+                    f"first's {res.losses[0]:.4f}"), info
+        if dev.type == "cuda":
+            # one more step from the trained state, traced: where a
+            # step's device time goes, and how busy the card is
+            step = loop.make_train_step(build_model(cfg, dev), tc)
+            batch = SyntheticLM(PipelineSpec(
+                cfg.vocab_size, TRAIN_SEQ, 8 * TRAIN_MB,
+                seed=args.seed)).batch(TRAIN_STEPS)
+            info["step_trace"] = _trace(
+                torch, lambda: step(res.params, res.opt, batch), 1,
+                TRAIN_CLASSES, cpu=False)
+            del step
+
+        # the step-10 checkpoint, hashes verified, equal to what was saved
+        ck = C.Checkpointer(tc.checkpoint_dir)
+        info["checkpoints"] = ck.all_steps()
+        t0 = time.time()
+        back, extra = ck.restore(TRAIN_EVERY, (res.params, res.opt))
+        info["restore_s"] = time.time() - t0
+        got = C._flatten(back)
+        info["restored_arrays"] = len(got)
+        diff = [k for k in saved if not torch.equal(got[k], saved[k])]
+        if sorted(got) != sorted(saved) or diff or \
+                extra.get("step") != TRAIN_EVERY or \
+                int(back[1].count) != TRAIN_EVERY:
+            return (f"checkpoint {TRAIN_EVERY}: restored state differs from "
+                    f"the saved one in {diff[:5]} (of {len(saved)}), extra "
+                    f"{extra}"), info
+        info["checkpoint_gib"] = sum(
+            os.path.getsize(os.path.join(tc.checkpoint_dir,
+                                         f"step_{TRAIN_EVERY}", f))
+            for f in os.listdir(os.path.join(
+                tc.checkpoint_dir, f"step_{TRAIN_EVERY}"))) / 2 ** 30
+        del back, got, saved
+        t0 = time.time()
+        res2 = loop.train(cfg, dataclasses.replace(
+            tc, total_steps=TRAIN_RESUME), seq_len=TRAIN_SEQ, log_every=5,
+            log_fn=lines.append, device=on)
+        info["resume_s"] = time.time() - t0
+        info["resume"] = dict(restored_from=res2.restored_from,
+                              steps=res2.steps_run, losses=res2.losses)
+        if res2.restored_from != TRAIN_STEPS or \
+                res2.steps_run != TRAIN_RESUME - TRAIN_STEPS or \
+                not np.isfinite(res2.losses).all():
+            return f"resume: {info['resume']}", info
+        del res
+
+        # int8 state
+        t0 = time.time()
+        res3 = loop.train(cfg, dataclasses.replace(
+            tc, total_steps=TRAIN_INT8_STEPS, checkpoint_every=0,
+            checkpoint_dir=os.path.join(root, "int8")), seq_len=TRAIN_SEQ,
+            state_dtype="int8", log_every=5, log_fn=lines.append,
+            device=on)
+        info["int8_s"] = time.time() - t0
+        coded = [isinstance(res3.opt.m[k], tuple) and
+                 isinstance(res3.opt.v[k], tuple) and
+                 res3.opt.m[k][0].dtype == torch.int8 and
+                 res3.opt.v[k][0].dtype == torch.int8 and
+                 tuple(res3.opt.m[k][1].shape) == p.shape[:-1] + (1,)
+                 for k, p in res3.params.items() if p.dim() >= 2]
+        finite = bool(np.isfinite(res3.losses).all()) and all(
+            bool(torch.isfinite(p).all()) for p in res3.params.values())
+        info["int8"] = dict(steps=res3.steps_run, losses=res3.losses,
+                            coded_leaves=sum(coded), finite=finite)
+        if res3.steps_run != TRAIN_INT8_STEPS or not finite or \
+                not all(coded) or not coded:
+            return f"int8 state: {info['int8']}", info
+        del res3
+        gc.collect()
+
+        # the trained embedder feeds the platform
+        t0 = time.time()
+        srv = EmbeddingServer(cfg, params_from_masters(cfg, res2.params),
+                              device=on)
+        rng = np.random.default_rng(0)
+        docs = rng.integers(1, cfg.vocab_size // 2, TRAIN_DOCS).astype(
+            np.int32)
+        half = TRAIN_DOCS[0] // 2
+        docs[half:] += cfg.vocab_size // 3   # two topical groups
+        emb = srv.embed(docs)
+        info["embed_s"] = time.time() - t0
+        del srv, res2
+        if emb.shape != (TRAIN_DOCS[0], cfg.d_model) or \
+                not np.isfinite(emb).all():
+            return f"embeddings: shape {emb.shape}, not all finite", info
+        lengths = rng.uniform(50, 500, len(docs)).astype(np.float32)
+        table = (MMOTable("docs").add_vector("text", emb, model=cfg.name)
+                 .add_numeric("length", lengths))
+        t0 = time.time()
+        p = MQRLD(table, seed=0, device=on)
+        p.prepare(min_leaf=16, max_leaf=256)
+        _sync(torch, dev)
+        info["prepare_s"] = time.time() - t0
+        d = np.sqrt(((emb[:64, None] - emb[None]) ** 2).sum(-1))
+        radius = float(f"{float(np.median(np.sort(d, 1)[:, 10])):.4g}")
+        batch = _doc_queries(Q, np, emb, lengths, radius, TRAIN_QUERIES,
+                             args.seed + 9)
+        t0 = time.time()
+        res_rows, stats = p.session().plan(batch).execute()
+        _sync(torch, dev)
+        info["batch_s"] = time.time() - t0
+        bad, truths = oracle_mismatches(p, batch, res_rows)
+        vk = [i for i, q in enumerate(batch) if isinstance(q, Q.VK)]
+        info["platform"] = dict(
+            radius=radius, queries=len(batch), mismatches=len(bad),
+            rows_min=min(map(len, res_rows)),
+            rows_max=max(map(len, res_rows)),
+            example_rows=len(res_rows[0]),
+            same_group_share=float(np.mean([
+                np.mean((res_rows[i] >= half) == (int(
+                    np.argmin(((emb - batch[i].vec()) ** 2).sum(-1)))
+                    >= half)) for i in vk])))
+        if bad:
+            i = bad[0]
+            return (f"platform over the trained embeddings: query {i} "
+                    f"differs from the oracle: got {res_rows[i][:10]} want "
+                    f"{truths[i][:10]}"), info
+        if len(res_rows[0]) == 0:
+            return "platform: the example's query returned no row", info
+        del p
+        return None, info
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def log_kernel(label: str, ok: bool, row: dict) -> None:
@@ -4189,6 +4642,48 @@ def main() -> int:
             ed_launches["flash_attention"] != 0:
         return fail(f"the enc-dec path's stream forwards did not all take "
                     f"the wgmma kernel: {ed_launches}")
+
+    # ------------------------------------------------ (p) training path
+    starts.append(("training path", time.time()))
+    _reset(kmods)
+    err, tr = drive_train_path(args, dev)
+    tr_launches = _counters(kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    num = tr.get("numerics", {})
+    log(f"training path ({TRAIN_ARCH}, {tr.get('n_params')} parameters, "
+        f"{TRAIN_STEPS} steps of {8 * TRAIN_MB} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MB} microbatches, bf16 compute, fp32 masters, remat "
+        f"block; {card}): " + json.dumps(
+            {k: v for k, v in tr.items()
+             if k not in ("numerics", "log", "step_s_all", "losses",
+                          "step_trace")}))
+    if "step_s" in tr:
+        log(f"  step {tr['step_s']:.4f} s (median after the first, "
+            f"{tr['first_step_s']:.2f} s), {tr['tokens_per_s']:.0f} "
+            f"tokens/s, MFU {tr['mfu']:.4f} of the bf16 peak, peak device "
+            f"memory {tr['peak_gib']:.2f} GiB, loss {tr['loss_first']:.4f} "
+            f"-> {tr['loss_last']:.4f}; steps (s): "
+            + json.dumps(tr["step_s_all"]))
+    if "step_trace" in tr:
+        log("  step_trace (torch.profiler, one step after training): "
+            + json.dumps(tr["step_trace"]))
+    log("  numerics (fp32 and bf16 gradients against fp64, leaf RMS "
+        "error over leaf RMS; AdamW on the card against the CPU): "
+        + json.dumps({k: v for k, v in num.items()
+                      if k not in ("leaves", "tempered_leaves")}))
+    for k, v in num.get("leaves", {}).items():
+        log(f"    {k}: " + json.dumps(v) + "; q, k tempered: "
+            + json.dumps(num["tempered_leaves"].get(k)))
+    for line in tr.get("log", []):
+        log(f"  {line}")
+    log("launches on the training path: " + json.dumps(tr_launches))
+    if err:
+        return fail(f"training path: {err}")
+    if min(tr_launches[n] for n in ("pairwise_sq_l2",
+                                    "topk_l2_masked")) <= 0:
+        return fail(f"a kernel of the training path's platform never "
+                    f"launched: {tr_launches}")
 
     starts.append(("flash_attention checks", time.time()))
     # flash_attention at each kernel's widest path launch: the two

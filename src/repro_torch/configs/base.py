@@ -6,8 +6,8 @@ the reference's, field for field, so a config means the same model in
 both packages. The registry holds every reference architecture: dense,
 MoE and the VLM backbone (``models/transformer.py``), the hybrid
 (``models/hymba.py``), the SSM (``models/xlstm.py``) and the
-encoder-decoder (``models/encdec.py``).
-``TrainConfig`` waits for training (ROADMAP queue 1 item 9).
+encoder-decoder (``models/encdec.py``). ``TrainConfig`` holds the
+optimizer and loop settings of ``train/``.
 """
 from __future__ import annotations
 
@@ -251,3 +251,20 @@ def _ensure_loaded() -> None:
         phi35_moe_42b, arctic_480b, hymba_1_5b, xlstm_1_3b,
         seamless_m4t_medium,
     )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1  # grad-accumulation steps per global step
+    grad_compress: bool = False  # int8 + error feedback on cross-pod axis
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"

@@ -25,8 +25,8 @@ decode step is captured as a CUDA graph that its later steps replay
 returns a cache of length 0 holding only the cross K/V, as the
 reference's does: ``ServeEngine`` fills the self-attention K/V by
 replaying the prompt through ``decode_step``. The reference's
-``cache_spec`` (a partition spec) comes with training (ROADMAP queue 1
-item 9) and is left out.
+``cache_spec`` (a partition spec) comes with the dry run (ROADMAP queue
+1 item 9, second half) and is left out.
 """
 from __future__ import annotations
 

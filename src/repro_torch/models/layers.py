@@ -10,9 +10,10 @@ Attention comes in the reference's three executions of one function:
     online-softmax loop over KV chunks;
   * decode — ``attention_dense`` of one query against the cache.
 Parameters are read as the modules hold them: matrices in the serving
-type (``cfg.dtype``), norm scales in fp32 (see ``models/transformer.py``).
-The reference's ``shard`` hooks come with training (ROADMAP queue 1
-item 9) and are left out.
+type (``cfg.dtype``), norm scales in fp32 (see ``models/transformer.py``);
+training's compute copy holds every parameter in ``cfg.dtype``. The
+reference's ``shard`` hooks come with the mesh rules (ROADMAP queue 1
+item 9, second half) and are left out.
 """
 from __future__ import annotations
 
@@ -25,20 +26,27 @@ from repro_torch.kernels import ops
 from repro_torch.models.spec import ParamDef
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, the type the reference computes norms, scores and the
+    loss in; fp64 stays fp64 (the float64 reference of the training
+    checks)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-6)
-    return (x * scale.float()).to(dt)
+    return (x * wide(scale)).to(dt)
 
 
 def nonparam_ln(x: torch.Tensor) -> torch.Tensor:
     """OLMo-style non-parametric LayerNorm (no scale, no bias)."""
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     return ((x - mu) * torch.rsqrt(var + 1e-6)).to(dt)
@@ -143,7 +151,7 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq, hd = q.shape[1], q.shape[3]
     skv = k.shape[1]
     dev = q.device
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    scores = torch.einsum("bqhd,bshd->bhqs", wide(q), wide(k))
     scores = scores * (1.0 / math.sqrt(hd))
     qpos = torch.arange(sq, device=dev) + q_offset
     if kv_positions is None:
@@ -162,7 +170,7 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(mask[None, None], scores,
                          torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", w, v.float())
+    out = torch.einsum("bhqs,bshd->bqhd", w, wide(v))
     return out.to(q.dtype)
 
 

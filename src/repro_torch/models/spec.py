@@ -2,8 +2,10 @@
 
 Each model declares its parameters once as a nested dict of ``ParamDef``
 (shape, logical axes, init law). ``init_params`` draws them; the model
-modules then hold them under the same names. The reference's abstract
-shapes and partition specs come with training (ROADMAP queue 1 item 9).
+modules then hold them under the same names. ``TensorSpec`` stands in for
+the reference's ``jax.ShapeDtypeStruct`` (shapes and types, no storage).
+The reference's partition specs come with the dry run (ROADMAP queue 1
+item 9, second half).
 """
 from __future__ import annotations
 
@@ -12,6 +14,13 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and type, without storage."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclass(frozen=True)

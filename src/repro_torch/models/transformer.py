@@ -12,7 +12,11 @@ keys: ``Transformer.embed.tok``, ``.blocks[i].attn.wq``,
 ``.blocks[i].norm1``, ``.norm_f``. The reference stacks the blocks'
 parameters along a leading (L, ...) axis and scans over it; here block i
 holds row i of each stacked tensor (a view, no copy) and ``forward`` is
-a plain loop over the layers (remat is for training).
+a plain loop over the layers. Training reads the stacked tensors through
+``stacked_views`` instead (see there), and ``forward`` in train mode with
+gradients enabled recomputes each block (``remat="block"``) or each group
+of ``remat_group`` blocks in the backward pass, as the reference's
+``jax.checkpoint`` does: the same values, less memory.
 
 Port decision (serving types): each parameter is held in the type the
 reference reads it in (``serving_dtype``), cast once when the parameters
@@ -30,10 +34,12 @@ returns a ``KVCache`` over the same tensors with ``length + 1``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import spec as S
@@ -73,7 +79,8 @@ def model_defs(cfg) -> Dict[str, Any]:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float64": torch.float64}[name]
 
 
 def serving_dtype(cfg, d: ParamDef) -> torch.dtype:
@@ -143,6 +150,36 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.tok.device
+
+
+def _namespace(tree: Dict[str, Any]) -> SimpleNamespace:
+    return SimpleNamespace(**{k: _namespace(v) if isinstance(v, dict) else v
+                              for k, v in tree.items()})
+
+
+def stacked_views(cfg, flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    """The training twin of ``Transformer``: the same attribute tree
+    (``embed.tok``, ``blocks[i].attn.wq``, ``norm_f``, absent groups
+    None) over plain tensors. ``flat``: {reference path: tensor}, blocks
+    stacked (L, ...), as the train step's compute copy holds them. Block
+    i reads the i-th of ``unbind(0)`` of each stacked tensor, whose
+    backward stacks the layers' gradients into the stacked tensor's
+    gradient, the reference's (L, ...) layout. (``Transformer`` wraps
+    its views in new ``nn.Parameter`` leaves, which cut that link.)"""
+    rows = {path[len("blocks/"):]: t.unbind(0)
+            for path, t in flat.items() if path.startswith("blocks/")}
+    blocks = []
+    for i in range(cfg.num_layers):
+        tree: Dict[str, Any] = {}
+        for path, ts in rows.items():
+            S.tree_set(tree, path, ts[i])
+        for name in ("mlp", "moe", "norm1", "norm2"):
+            tree.setdefault(name, None)
+        blocks.append(_namespace(tree))
+    return SimpleNamespace(
+        embed=SimpleNamespace(tok=flat["embed/tok"],
+                              unembed=flat["embed/unembed"]),
+        blocks=blocks, norm_f=flat.get("norm_f"))
 
 
 def port_name(path: str, *index: int) -> str:
@@ -217,13 +254,37 @@ def forward(cfg, params: Transformer, tokens, *, frontend_embeds=None,
     x = embed_inputs(cfg, params, tokens, frontend_embeds, dtype)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in params.blocks:
-        x, a, _ = _block(cfg, bp, x, positions, mode=mode, window=0)
-        aux = aux + a
+
+    def run(x, aux, blocks):
+        for bp in blocks:
+            x, a, _ = _block(cfg, bp, x, positions, mode=mode, window=0)
+            aux = aux + a
+        return x, aux
+
+    for group, remat in _remat_groups(cfg, list(params.blocks), mode):
+        if remat:
+            x, aux = checkpoint(run, x, aux, group, use_reentrant=False)
+        else:
+            x, aux = run(x, aux, group)
     x = L.apply_norm(cfg, params.norm_f, x)
     if last_only:
         x = x[:, -1:]
     return L.logits(params.embed, x), aux
+
+
+def _remat_groups(cfg, blocks, mode: str):
+    """(blocks, recompute?) in order: the reference's grouped remat
+    (``remat_group`` g > 1 dividing the layers, scanned layers), else one
+    block at a time under ``remat="block"``, in train mode with gradients
+    enabled; otherwise all blocks at once, kept."""
+    if mode != "train" or not torch.is_grad_enabled():
+        return [(blocks, False)]
+    g = cfg.remat_group
+    if g > 1 and cfg.scan_layers and cfg.num_layers % g == 0:
+        return [(blocks[i:i + g], True) for i in range(0, len(blocks), g)]
+    if cfg.remat == "block":
+        return [([bp], True) for bp in blocks]
+    return [(blocks, False)]
 
 
 def pooled_embedding(cfg, params: Transformer, tokens, *,

@@ -37,8 +37,8 @@ Port decisions:
   ``XLSTMState``'s tensors in place (the reference returns new ones)
   and return a state over the same tensors; on the card a state's
   decode steps are one captured CUDA graph (``graph.StepGraph``).
-- The reference's ``state_spec`` (a partition spec) comes with
-  training (ROADMAP queue 1 item 9) and is left out.
+- The reference's ``state_spec`` (a partition spec) comes with the
+  dry run (ROADMAP queue 1 item 9, second half) and is left out.
 """
 from __future__ import annotations
 

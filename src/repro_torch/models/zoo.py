@@ -11,25 +11,59 @@ VLM-backbone, hybrid (hymba), SSM (xlstm) and enc-dec families:
   * ``prefill(params, batch, len)`` — last-token logits + cache or state
   * ``decode(params, cache, tok)``  — one token
   * ``init_cache(batch, len)``
+and, for the transformer families (dense, MoE, VLM backbone), training:
+  * ``init_masters(seed)``          — fp32 masters {reference path:
+                                      tensor}, blocks stacked (L, ...)
+  * ``loss(params, batch)``         — CE with z-loss + 0.01 x MoE aux
+  * ``input_specs(shape)`` / ``make_batch(shape, gen)``
 ``params`` is the family's parameter module (``transformer.Transformer``,
 ``hymba.Hymba``, ``xlstm.XLSTM`` or ``encdec.EncDec``) that ``init``
 returns or ``params_from_numpy`` loads. A batch holds ``tokens``, with
 ``patches`` for the VLM and ``frames`` (B, frontend_tokens, d_model) for
 enc-dec. ``device=None`` means the CUDA card and raises without one.
-Training (``loss``) waits for ROADMAP queue 1 item 9.
+
+Training works on the reference's layout: a flat {path: tensor} dict in
+``iter_defs`` order (the reference's flatten order), blocks stacked.
+``loss`` takes it in the compute type (the train step's cast of the fp32
+masters) and reads it through ``transformer.stacked_views``, so gradients
+come back stacked. ``masters_from_numpy`` / ``masters_to_numpy`` carry
+fp32 masters to and from the reference's tree; ``params_from_masters``
+makes the serving module of trained masters. Training hymba, xlstm and
+enc-dec comes with ROADMAP queue 1 item 9's second half.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import AUDIO, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import (AUDIO, HYBRID, SSM, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.models import encdec, hymba, transformer, xlstm
+from repro_torch.models import layers as L
 from repro_torch.models import spec as S
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_weight: float = 1e-4,
+                  valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over all positions, with a small z-loss, in fp32 (fp64
+    for fp64 logits). ``valid_vocab`` masks padded vocabulary columns.
+    The label's log-prob is a gather (the reference's iota mask sums one
+    hit and zeros: the same value)."""
+    lg = L.wide(logits)
+    if valid_vocab is not None and valid_vocab < lg.shape[-1]:
+        mask = torch.arange(lg.shape[-1], device=lg.device) < valid_vocab
+        lg = torch.where(mask, lg, torch.full((), -1e30, device=lg.device))
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - ll)
+    zl = z_weight * torch.mean(torch.square(lse))
+    return ce + zl
+
 
 # family -> (model module, its parameter module); every other family is
 # the transformer's
@@ -73,6 +107,11 @@ class Model:
             lambda d: transformer.serving_dtype(self.cfg, d))
         return _params_module(self.cfg, flat)
 
+    def init_masters(self, seed: int = 0) -> Dict[str, torch.Tensor]:
+        """fp32 masters by the init law: the numbers ``init(seed)`` draws,
+        before its cast to the serving types."""
+        return S.init_params(self.defs, seed, self.device)
+
     def n_params(self) -> int:
         return S.count_params(self.defs)
 
@@ -95,6 +134,66 @@ class Model:
                 last_only: bool = False):
         return self.mod.forward(self.cfg, params, **self._inputs(batch),
                                 mode=mode, last_only=last_only)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """The train objective: ``cross_entropy`` over the text positions
+        (the VLM's logits cover its patches too) plus 0.01 x the MoE aux
+        loss. ``params``: {reference path: tensor}, blocks stacked, in the
+        compute type; gradients flow to those tensors. Runs in train mode
+        (with block or group remat where the config asks for it)."""
+        if self.mod is not transformer:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the {self.cfg.family} family "
+                f"comes with ROADMAP queue 1 item 9's second half")
+        b = self._inputs(batch)
+        logits, aux = transformer.forward(
+            self.cfg, transformer.stacked_views(self.cfg, params),
+            b["tokens"], frontend_embeds=b["frontend_embeds"], mode="train")
+        labels = _as_tokens(batch["labels"], self.device)
+        if self.cfg.frontend == "vit_stub":
+            logits = logits[:, batch["patches"].shape[1]:]
+        return cross_entropy(logits, labels,
+                             valid_vocab=self.cfg.vocab_size) + 0.01 * aux
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, S.TensorSpec]:
+        """Shape and type of every model input of a shape cell."""
+        cfg = self.cfg
+        b = shape.global_batch
+        i32 = torch.int32
+        dt = transformer.torch_dtype(cfg.dtype)
+        spec = S.TensorSpec
+        if shape.kind == "decode":
+            return {"tokens": spec((b, 1), i32)}
+        s = shape.seq_len
+        out: Dict[str, S.TensorSpec] = {}
+        if cfg.is_encdec:
+            out["frames"] = spec((b, cfg.frontend_tokens, cfg.d_model), dt)
+        elif cfg.frontend == "vit_stub":
+            s -= cfg.frontend_tokens
+            out["patches"] = spec((b, cfg.frontend_tokens, cfg.d_model), dt)
+        out["tokens"] = spec((b, s), i32)
+        if shape.kind == "train":
+            out["labels"] = spec((b, s), i32)
+        return out
+
+    def make_batch(self, shape: ShapeConfig, seed: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+        """A random batch matching ``input_specs`` on the model's device:
+        integers uniform in [0, vocab_size), the rest standard normal,
+        drawn in turn from one ``torch.Generator`` seeded with ``seed``
+        (the reference's shapes, types and ranges, not its numbers)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        out = {}
+        for name, sp in self.input_specs(shape).items():
+            if sp.dtype == torch.int32:
+                out[name] = torch.randint(
+                    0, self.cfg.vocab_size, sp.shape, generator=gen,
+                    device=self.device, dtype=sp.dtype)
+            else:
+                out[name] = torch.randn(sp.shape, generator=gen,
+                                        device=self.device).to(sp.dtype)
+        return out
 
     @torch.no_grad()
     def embedding(self, params, batch) -> torch.Tensor:
@@ -156,6 +255,22 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     ``blocks/attn/wq`` becomes ``blocks.i.attn.wq`` for each layer i
     (``transformer.port_name``); every path of the family's
     ``model_defs(cfg)`` must be present, and no other."""
+    return _params_module(cfg, _from_tree(
+        cfg, tree, device, lambda d: transformer.serving_dtype(cfg, d)))
+
+
+def masters_from_numpy(cfg: ModelConfig, tree, device=None
+                       ) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree (as ``params_from_numpy`` takes it)
+    as fp32 training masters on ``device``: {reference path: tensor} in
+    ``iter_defs`` order, blocks stacked."""
+    return _from_tree(cfg, tree, device, lambda d: torch.float32)
+
+
+def _from_tree(cfg: ModelConfig, tree, device, dtype_of
+               ) -> Dict[str, torch.Tensor]:
+    """{path: tensor} of every def's leaf of ``tree``, each in
+    ``dtype_of(def)`` on ``device``."""
     dev = resolve_device(device)
     defs = dict(S.iter_defs(_module(cfg).model_defs(cfg)))
     flat = {}
@@ -168,13 +283,29 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
         arr = np.array(arr, np.float32)
         if arr.shape != d.shape:
             raise ValueError(f"{path}: shape {arr.shape} != {d.shape}")
-        flat[path] = torch.from_numpy(arr).to(
-            device=dev, dtype=transformer.serving_dtype(cfg, d))
+        flat[path] = torch.from_numpy(arr).to(device=dev, dtype=dtype_of(d))
     extra = {p for p, _ in _leaves(tree)} - set(defs)
     if extra:
         raise ValueError(f"{cfg.name}: paths not in the model: "
                          f"{sorted(extra)}")
-    return _params_module(cfg, flat)
+    return flat
+
+
+def masters_to_numpy(masters: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """fp32 masters as the reference's nested tree of numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for path, t in masters.items():
+        S.tree_set(tree, path, t.detach().float().cpu().numpy())
+    return tree
+
+
+def params_from_masters(cfg: ModelConfig, masters: Dict[str, torch.Tensor]):
+    """The family's parameter module of (trained) masters, each tensor
+    cast to its serving type on the masters' device."""
+    defs = dict(S.iter_defs(_module(cfg).model_defs(cfg)))
+    return _params_module(cfg, {
+        path: masters[path].detach().to(transformer.serving_dtype(cfg, d))
+        for path, d in defs.items()})
 
 
 def params_to_numpy(cfg: ModelConfig, params) -> Dict[str, Any]:

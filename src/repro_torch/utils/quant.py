@@ -1,6 +1,11 @@
-"""Per-tile quantization planes for the mixed-precision tile scan — port
-of the tile part of ``repro/utils/quant.py`` (the optimizer's per-channel
-``quantize_i8``/``dequantize_i8`` come with the training slice).
+"""Shared quantization helpers (port of ``repro/utils/quant.py``).
+
+Two consumers, one module:
+
+  * ``quantize_i8``/``dequantize_i8`` — per-channel (last-dim) symmetric
+    int8 codes for the optimizer state (``train/optimizer.py``). Codes
+    keep the tensor's own shape, scales are ``shape[:-1] + (1,)``.
+  * ``plan_tiles`` — per-tile planes for the mixed-precision tile scan.
 
 ``plan_tiles`` turns one (T, cap, d) fp32 tile layout into per-TILE
 symmetric planes: the narrow codes, one scale per tile, the exact squared
@@ -33,8 +38,9 @@ import torch
 
 PRECISIONS = ("fp32", "bf16", "int8")
 
-# a tile of exact zeros still needs a positive scale (codes 0,
-# dequantized 0 — round trip exact, no division by zero)
+# scale floors: a tile/channel of exact zeros still needs a positive
+# scale (codes 0, dequantized 0 — round trip exact, no division by zero)
+SCALE_FLOOR = 1e-12       # optimizer per-channel floor (the reference's)
 TILE_SCALE_FLOOR = 1e-8   # tile-plane + query floor
 BF16_EPS = 2.0 ** -8      # bf16 relative rounding bound per element
 
@@ -53,6 +59,34 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     correctly rounded; the square root of the value in fp64, rounded once
     to fp32, is."""
     return torch.sqrt(x.double()).float()
+
+
+# ---------------------------------------------------------------------------
+# Per-channel (last-dim) int8 quantization — optimizer state encoding
+# ---------------------------------------------------------------------------
+def quantize_i8(x: torch.Tensor):
+    """x -> (int8 codes of x's shape, fp32 per-channel scales
+    ``shape[:-1] + (1,)``): scale = max|x| / 127 over the last axis,
+    floored at ``SCALE_FLOOR``, codes round half to even (as
+    ``jnp.round``) and clipped to [-127, 127]."""
+    x = x.float()
+    scale = torch.clamp_min(div(x.abs().amax(dim=-1, keepdim=True), 127.0),
+                            SCALE_FLOOR)
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, rounded once on every device: torch's CUDA division by a
+    Python scalar is a product with the scalar's rounded reciprocal,
+    which can land an ulp from the quotient (71,199 of 2^20 Gaussian
+    values on an H100); a divisor tensor on x's device is divided."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def dequantize_i8(codes: torch.Tensor, scale: torch.Tensor, shape=None
+                  ) -> torch.Tensor:
+    return codes.float() * scale
 
 
 class TilePlanes(NamedTuple):

@@ -43,7 +43,12 @@ and outputs within 2^-8 of their largest magnitude. Reduced xlstm (with
 sLSTM blocks) and enc-dec at fp32 on the card against the CPU port on
 the same weights within 1e-4 of the largest magnitude (sum order),
 tokens equal; their captured CUDA graphs (the sLSTM scan, the decode
-step) bit for bit against the same steps run eagerly.
+step) bit for bit against the same steps run eagerly. Training: a
+reduced fp32 step's loss and gradient on the card against the CPU's
+(the loss within 1e-5 relative, each leaf within 1e-4 of its largest
+magnitude); AdamW updates in fp32, bf16 and int8 state bit for bit
+against the CPU's given the card's global norm; ``train()`` in int8
+state finite.
 """
 import numpy as np
 import pytest
@@ -1456,3 +1461,112 @@ def test_encdec_stream_prefill_takes_wgmma_and_is_held(cuda):
     assert {c[0] for c in checks} == {(2, 64, 4, 64)}
     assert flash_attention.launches_by_route == {
         "wgmma": before["wgmma"] + cfg.num_layers, "simt": before["simt"]}
+
+
+# ------------------------------------------------------------ training
+def _train_cfg(dtype="float32"):
+    import dataclasses
+    return dataclasses.replace(get_config("mqrld-embedder-100m").reduced(),
+                               dtype=dtype)
+
+
+def _train_batch(cfg, rows=4, seq=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One fp32 step's loss and gradient (two microbatches) on the card
+    against the CPU's from the same masters: the loss within 1e-5
+    relative, each gradient leaf within 1e-4 of its largest magnitude
+    (sum order); then a train step on the card gives that loss, a finite
+    update and the count 1. (Updated masters are not compared: AdamW's
+    first step is the sign of each gradient entry, which flips where an
+    entry is at rounding level; the law itself is
+    ``test_adamw_on_card_bit_for_bit``.)"""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg = _train_cfg()
+    host = build_model(cfg, "cpu").init_masters(0)
+    batch = _train_batch(cfg)
+    want_l, want_g = loss_and_grads(build_model(cfg, "cpu"), host, batch, 2)
+    model = build_model(cfg, cuda)
+    params = {k: t.to(cuda) for k, t in host.items()}
+    got_l, got_g = loss_and_grads(model, params, batch, 2)
+    assert abs(float(got_l) - float(want_l)) <= 1e-5 * abs(float(want_l))
+    for k, g in want_g.items():
+        assert got_g[k].is_cuda and got_g[k].dtype == torch.float32
+        assert float((got_g[k].cpu() - g).abs().max()) <= \
+            1e-4 * float(g.abs().max()), k
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, microbatches=2)
+    new_p, opt, met = make_train_step(model, tc)(params, init_adam(params),
+                                                 batch)
+    assert abs(float(met["loss"]) - float(want_l)) <= \
+        1e-5 * abs(float(want_l))
+    assert int(met["step"]) == 1 and int(opt.count) == 1
+    assert all(bool(torch.isfinite(t).all()) for t in new_p.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
+def test_adamw_on_card_bit_for_bit(cuda, state_dtype):
+    """Two AdamW updates on the card equal the same updates on the CPU
+    from the same masters, state and gradients, bit for bit, given the
+    card's global norm (the norms themselves within 1e-6 relative)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as O
+    cfg = _train_cfg()
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+    host = build_model(cfg, "cpu").init_masters(1)
+    gen = torch.Generator().manual_seed(2)
+    grads = [{k: torch.randn(t.shape, generator=gen) * 0.05
+              for k, t in host.items()} for _ in range(2)]
+    card = ({k: t.to(cuda) for k, t in host.items()}, None)
+    card = (card[0], O.init_adam(card[0], state_dtype))
+    cpu = (host, O.init_adam(host, state_dtype))
+    for g in grads:
+        p, s, n = O.adam_update(tc, card[0], {k: t.to(cuda) for k, t in
+                                              g.items()}, card[1],
+                                state_dtype)
+        hp, hs, hn = O.adam_update(tc, cpu[0], g, cpu[1], state_dtype,
+                                   gnorm=n.cpu())
+        assert abs(float(n) - float(O.global_norm(g))) <= \
+            1e-6 * float(O.global_norm(g))
+        card, cpu = (p, s), (hp, hs)
+    for k, t in card[0].items():
+        assert torch.equal(t.cpu(), cpu[0][k]), k
+    for name in ("m", "v"):
+        for k, enc in getattr(card[1], name).items():
+            want = getattr(cpu[1], name)[k]
+            got = enc if isinstance(enc, tuple) else (enc,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b), k
+    assert int(card[1].count) == 2
+
+
+@pytest.mark.cuda
+def test_int8_state_train_on_card_finite(cuda, tmp_path):
+    """``train()`` on the card (its default device) in int8 state: three
+    steps, finite losses and masters, m and v int8 codes with (..., 1)
+    scales wherever the stacked shape has rank >= 2."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train.loop import train
+    cfg = _train_cfg("bfloat16")
+    tc = TrainConfig(total_steps=3, warmup_steps=1, checkpoint_every=0,
+                     checkpoint_dir=str(tmp_path))
+    res = train(cfg, tc, seq_len=16, state_dtype="int8",
+                log_fn=lambda s: None)
+    assert res.steps_run == 3 and np.isfinite(res.losses).all()
+    for k, p in res.params.items():
+        assert p.is_cuda and bool(torch.isfinite(p).all())
+        if p.dim() >= 2:
+            for enc in (res.opt.m[k], res.opt.v[k]):
+                assert enc[0].dtype == torch.int8
+                assert tuple(enc[1].shape) == tuple(p.shape[:-1]) + (1,)
