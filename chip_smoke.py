@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of MQRLD (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--seed 0] [--rows 200000] [--dim 512]
-                          [--batch 256]
+                          [--batch 256] [--path q]
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
@@ -45,8 +45,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    skewed workload, the scalar path's rows and work unchanged; and
    ``calibrate(batch=16)``, then the hybrid batch again under the fitted
    model, every row the oracle's;
-   Then ingest on that platform (``drive_ingest_path``): 8 appends of
-   2,500 rows (20,000 in a delta capacity of 32,768, so 12,768 NaN pad
+   Then ingest on that platform (``drive_ingest_path``): 4 appends of
+   5,000 rows (20,000 in a delta capacity of 32,768, so 12,768 NaN pad
    rows), each followed by ``sync_delta`` and the hybrid batch on the
    fp32 device loop, every row equal to the oracle's over ``view()``
    (all 256 queries after the first and last append, 64 after the
@@ -76,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    Then retrieval serving on the loaded platform
    (``drive_serving_path``, path (i)): ``RetrievalServer(batch_size=64)``
    with ``EmbeddingServer(mqrld-embedder-100m)`` at full size in bf16 (on
-   its own stream) and a seeded 768 -> 512 projection, 1,024 requests
+   its own stream) and a seeded 768 -> 512 projection, 512 requests
    (prompts of 16, 32, 64 and 128 tokens; V.K k = 20, V.K k = 100 and
    N.R + V.K k = 20 in turn) at pipeline depth 1 in fp32 and at depth 1
    and 3 in int8: rows identical request by request, 128 sampled
@@ -181,7 +181,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``MQRLD(...).prepare()`` over the example's 2,000 documents and 64
    hybrid queries return the oracle's rows; step seconds, tokens/s,
    MFU and peak memory (``drive_train_path``);
-15. ``flash_attention`` against its plain version, each kernel at its
+15. family training path (q): xlstm-1.3b whole (48 blocks), hymba-1.5b
+   at 8 of 32 layers (one group: 7 windowed + 1 global, seq 1152 past
+   its 1,024 window) and seamless-m4t-medium at 2 + 2 of 12 + 12 layers
+   (4,096 Gaussian frames), each at full width, bf16 compute, fp32
+   masters, block remat, one after the other: the bf16 loss at the init
+   masters within 2^-7 of fp64's; every fp32 gradient leaf within 1e-3
+   RMS of fp64's one group deep with q and k tempered; xlstm's graphed
+   ``SLSTMScan`` against its step-by-step run (bit for bit); 3 steps of
+   ``make_train_step``, the last loss below the first (xlstm and enc-dec
+   from tempered masters: at the init law xlstm's gradient norm overflows
+   and enc-dec's loss rises); xlstm's checkpoint (int8 AdamW state)
+   saved and restored equal; step seconds, tokens/s, MFU and peak
+   memory. Then the compressed cross-pod step
+   (``make_compressed_train_step`` over ``pod_mesh(2)``) on the embedder
+   at full size against one plain step (loss within 0.05, parameters
+   within 1e-2), and 3 more steps with per-pod error buffers
+   (``drive_family_train_path``); no kernel of the port launches;
+16. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
@@ -197,7 +214,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding and xlstm paths run
 none, the training path ``pairwise_sq_l2`` and ``topk_l2_masked``
-through its platform. The
+through its platform, the family training path none (it fails if any
+launches). ``--path q`` builds and runs path (q) alone, and prints no
+result line. The
 last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1333,7 +1352,9 @@ def drive_calibration(args, dev, p, batch, truths, t_uncal: float, kmods):
 
 
 # ------------------------------------------------------------ ingest path
-INGEST_APPENDS, INGEST_ROWS = 8, 2500
+# 4 appends of 5,000 rows: the 20,000-row delta of 8 of 2,500, cut for the
+# time limit (PERF.md §4)
+INGEST_APPENDS, INGEST_ROWS = 4, 5000
 FULL_CHECK_AFTER = (0, INGEST_APPENDS - 1)   # appends checked on all queries
 SLICE = 64        # queries checked after the other appends
 
@@ -1860,7 +1881,7 @@ def drive_rollback(args, dev, sp, sbatch):
 
 
 # -------------------------------------------------------- serving path
-SERVE_REQUESTS = 1024
+SERVE_REQUESTS = 512     # cut from 1,024 for the time limit (PERF.md §4)
 SERVE_LENGTHS = (16, 32, 64, 128)
 SERVE_SAMPLE = 128       # served requests held to the oracle
 SERVE_APPEND = 64        # prompts appended by token, then served
@@ -3489,6 +3510,9 @@ def drive_encdec_path(args, dev, fa, ref):
 TRAIN_ARCH = "mqrld-embedder-100m"
 TRAIN_SEQ = 512          # train()'s default seq_len
 TRAIN_MB = 2             # microbatches: a global batch of 8 x 2 rows
+# 20 steps, a checkpoint every 10, a resume to 24: cut to 12 / 6 / 14 for
+# the time limit, the last 5 steps' mean loss was not below the first's
+# (10.9172 against 10.9164), so that cut is not taken (PERF.md §4)
 TRAIN_STEPS = 20
 TRAIN_EVERY = 10         # checkpoint_every: the step-10 checkpoint
 TRAIN_RESUME = 24        # the second train()'s total_steps
@@ -3716,10 +3740,11 @@ def drive_train_path(args, dev):
     ``check_train_numerics`` first; then ``TRAIN_STEPS`` steps of
     ``8 * TRAIN_MB`` x ``TRAIN_SEQ`` SyntheticLM tokens with a checkpoint
     every ``TRAIN_EVERY``: the mean loss of the last 5 steps below the
-    first step's; the step-10 checkpoint restored with every hash checked
-    and equal, array for array, to the state handed to ``save`` (captured
-    on the card); a second ``train(total_steps=TRAIN_RESUME)`` restoring
-    step 20 and running 4 steps; ``TRAIN_INT8_STEPS`` steps in int8 state
+    first step's; the step-``TRAIN_EVERY`` checkpoint restored with every
+    hash checked and equal, array for array, to the state handed to
+    ``save`` (captured on the card); a second
+    ``train(total_steps=TRAIN_RESUME)`` restoring step ``TRAIN_STEPS``
+    and running the rest; ``TRAIN_INT8_STEPS`` steps in int8 state
     (finite, m and v int8 codes with (..., 1) scales). Then the trained
     masters feed the platform as ``examples/train_embedder.py`` does:
     ``EmbeddingServer`` embeds its 2,000 x 64 documents (two topical
@@ -3814,7 +3839,8 @@ def drive_train_path(args, dev):
                 TRAIN_CLASSES, cpu=False)
             del step
 
-        # the step-10 checkpoint, hashes verified, equal to what was saved
+        # the step-TRAIN_EVERY checkpoint, hashes verified, equal to what
+        # was saved
         ck = C.Checkpointer(tc.checkpoint_dir)
         info["checkpoints"] = ck.all_steps()
         t0 = time.time()
@@ -3927,6 +3953,509 @@ def drive_train_path(args, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ (q) the families trained
+# (name, depth, seq, rows, microbatches). xlstm-1.3b whole (48 blocks,
+# 6 of them sLSTM); hymba-1.5b one group of its four, 8 of 32 layers (7
+# windowed + 1 global), at a sequence past its 1,024-token window;
+# seamless-m4t-medium 2 + 2 of its 12 + 12 layers on its 4,096 frames,
+# 8 rows in 2 microbatches of 4 (the encoder's fp32 scores are 1 GiB a
+# row a layer). hymba's sequence 1536 -> 1152 and seamless's 4 + 4
+# layers -> 2 + 2 are cuts for the time limit (PERF.md §4).
+FAMILY_RUNS = (("xlstm-1.3b", {}, 512, 16, 2),
+               ("hymba-1.5b", {"num_layers": 8}, 1152, 8, 2),
+               ("seamless-m4t-medium", {"num_layers": 2, "enc_layers": 2},
+                512, 8, 2))
+FAMILY_STEPS = 3        # make_train_step steps, all on the first batch
+FAMILY_LR, FAMILY_WARMUP = 1e-3, 1
+# At the init law xlstm-1.3b's gradient norm overflows fp32 (the mLSTM
+# divides by near-zero denominators, and the gain compounds over the
+# blocks: 1.1e7 at 8 layers, 1.5e12 at 16 on the CPU, inf at 48 on the
+# card, where the clip then zeroes every step and the third is NaN; the
+# reference sums the same squares in fp32), and seamless-m4t-medium's
+# loss rose over its first three steps on the card (12.9629, 12.9823,
+# 12.9781; gradient norm 2.1e7: attention one-hot). Their steps start
+# from the masters with q and k tempered (xlstm: 1.4e3 at 16 layers);
+# hymba trains from its init masters.
+FAMILY_TEMPERED_STEPS = ("xlstm-1.3b", "seamless-m4t-medium")
+# AdamW's state type by family: xlstm-1.3b's in int8, which halves its
+# checkpoint (13.85 GiB in fp32 state: 42.7 s to save, 52.7 s to
+# restore on the card, over the path's time)
+FAMILY_STATE = {"xlstm-1.3b": "int8"}
+# the fp32 gradient against fp64's, on the batch's first 2 rows, at the
+# depth of one group of each family at full width: xlstm 1 mLSTM + 1
+# sLSTM, hymba 1 windowed + 1 global block, enc-dec 1 + 1 layers
+FAMILY_GRAD_DEPTH = {"xlstm-1.3b": dict(num_layers=2, slstm_every=2),
+                     "hymba-1.5b": dict(num_layers=2, global_every=2),
+                     "seamless-m4t-medium": dict(num_layers=1,
+                                                 enc_layers=1)}
+FAMILY_GRAD_ROWS = 2
+# SLSTMScan graphed against the same Function run step by step on the
+# card: outputs and gradients within SLSTM_TOL of each tensor's largest
+# magnitude (the same kernels in the same order: bit for bit expected)
+SLSTM_TOL = 1e-6
+# the compressed cross-pod step: the embedder at full size over
+# COMPRESS_PODS pods, held to one plain step on the same batch by the
+# reference's own bounds (tests/test_system.py), then COMPRESS_STEPS more
+COMPRESS_PODS = 2
+COMPRESS_STEPS = 3
+COMPRESS_LOSS_TOL, COMPRESS_PARAM_TOL = 0.05, 1e-2
+
+
+def _tempered_qk(masters):
+    """The masters with every q and k projection (the leaves named
+    ``wq`` and ``wk``, (..., d_model, heads, hd): attention's, the
+    cross-attention's and the mLSTM's) scaled by sqrt(heads / d_model),
+    as ``_tempered`` does for the transformer: drawn at the fan-in of
+    d_model instead of the head count."""
+    return {k: t * math.sqrt(t.shape[-2] / t.shape[-3])
+            if k.rsplit("/", 1)[-1] in ("wq", "wk") else t
+            for k, t in masters.items()}
+
+
+def _family_batch(cfg, model, seq: int, rows: int, seed: int):
+    """xlstm and hymba: ``train()``'s data, SyntheticLM's step-0 batch;
+    enc-dec: ``Model.make_batch`` (Gaussian frames, random tokens)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import PipelineSpec, SyntheticLM
+    if cfg.is_encdec:
+        return model.make_batch(ShapeConfig("q", seq, rows, "train"), seed)
+    return SyntheticLM(PipelineSpec(cfg.vocab_size, seq, rows,
+                                    seed=seed)).batch(0)
+
+
+def _mean_loss(torch, model, masters, batch, pieces: int) -> float:
+    """The step's loss without its gradient: the masters cast to the
+    model's type, ``Model.loss`` averaged over ``pieces`` equal row
+    blocks (the microbatches' mean)."""
+    from repro_torch.models.transformer import torch_dtype
+    from repro_torch.train.step import split_microbatches
+    dt = torch_dtype(model.cfg.dtype)
+    p_c = {k: t.to(dt) for k, t in masters.items()}
+    with torch.no_grad():
+        parts = [float(model.loss(p_c, mb)) for mb in split_microbatches(
+            {k: torch.as_tensor(v, device=model.device)
+             for k, v in batch.items()}, pieces)]
+    return sum(parts) / pieces
+
+
+def check_slstm_function(torch, dev, cfg, masters, rows: int, seq: int,
+                         seed: int):
+    """``SLSTMScan`` at the path's shape (one microbatch) on xlstm's first
+    sLSTM block at the init masters, on a Gaussian input: forward and
+    backward (a random cotangent on the outputs and on the final c)
+    graphed, then the same Function run step by step on the card.
+    Returns (ok, info): each output and gradient's largest difference
+    over its largest magnitude, held to ``SLSTM_TOL``, and the seconds
+    of each."""
+    from repro_torch.models import xlstm
+    h, hd, d = cfg.num_heads, cfg.hd(), cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    x = torch.randn((rows, seq, d), generator=gen, device=dev)
+    wx = (x @ masters["slstm/wx"][0].reshape(d, 4 * h * hd)).view(
+        rows, seq, 4, h, hd) + masters["slstm/b"][0]
+    r = masters["slstm/r"][0].transpose(0, 1).reshape(h, 4 * hd, hd)
+    dys = torch.randn((rows, seq, h, hd), generator=gen, device=dev)
+    dc = torch.randn((rows, h, hd), generator=gen, device=dev)
+    runs, secs = {}, {}
+    for graphed in (dev.type == "cuda", False):
+        ri = r.clone().requires_grad_(True)
+        wi = wx.clone().requires_grad_(True)
+        st = xlstm.slstm_zero_state(rows, h, hd, dev)
+        _sync(torch, dev)
+        t0 = time.time()
+        ys, c, n, m, hl = xlstm.SLSTMScan.apply(ri, wi, *st, graphed)
+        _sync(torch, dev)
+        t1 = time.time()
+        dr, dwx = torch.autograd.grad((ys * dys).sum() + (c * dc).sum(),
+                                      (ri, wi))
+        _sync(torch, dev)
+        name = "graphed" if not runs else "step by step"
+        secs[name] = dict(forward_s=t1 - t0, backward_s=time.time() - t1)
+        runs[name] = {k: t.detach() for k, t in dict(
+            ys=ys, c=c, n=n, m=m, h=hl, dr=dr, dwx=dwx).items()}
+    diff = {k: float((runs["graphed"][k] - b).abs().max())
+            / max(float(b.abs().max()), 1e-30)
+            for k, b in runs["step by step"].items()}
+    ok = all(v <= SLSTM_TOL for v in diff.values())
+    return ok, dict(shape=[rows, seq, h, hd], max_rel_diff=diff,
+                    tolerance=SLSTM_TOL, seconds=secs,
+                    bit_for_bit=all(v == 0 for v in diff.values()))
+
+
+def hymba_scan_saved(torch, dev, cfg, params, rows: int, seq: int,
+                     seed: int):
+    """What autograd keeps for the backward of one global hymba block's
+    Mamba branch (``mamba_scan``) on a microbatch of the path's shape,
+    and the share the Hillis-Steele scan (``hymba._scan_chunks``) holds:
+    its ``torch.cat`` at each shift saves every level. Bytes of distinct
+    storages, as saved-tensor hooks see them."""
+    from repro_torch.models import hymba
+    from repro_torch.models.transformer import torch_dtype
+    dt = torch_dtype(cfg.dtype)
+    views = hymba.stacked_views(cfg, {k: t.to(dt).requires_grad_(True)
+                                      for k, t in params.items()})
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    x = torch.randn((rows, seq, cfg.d_model), generator=gen,
+                    device=dev).to(dt).requires_grad_(True)
+    seen, scan_seen, inside = {}, {}, [False]
+
+    def pack(t):
+        st = t.untyped_storage()
+        (scan_seen if inside[0] else seen)[st.data_ptr()] = st.nbytes()
+        return t
+    real = hymba._scan_chunks
+
+    def scan(*a):
+        inside[0] = True
+        try:
+            return real(*a)
+        finally:
+            inside[0] = False
+    hymba._scan_chunks = scan
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out, _ = hymba.mamba_scan(cfg, views.glob[0].mamba, x)
+    finally:
+        hymba._scan_chunks = real
+    del out, views
+    scan_b = sum(scan_seen.values())
+    other = sum(v for k, v in seen.items() if k not in scan_seen)
+    return dict(rows=rows, seq=seq, saved_gib=(scan_b + other) / 2 ** 30,
+                scan_levels_gib=scan_b / 2 ** 30,
+                scan_storages=len(scan_seen))
+
+
+def drive_family_train(args, dev, name: str, depth: dict, seq: int,
+                       rows: int, mb: int):
+    """One family of path (q): ``name`` at full width and ``depth``
+    (bf16 compute, fp32 masters, the config's block remat), on ``rows``
+    x ``seq`` tokens in ``mb`` microbatches. Checks, in order: the bf16
+    loss at the init masters within ``BF16_LOSS_RTOL`` of fp64's on the
+    same masters and batch; every fp32 gradient leaf within
+    ``FP64_GRAD_RTOL`` (RMS over the leaf's RMS) of fp64's at the depth
+    of ``FAMILY_GRAD_DEPTH`` on ``FAMILY_GRAD_ROWS`` rows, from the
+    masters with q and k tempered (``_tempered_qk``); xlstm only,
+    ``check_slstm_function``; ``FAMILY_STEPS`` steps of
+    ``make_train_step`` on the batch (from tempered masters for
+    ``FAMILY_TEMPERED_STEPS``; AdamW's state in ``FAMILY_STATE``'s type),
+    finite, the last loss below the first; xlstm only, one checkpoint of (masters, AdamW state) saved
+    and restored equal, array for array. Returns (error or None,
+    info): step seconds (first and median of the rest), tokens/s, MFU
+    (``model_flops_for`` over the bf16 peak), peak GiB."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.utils.roofline import model_flops_for, peak_flops
+
+    cfg = dataclasses.replace(get_config(name), **depth)
+    info = dict(layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+                seq=seq, rows=rows, microbatches=mb,
+                resident_gib_before=_resident_gib(torch, dev))
+    t0 = time.time()
+    model = build_model(cfg, dev)
+    info["n_params"] = model.n_params()
+    masters = model.init_masters(args.seed)
+    batch = _family_batch(cfg, model, seq, rows, args.seed)
+    _sync(torch, dev)
+    info["init_s"] = time.time() - t0
+
+    # the loss at the init masters, bf16 against fp64
+    t0 = time.time()
+    l16 = _mean_loss(torch, model, masters, batch, mb)
+    l64 = _mean_loss(torch, build_model(dataclasses.replace(
+        cfg, dtype="float64"), dev), masters, batch, mb)
+    info["loss"] = dict(bf16=l16, fp64=l64,
+                        rel_err=abs(l16 - l64) / abs(l64))
+    info["loss_s"] = time.time() - t0
+    if not info["loss"]["rel_err"] <= BF16_LOSS_RTOL:
+        return (f"{name}: the bf16 loss lies {info['loss']['rel_err']:.3g} "
+                f"from fp64's (rule {BF16_LOSS_RTOL})"), info
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the fp32 gradient against fp64's, one group deep, q and k tempered
+    t0 = time.time()
+    cfg_g = dataclasses.replace(cfg, **FAMILY_GRAD_DEPTH[name])
+    tempered = _tempered_qk(build_model(cfg_g, dev).init_masters(args.seed))
+    part = {k: torch.as_tensor(v, device=dev)[:FAMILY_GRAD_ROWS]
+            for k, v in batch.items()}
+    runs, secs = {}, {}
+    for dt in ("float64", "float32"):
+        t1 = time.time()
+        runs[dt] = loss_and_grads(build_model(dataclasses.replace(
+            cfg_g, dtype=dt), dev), tempered, part, 1)
+        _sync(torch, dev)
+        secs[dt] = time.time() - t1
+    g64, g32 = runs["float64"][1], runs["float32"][1]
+    leaves = {k: _rms(g32[k].double() - g64[k]) / max(_rms(g64[k]), 1e-300)
+              for k in g64}
+    info["grads"] = dict(
+        layers=cfg_g.num_layers, enc_layers=cfg_g.enc_layers,
+        rows=FAMILY_GRAD_ROWS, leaves=leaves, seconds=secs,
+        worst=max(leaves.items(), key=lambda kv: kv[1]),
+        loss_rel_err=abs(float(runs["float32"][0]) - float(
+            runs["float64"][0])) / abs(float(runs["float64"][0])))
+    info["grads_s"] = time.time() - t0
+    del runs, g64, g32, tempered
+    bad = [k for k, v in leaves.items() if not v <= FP64_GRAD_RTOL]
+    if bad:
+        return (f"{name}: the fp32 gradient of {bad} lies further than "
+                f"{FP64_GRAD_RTOL} (RMS) from fp64's"), info
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    if name.startswith("xlstm"):
+        t0 = time.time()
+        ok, info["slstm_function"] = check_slstm_function(
+            torch, dev, cfg, masters, rows // mb, seq, args.seed)
+        info["slstm_function_s"] = time.time() - t0
+        if not ok:
+            return (f"{name}: the graphed SLSTMScan differs from its step by "
+                    f"step run: {info['slstm_function']['max_rel_diff']}"), \
+                info
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # FAMILY_STEPS steps on the batch
+    tc = TrainConfig(learning_rate=FAMILY_LR, warmup_steps=FAMILY_WARMUP,
+                     total_steps=10 * FAMILY_STEPS, microbatches=mb,
+                     seed=args.seed)
+    state_dtype = FAMILY_STATE.get(name, "float32")
+    step = make_train_step(model, tc, state_dtype)
+    info["state_dtype"] = state_dtype
+    if name in FAMILY_TEMPERED_STEPS:
+        masters = _tempered_qk(masters)
+    info["steps_from"] = "tempered" if name in FAMILY_TEMPERED_STEPS \
+        else "init"
+    params, opt = masters, O.init_adam(masters, state_dtype)
+    del masters
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s, norms = [], [], []
+    for _ in range(FAMILY_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        norms.append(float(met["grad_norm"]))
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+    med = float(np.median(step_s[1:]))
+    shape = ShapeConfig("q", seq, rows, "train")
+    info.update(losses=losses, grad_norms=norms, step_s_all=step_s,
+                first_step_s=step_s[0], step_s=med,
+                tokens_per_s=seq * rows / med,
+                model_flops=model_flops_for(cfg, shape),
+                mfu=model_flops_for(cfg, shape) / med / peak_flops("bf16"))
+    finite = bool(np.isfinite(losses).all()) and all(
+        bool(torch.isfinite(t).all()) for t in params.values())
+    if not finite:
+        return f"{name}: a step was not finite: losses {losses}", info
+    if not losses[-1] < losses[0]:
+        return (f"{name}: the last step's loss {losses[-1]:.4f} is not below "
+                f"the first's {losses[0]:.4f}"), info
+    if name.startswith("hymba"):
+        info["mamba_saved"] = hymba_scan_saved(torch, dev, cfg, params,
+                                               rows // mb, seq, args.seed)
+
+    if name.startswith("xlstm"):
+        # one checkpoint of the trained state, saved and restored
+        root = tempfile.mkdtemp(prefix="family_ckpt_")
+        try:
+            ck = C.Checkpointer(root)
+            tree = (params, opt)
+            t0 = time.time()
+            ck.save(FAMILY_STEPS, tree, extra={"step": FAMILY_STEPS},
+                    block=True)
+            info["save_s"] = time.time() - t0
+            sdir = os.path.join(root, f"step_{FAMILY_STEPS}")
+            info["checkpoint_gib"] = sum(
+                os.path.getsize(os.path.join(sdir, f))
+                for f in os.listdir(sdir)) / 2 ** 30
+            t0 = time.time()
+            back, extra = ck.restore(FAMILY_STEPS, tree)
+            info["restore_s"] = time.time() - t0
+            want, got = C._flatten(tree), C._flatten(back)
+            diff = [k for k in want if not torch.equal(got[k], want[k])]
+            info["restored_arrays"] = len(got)
+            del back, got
+            if sorted(want) != sorted(C._flatten(tree)) or diff or \
+                    extra.get("step") != FAMILY_STEPS:
+                return (f"{name}: the restored checkpoint differs in "
+                        f"{diff[:5]} (of {len(want)})"), info
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return None, info
+
+
+def drive_compressed_step(args, dev):
+    """The compressed cross-pod step (``make_compressed_train_step``) of
+    ``TRAIN_ARCH`` at full size over ``pod_mesh(COMPRESS_PODS)`` on the
+    card, beside one plain ``make_train_step`` on the same batch (16 x
+    ``TRAIN_SEQ`` SyntheticLM tokens, one microbatch, lr 1e-3 after 1
+    warmup step): the reference's own bounds, |loss_plain -
+    loss_compressed| < ``COMPRESS_LOSS_TOL`` and every parameter within
+    ``COMPRESS_PARAM_TOL`` of the plain step's. Then ``COMPRESS_STEPS``
+    more compressed steps on the next batches: finite, every pod's error
+    buffer of every leaf non-zero. Returns (error or None, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import PipelineSpec, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.sharding import pod_mesh
+    from repro_torch.train.compression import (init_error_tree,
+                                               make_compressed_train_step)
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    masters = model.init_masters(args.seed)
+    data = SyntheticLM(PipelineSpec(cfg.vocab_size, TRAIN_SEQ, 16,
+                                    seed=args.seed))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, microbatches=1)
+    mesh = pod_mesh(COMPRESS_PODS, dev)
+    plain = make_train_step(model, tc)
+    comp = make_compressed_train_step(model, tc, mesh)
+    opt = init_adam(masters)
+    err = init_error_tree(masters, mesh)
+    info = dict(pods=COMPRESS_PODS, n_params=model.n_params())
+    batch = data.batch(0)
+    t0 = time.perf_counter()
+    p1, _, m1 = plain(masters, opt, batch)
+    l1 = float(m1["loss"])
+    info["plain_step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2, o2, e2, m2 = comp(masters, opt, err, batch)
+    l2 = float(m2["loss"])
+    info["compressed_step_s"] = time.perf_counter() - t0
+    info.update(loss_plain=l1, loss_compressed=l2, loss_diff=abs(l1 - l2),
+                max_param_diff=max(float((p1[k] - p2[k]).abs().max())
+                                   for k in p1))
+    del p1
+    if not (info["loss_diff"] < COMPRESS_LOSS_TOL and
+            info["max_param_diff"] < COMPRESS_PARAM_TOL):
+        return (f"compressed step: loss {l2} against the plain step's {l1}, "
+                f"largest parameter difference {info['max_param_diff']} "
+                f"(bounds {COMPRESS_LOSS_TOL}, {COMPRESS_PARAM_TOL})"), info
+    losses, secs = [l2], []
+    for s in range(1, COMPRESS_STEPS + 1):
+        t0 = time.perf_counter()
+        p2, o2, e2, m2 = comp(p2, o2, e2, data.batch(s))
+        losses.append(float(m2["loss"]))
+        secs.append(time.perf_counter() - t0)
+    zero = [k for k, e in e2.items()
+            if not all(bool(e[i].abs().max() > 0) for i in range(
+                COMPRESS_PODS))]
+    finite = bool(np.isfinite(losses).all()) and all(
+        bool(torch.isfinite(t).all()) for t in p2.values())
+    info.update(losses=losses, step_s_all=secs, count=int(o2.count),
+                error_rms={k: _rms(e) for k, e in list(e2.items())[:4]},
+                pods_differ=sum(not torch.equal(e[0], e[1])
+                                for e in e2.values()), leaves=len(e2))
+    if not finite or zero:
+        return (f"compressed steps: finite {finite}, error buffers all zero "
+                f"on a pod in {zero[:5]}"), info
+    return None, info
+
+
+def drive_family_train_path(args, dev):
+    """Path (q): ``drive_family_train`` for each of ``FAMILY_RUNS``, the
+    state freed before the next, then ``drive_compressed_step``. Returns
+    (error or None, {name: info})."""
+    import torch
+    out = {}
+    for name, depth, seq, rows, mb in FAMILY_RUNS:
+        t0 = time.time()
+        err, info = drive_family_train(args, dev, name, depth, seq, rows, mb)
+        info["seconds"] = time.time() - t0
+        out[name] = info
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if err:
+            return err, out
+    t0 = time.time()
+    err, info = drive_compressed_step(args, dev)
+    info["seconds"] = time.time() - t0
+    out["compressed"] = info
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return err, out
+
+
+def log_family_path(fam: dict, card: str) -> None:
+    """Path (q)'s lines, each beside the card's name and power limit."""
+    for name, info in fam.items():
+        if name == "compressed":
+            log(f"family training path, compressed step ({TRAIN_ARCH}, "
+                f"{info.get('pods')} pods; {card}): " + json.dumps(info))
+            continue
+        log(f"family training path, {name} ({info.get('layers')} layers"
+            + (f" + {info['enc_layers']} encoder" if info.get("enc_layers")
+               else "") + f", {info.get('rows')} x {info.get('seq')} tokens "
+            f"in {info.get('microbatches')} microbatches, bf16 compute, fp32 "
+            f"masters, block remat; {card}): " + json.dumps(
+                {k: v for k, v in info.items()
+                 if k not in ("grads", "slstm_function")}, default=str))
+        if "step_s" in info:
+            log(f"  {name}: step {info['step_s']:.4f} s (median after the "
+                f"first, {info['first_step_s']:.2f} s), "
+                f"{info['tokens_per_s']:.0f} tokens/s, MFU "
+                f"{info['mfu']:.4f} of the bf16 peak, peak device memory "
+                f"{info['peak_gib']:.2f} GiB; {card}")
+        if "grads" in info:
+            g = info["grads"]
+            log(f"  {name}: fp32 gradient against fp64 at {g['layers']}"
+                + (f" + {g['enc_layers']}" if g.get("enc_layers") else "")
+                + f" layers on {g['rows']} rows, q and k tempered, leaf RMS "
+                f"error over leaf RMS (rule {FP64_GRAD_RTOL}; seconds "
+                + json.dumps(g["seconds"]) + "): worst "
+                + json.dumps(g["worst"]) + "; all " + json.dumps(g["leaves"]))
+        if "slstm_function" in info:
+            log(f"  {name}: SLSTMScan graphed against step by step on the "
+                f"card; {card}: " + json.dumps(info["slstm_function"]))
+
+
+def run_family_train_path(args, dev, kmods, card: str, starts) -> int:
+    """Path (q) inside ``main``: its counts reset before it, its lines
+    logged, no kernel of the port launched on it (train mode is dense
+    attention). Returns 0, or ``fail``'s code."""
+    import torch
+    starts.append(("family training path", time.time()))
+    _reset(kmods)
+    err, fam = drive_family_train_path(args, dev)
+    launches = _counters(kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_family_path(fam, card)
+    log("launches on the family training path: " + json.dumps(launches))
+    if err:
+        return fail(f"family training path: {err}")
+    if any(launches.values()):
+        return fail(f"a kernel of the port launched on the family training "
+                    f"path, which the reference trains without one: "
+                    f"{launches}")
+    if args.path == "q":
+        starts.append(("end", time.time()))
+        log("seconds by section: " + json.dumps(
+            {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
+    return 0
+
+
 def log_kernel(label: str, ok: bool, row: dict) -> None:
     lib = row["library_ms"]
     log(f"kernel {label}: ok={ok} {row['shape']} ms={row['ms']:.4f} "
@@ -3968,6 +4497,10 @@ def main() -> int:
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--small-rows", type=int, default=4096)
+    ap.add_argument("--path", choices=["q"], default=None,
+                    help="build, then run this path alone and stop (a "
+                    "shorter call while the path is worked on; prints no "
+                    "result line)")
     args = ap.parse_args()
     starts = []       # (section, start time): the seconds by path
 
@@ -4032,6 +4565,8 @@ def main() -> int:
         f"({len(simt)} kernels)")
     if len(simt) != 8 or any(simt.values()):
         return fail(f"flash_attention (SIMT): ptxas reports spills {simt}")
+    if args.path == "q":
+        return run_family_train_path(args, dev, kmods, card, starts)
 
     # -------------------------------------------------------- kernels
     starts.append(("kernels", time.time()))
@@ -4684,6 +5219,11 @@ def main() -> int:
                                     "topk_l2_masked")) <= 0:
         return fail(f"a kernel of the training path's platform never "
                     f"launched: {tr_launches}")
+
+    # ------------------------------------- (q) the families trained
+    rc = run_family_train_path(args, dev, kmods, card, starts)
+    if rc:
+        return rc
 
     starts.append(("flash_attention checks", time.time()))
     # flash_attention at each kernel's widest path launch: the two

@@ -22,6 +22,15 @@ is stored as the reference stores it, its raw two-byte words (numpy's
     corrupts the latest checkpoint;
   * ``keep`` bounds the checkpoints kept (the oldest go first);
   * integrity: ``restore`` checks every array's hash.
+
+Port decision (speed): an array is hashed over its own bytes (no copy),
+and the arrays are hashed on a pool of threads (``hashlib`` releases the
+GIL), beside the write on save and beside the reads and the copies to
+the device on restore; the digests are the reference's. ``restore``
+reads each array with one ``readinto`` at its offset in the file
+(``np.savez`` stores members uncompressed), where ``np.load`` reads a
+member in 256 KiB pieces through ``zipfile``'s CRC; the hashes check the
+bytes.
 """
 from __future__ import annotations
 
@@ -30,8 +39,11 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -89,14 +101,51 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A tensor over ``arr``, which it may share: an array read from a
+    checkpoint is the read's own (a copy only where it is not writable
+    or not C-ordered)."""
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr)
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
-                                ).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+_HASH_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _hash(arr: np.ndarray) -> str:
-    return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+    """The first 16 hex digits of the sha256 of the array's C-order bytes
+    (``arr.tobytes()``), read in place."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(memoryview(flat)).hexdigest()[:16]
+
+
+def _read_member(f, zf: zipfile.ZipFile, name: str) -> np.ndarray:
+    """The array stored as ``name`` in the npz open as ``zf`` over the
+    file ``f``: a stored (uncompressed) member with a version 1 or 2
+    ``.npy`` header is read with one ``readinto`` at its offset; any
+    other through ``zipfile``."""
+    info = zf.getinfo(name)
+    if info.compress_type == zipfile.ZIP_STORED:
+        f.seek(info.header_offset)
+        head = f.read(30)
+        if head[:4] == b"PK\x03\x04":
+            n, m = struct.unpack("<HH", head[26:30])
+            f.seek(info.header_offset + 30 + n + m)
+            version = np.lib.format.read_magic(f)
+            read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                           (2, 0): np.lib.format.read_array_header_2_0}
+            if version in read_header:
+                shape, fortran, dtype = read_header[version](f)
+                if not dtype.hasobject:
+                    arr = np.empty(shape[::-1] if fortran else shape, dtype)
+                    if arr.nbytes and f.readinto(memoryview(arr).cast(
+                            "B")) != arr.nbytes:
+                        raise ValueError(f"short read of {name}")
+                    return arr.T if fortran else arr
+    with zf.open(name) as member:
+        return np.lib.format.read_array(member)
 
 
 class Checkpointer:
@@ -128,17 +177,21 @@ class Checkpointer:
         tmp = os.path.join(self.dir, f"step_{step}.tmp")
         final = os.path.join(self.dir, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
+        with ThreadPoolExecutor(_HASH_THREADS) as pool:
+            hashes = {k: pool.submit(_hash, a) for k, (a, _) in host.items()}
+            np.savez(os.path.join(tmp, "arrays_0.npz"),
+                     **{k.replace("/", "__"): a
+                        for k, (a, _) in host.items()})
+            hashes = {k: f.result() for k, f in hashes.items()}
         manifest = {
             "step": step,
             "keys": sorted(host.keys()),
             "shapes": {k: list(a.shape) for k, (a, _) in host.items()},
             "dtypes": {k: dt for k, (_, dt) in host.items()},
-            "hashes": {k: _hash(a) for k, (a, _) in host.items()},
+            "hashes": hashes,
             "extra": extra,
             "ts": time.time(),
         }
-        np.savez(os.path.join(tmp, "arrays_0.npz"),
-                 **{k.replace("/", "__"): a for k, (a, _) in host.items()})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(final):
@@ -176,12 +229,17 @@ class Checkpointer:
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        out = {}
-        with np.load(os.path.join(path, "arrays_0.npz")) as z:
+        out, hashes = {}, {}
+        with open(os.path.join(path, "arrays_0.npz"), "rb") as f, \
+                zipfile.ZipFile(f) as zf, \
+                ThreadPoolExecutor(_HASH_THREADS) as pool:
             for k, leaf in _flatten(target_tree).items():
-                arr = z[k.replace("/", "__")]
-                if verify and _hash(arr) != manifest["hashes"][k]:
-                    raise ValueError(f"corrupt array {k} in {path}")
+                arr = _read_member(f, zf, k.replace("/", "__") + ".npy")
+                if verify:
+                    hashes[k] = pool.submit(_hash, arr)
                 t = _from_host(arr, manifest["dtypes"][k])
                 out[k] = t.to(leaf.device) if torch.is_tensor(leaf) else t
+            for k, f in hashes.items():
+                if f.result() != manifest["hashes"][k]:
+                    raise ValueError(f"corrupt array {k} in {path}")
         return _unflatten(target_tree, out), manifest["extra"]

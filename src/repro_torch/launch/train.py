@@ -6,7 +6,10 @@
 Runs on the CUDA card unless ``--device cpu`` is given (without a card
 and without that flag it raises). The data pipeline is a pure function of
 (seed, step, host), and a run resumes from the latest checkpoint in
-``--ckpt``.
+``--ckpt``. Every decoder family trains here (``--arch hymba-1.5b``,
+``--arch xlstm-1.3b``, ...); an enc-dec arch raises, since ``train()``
+feeds tokens only and its model needs frames (train it through
+``make_train_step`` on ``Model.make_batch``'s batches).
 """
 import argparse
 

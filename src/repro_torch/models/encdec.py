@@ -26,22 +26,29 @@ returns a cache of length 0 holding only the cross K/V, as the
 reference's does: ``ServeEngine`` fills the self-attention K/V by
 replaying the prompt through ``decode_step``. The reference's
 ``cache_spec`` (a partition spec) comes with the dry run (ROADMAP queue
-1 item 9, second half) and is left out.
+1 item 9, second half, part 2) and is left out.
+
+Training reads the stacked {reference path: tensor} dict through
+``stacked_views`` and recomputes every encoder and decoder block in the
+backward pass (``remat="block"``), as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ParamDef
-from repro_torch.models.transformer import (Group, _positions, layer_tree,
-                                            stack_defs, torch_dtype)
+from repro_torch.models.transformer import (Group, _positions, embed_view,
+                                            layer_tree, stack_defs,
+                                            stacked_rows, torch_dtype)
 
 
 def _enc_block_defs(cfg) -> Dict[str, Any]:
@@ -94,21 +101,47 @@ class EncDec(nn.Module):
         return self.embed.tok.device
 
 
+def stacked_views(cfg, flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    """The training twin of ``EncDec`` (see ``transformer.stacked_views``):
+    ``enc[i]`` and ``dec[i]`` read row i of each ``enc/*`` and ``dec/*``
+    tensor (L, ...), so gradients come back in those stacked layouts."""
+    return SimpleNamespace(
+        embed=embed_view(flat),
+        enc=stacked_rows(flat, "enc", (cfg.enc_layers,)),
+        dec=stacked_rows(flat, "dec", (cfg.num_layers,)),
+        norm_enc_f=flat["norm_enc_f"], norm_f=flat["norm_f"])
+
+
+def _remat(cfg, mode: str) -> bool:
+    """Recompute each block in the backward pass: the reference's
+    ``jax.checkpoint`` of both scan bodies under ``remat="block"`` in
+    train mode (here also only with gradients enabled)."""
+    return mode == "train" and cfg.remat == "block" and \
+        torch.is_grad_enabled()
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
-def encode(cfg, params: EncDec, frames: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg, bp, x: torch.Tensor, positions) -> torch.Tensor:
+    h = L.rmsnorm(x, bp.norm1)
+    q, k, v = L.qkv(cfg, bp.attn, h, positions)
+    attn = L.attention_dense(q, L.expand_kv(cfg, k), L.expand_kv(cfg, v),
+                             causal=False)
+    x = x + L.out_proj(cfg, bp.attn, attn)
+    return x + L.mlp(bp.mlp, L.rmsnorm(x, bp.norm2))
+
+
+def encode(cfg, params, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, F, d) stub frontend embeddings -> encoder states, in
-    ``cfg.dtype``."""
+    ``cfg.dtype``; ``remat`` recomputes each block in the backward pass."""
     x = frames.to(torch_dtype(cfg.dtype))
     positions = _positions(x)
     for bp in params.enc:
-        h = L.rmsnorm(x, bp.norm1)
-        q, k, v = L.qkv(cfg, bp.attn, h, positions)
-        attn = L.attention_dense(q, L.expand_kv(cfg, k), L.expand_kv(cfg, v),
-                                 causal=False)
-        x = x + L.out_proj(cfg, bp.attn, attn)
-        x = x + L.mlp(bp.mlp, L.rmsnorm(x, bp.norm2))
+        x = checkpoint(_enc_block, cfg, bp, x, positions,
+                       use_reentrant=False) if remat else \
+            _enc_block(cfg, bp, x, positions)
     return L.rmsnorm(x, params.norm_enc_f)
 
 
@@ -130,27 +163,38 @@ def _enc_kv(cfg, bp, enc_out: torch.Tensor):
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def forward(cfg, params: EncDec, tokens, frames, *, mode: str = "train",
+def _dec_block(cfg, bp, x: torch.Tensor, enc_out: torch.Tensor, positions,
+               mode: str) -> torch.Tensor:
+    h = L.rmsnorm(x, bp.norm1)
+    q, k, v = L.qkv(cfg, bp.attn, h, positions)
+    ke, ve = L.expand_kv(cfg, k), L.expand_kv(cfg, v)
+    if mode == "stream":
+        attn = L.attention_stream(q, ke, ve, causal=True)
+    else:
+        attn = L.attention_dense(q, ke, ve, causal=True)
+    x = x + L.out_proj(cfg, bp.attn, attn)
+    x = _cross(cfg, bp, x, _enc_kv(cfg, bp, enc_out))
+    return x + L.mlp(bp.mlp, L.rmsnorm(x, bp.norm2))
+
+
+def forward(cfg, params, tokens, frames, *, mode: str = "train",
             last_only: bool = False, return_hidden: bool = False):
     """Returns (logits, aux = 0); with ``return_hidden`` the platform's
     embedding for enc-dec: the mean-pooled encoder states in fp32. mode:
-    "train" (dense self-attention) or "stream" (``attention_stream``)."""
-    enc_out = encode(cfg, params, frames)
+    "train" (dense self-attention) or "stream" (``attention_stream``).
+    ``params``: an ``EncDec`` or its training views (``stacked_views``);
+    under ``_remat`` every encoder and decoder block is recomputed in the
+    backward pass."""
+    remat = _remat(cfg, mode)
+    enc_out = encode(cfg, params, frames, remat=remat)
     if return_hidden:
         return torch.mean(enc_out.float(), dim=1)
     x = L.embed(params.embed, tokens, torch_dtype(cfg.dtype))
     positions = _positions(x)
     for bp in params.dec:
-        h = L.rmsnorm(x, bp.norm1)
-        q, k, v = L.qkv(cfg, bp.attn, h, positions)
-        ke, ve = L.expand_kv(cfg, k), L.expand_kv(cfg, v)
-        if mode == "stream":
-            attn = L.attention_stream(q, ke, ve, causal=True)
-        else:
-            attn = L.attention_dense(q, ke, ve, causal=True)
-        x = x + L.out_proj(cfg, bp.attn, attn)
-        x = _cross(cfg, bp, x, _enc_kv(cfg, bp, enc_out))
-        x = x + L.mlp(bp.mlp, L.rmsnorm(x, bp.norm2))
+        x = checkpoint(_dec_block, cfg, bp, x, enc_out, positions, mode,
+                       use_reentrant=False) if remat else \
+            _dec_block(cfg, bp, x, enc_out, positions, mode)
     x = L.rmsnorm(x, params.norm_f)
     if last_only:
         x = x[:, -1:]

@@ -36,20 +36,28 @@ Port decisions:
   ``prefill`` (in ``models/zoo.py``) returns an empty cache, as the
   reference's does: ``ServeEngine`` fills it by replaying the prompt
   through ``decode_step``.
+- Training reads the stacked {reference path: tensor} dict through
+  ``stacked_views`` and recomputes each windowed block in the backward
+  pass (``remat="block"``), as the reference does; the global blocks
+  are kept, and with them every level of their Mamba scan (the
+  ``torch.cat`` at each shift).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ParamDef
-from repro_torch.models.transformer import (Group, layer_tree, stack_defs,
+from repro_torch.models.transformer import (Group, embed_view, layer_tree,
+                                            stack_defs, stacked_rows,
                                             torch_dtype)
 
 CONV_K = 4  # depthwise causal conv kernel width
@@ -132,6 +140,18 @@ class Hymba(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.tok.device
+
+
+def stacked_views(cfg, flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    """The training twin of ``Hymba`` (see ``transformer.stacked_views``):
+    ``win[g][w]`` reads row (g, w) of each ``win/*`` tensor (G, W, ...),
+    ``glob[g]`` row g of each ``glob/*`` (G, ...), so gradients come back
+    in those stacked layouts."""
+    g, w = group_shape(cfg)
+    return SimpleNamespace(embed=embed_view(flat),
+                           win=stacked_rows(flat, "win", (g, w)),
+                           glob=stacked_rows(flat, "glob", (g,)),
+                           norm_f=flat["norm_f"])
 
 
 # ---------------------------------------------------------------------------
@@ -334,18 +354,30 @@ def init_cache(cfg, batch: int, max_len: int, device) -> HymbaCache:
 # ---------------------------------------------------------------------------
 # Model entry points
 # ---------------------------------------------------------------------------
-def forward(cfg, params: Hymba, tokens, *, mode: str = "train",
+def _win_block(cfg, bp, x, positions, mode: str):
+    return block_seq(cfg, bp, x, positions, window=cfg.window, mode=mode)[0]
+
+
+def forward(cfg, params, tokens, *, mode: str = "train",
             last_only: bool = False, return_hidden: bool = False):
     """Returns (logits, aux = 0), or with ``return_hidden`` the
     mean-pooled final hidden state in fp32. mode: "train" (dense
-    attention) or "stream" (``attention_stream``)."""
+    attention) or "stream" (``attention_stream``). ``params``: a
+    ``Hymba`` or its training views (``stacked_views``). In train mode
+    with gradients enabled and ``remat="block"``, each windowed block is
+    recomputed in the backward pass (``torch.utils.checkpoint``), as the
+    reference's ``jax.checkpoint`` of its windowed scan body; the global
+    blocks are kept."""
     x = L.embed(params.embed, tokens, torch_dtype(cfg.dtype))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = mode == "train" and cfg.remat == "block" and \
+        torch.is_grad_enabled()
     for win, glob in zip(params.win, params.glob):
         for bp in win:
-            x, _ = block_seq(cfg, bp, x, positions, window=cfg.window,
-                             mode=mode)
+            x = checkpoint(_win_block, cfg, bp, x, positions, mode,
+                           use_reentrant=False) if remat else \
+                _win_block(cfg, bp, x, positions, mode)
         x, _ = block_seq(cfg, glob, x, positions, window=0, mode=mode)
     x = L.rmsnorm(x, params.norm_f)
     if return_hidden:

@@ -246,11 +246,31 @@ def mlp_defs(cfg, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
     }
 
 
+class _Logistic(torch.autograd.Function):
+    """The logistic with JAX's derivative. Autograd through the
+    expansion 1 / (1 + exp(-x)) multiplies a zero gradient by
+    exp(-x) = inf where x < -88 (fp32; -709 in fp64), a NaN that reaches
+    every parameter before it; ``lax.logistic``'s derivative is
+    g * (s * logistic(-x)), finite everywhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * (s * torch.reciprocal(1 + torch.exp(x)))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as XLA evaluates it: the logistic expanded to
     1 / (1 + exp(-x)), every operation rounded to x's dtype (for bf16
-    that differs from ``torch.sigmoid``, which rounds once)."""
-    return torch.reciprocal(1 + torch.exp(-x))
+    that differs from ``torch.sigmoid``, which rounds once); its
+    gradient is ``lax.logistic``'s (``_Logistic``)."""
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

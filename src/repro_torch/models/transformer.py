@@ -157,29 +157,63 @@ def _namespace(tree: Dict[str, Any]) -> SimpleNamespace:
                               for k, v in tree.items()})
 
 
+def _unbind(t: torch.Tensor, depth: int):
+    """``t``'s rows over its ``depth`` leading axes, as nested lists of
+    ``unbind(0)`` views."""
+    rows = t.unbind(0)
+    return list(rows) if depth == 1 else [_unbind(r, depth - 1)
+                                          for r in rows]
+
+
+def stacked_rows(flat: Dict[str, torch.Tensor], prefix: str, lead,
+                 absent=()):
+    """The layers of one stacked group of ``flat`` ({reference path:
+    tensor}) as namespaces over ``unbind`` views: a list of ``lead[0]``
+    (for ``lead = (G, W)``, a list of G lists of W) whose entry holds
+    row i (or (i, j)) of every ``prefix/...`` leaf under its path's
+    keys, each name of ``absent`` None where the group has no such leaf.
+    ``unbind``'s backward stacks the rows' gradients into the stacked
+    tensor's gradient: the reference's stacked layout."""
+    rows = {path[len(prefix) + 1:]: _unbind(t, len(lead))
+            for path, t in flat.items() if path.startswith(prefix + "/")}
+
+    def layer(index):
+        tree: Dict[str, Any] = {}
+        for path, r in rows.items():
+            for i in index:
+                r = r[i]
+            S.tree_set(tree, path, r)
+        for name in absent:
+            tree.setdefault(name, None)
+        return _namespace(tree)
+
+    def level(index):
+        if len(index) == len(lead):
+            return layer(index)
+        return [level(index + (i,)) for i in range(lead[len(index)])]
+    return level(())
+
+
+def embed_view(flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    return SimpleNamespace(tok=flat["embed/tok"],
+                           unembed=flat["embed/unembed"])
+
+
 def stacked_views(cfg, flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
     """The training twin of ``Transformer``: the same attribute tree
     (``embed.tok``, ``blocks[i].attn.wq``, ``norm_f``, absent groups
     None) over plain tensors. ``flat``: {reference path: tensor}, blocks
     stacked (L, ...), as the train step's compute copy holds them. Block
-    i reads the i-th of ``unbind(0)`` of each stacked tensor, whose
-    backward stacks the layers' gradients into the stacked tensor's
-    gradient, the reference's (L, ...) layout. (``Transformer`` wraps
-    its views in new ``nn.Parameter`` leaves, which cut that link.)"""
-    rows = {path[len("blocks/"):]: t.unbind(0)
-            for path, t in flat.items() if path.startswith("blocks/")}
-    blocks = []
-    for i in range(cfg.num_layers):
-        tree: Dict[str, Any] = {}
-        for path, ts in rows.items():
-            S.tree_set(tree, path, ts[i])
-        for name in ("mlp", "moe", "norm1", "norm2"):
-            tree.setdefault(name, None)
-        blocks.append(_namespace(tree))
+    i reads the i-th of ``unbind(0)`` of each stacked tensor
+    (``stacked_rows``), so gradients come back in the reference's
+    (L, ...) layout. (``Transformer`` wraps its views in new
+    ``nn.Parameter`` leaves, which cut that link.) Each family's module
+    has its own ``stacked_views`` after this pattern."""
     return SimpleNamespace(
-        embed=SimpleNamespace(tok=flat["embed/tok"],
-                              unembed=flat["embed/unembed"]),
-        blocks=blocks, norm_f=flat.get("norm_f"))
+        embed=embed_view(flat),
+        blocks=stacked_rows(flat, "blocks", (cfg.num_layers,),
+                            absent=("mlp", "moe", "norm1", "norm2")),
+        norm_f=flat.get("norm_f"))
 
 
 def port_name(path: str, *index: int) -> str:

@@ -32,28 +32,40 @@ Port decisions:
 - ``slstm_scan`` on the card runs its first step, captures the step as
   a CUDA graph (``graph.capture``; the position a device tensor that
   the step advances) and replays it for the rest: a 2,048-token prompt
-  is 2,048 steps of ~40 small kernels in each of six blocks.
+  is 2,048 steps of ~40 small kernels in each of six blocks. A captured
+  graph records no autograd, so where gradients are taken the scan is
+  ``SLSTMScan``, a ``torch.autograd.Function`` whose forward keeps each
+  step's gates and states and whose backward runs the reverse
+  recurrence; on the card both loops are captured graphs.
+- Training reads the stacked {reference path: tensor} dict through
+  ``stacked_views`` and recomputes each mLSTM block in the backward pass
+  (``remat="block"``), as the reference does; the sLSTM is not
+  recomputed.
 - ``prefill`` and ``decode_step`` write the final states into the
   ``XLSTMState``'s tensors in place (the reference returns new ones)
   and return a state over the same tensors; on the card a state's
   decode steps are one captured CUDA graph (``graph.StepGraph``).
 - The reference's ``state_spec`` (a partition spec) comes with the
-  dry run (ROADMAP queue 1 item 9, second half) and is left out.
+  dry run (ROADMAP queue 1 item 9, second half, part 2) and is left
+  out.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
 from repro_torch.models.spec import ParamDef
-from repro_torch.models.transformer import (Group, layer_tree, stack_defs,
+from repro_torch.models.transformer import (Group, embed_view, layer_tree,
+                                            stack_defs, stacked_rows,
                                             torch_dtype)
 
 NEG = -1e30     # the reference's "minus infinity" for log weights
@@ -143,6 +155,18 @@ class XLSTM(nn.Module):
         return self.embed.tok.device
 
 
+def stacked_views(cfg, flat: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    """The training twin of ``XLSTM`` (see ``transformer.stacked_views``):
+    ``mlstm[g][m]`` reads row (g, m) of each ``mlstm/*`` tensor (G, M,
+    ...), ``slstm[g]`` row g of each ``slstm/*`` (G, ...; None without
+    sLSTM blocks), so gradients come back in those stacked layouts."""
+    g, m = group_shape(cfg)
+    return SimpleNamespace(
+        embed=embed_view(flat), mlstm=stacked_rows(flat, "mlstm", (g, m)),
+        slstm=stacked_rows(flat, "slstm", (g,)) if has_slstm(cfg) else None,
+        norm_f=flat["norm_f"])
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -171,18 +195,21 @@ def _out(p, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (y.to(x.dtype) * og) @ p.wo.to(x.dtype)
 
 
-def mlstm_zero_state(b: int, h: int, hd: int, device):
-    f32 = torch.float32
-    return (torch.zeros((b, h, hd, hd), dtype=f32, device=device),
-            torch.zeros((b, h, hd), dtype=f32, device=device),
-            torch.full((b, h), NEG, dtype=f32, device=device))
+def mlstm_zero_state(b: int, h: int, hd: int, device,
+                     dtype: torch.dtype = torch.float32):
+    """(C, n, m) as the reference starts them: 0, 0, -1e30 (in fp32;
+    fp64 for the exact evaluation)."""
+    return (torch.zeros((b, h, hd, hd), dtype=dtype, device=device),
+            torch.zeros((b, h, hd), dtype=dtype, device=device),
+            torch.full((b, h), NEG, dtype=dtype, device=device))
 
 
-def mlstm_parallel(cfg, p, x: torch.Tensor, state=None):
+def mlstm_parallel(cfg, p, x: torch.Tensor, state=None, terms=None):
     """Chunked-parallel mLSTM over whole sequences. x: (B, S, d).
     Returns (out, (C, n, m)): C (B, H, hd, hd), n (B, H, hd), m (B, H),
     fp32. S must be a multiple of min(``cfg.mlstm_chunk``, S), as the
-    reference asserts."""
+    reference asserts. ``terms``, a dict where given, receives the chunk
+    body's intermediate terms by name (for precision probes)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.hd()
     qc = int(min(cfg.mlstm_chunk, s))
@@ -196,7 +223,7 @@ def mlstm_parallel(cfg, p, x: torch.Tensor, state=None):
     v = v.to(q.dtype).view(b, nc, qc, h, hd)
     li, lf = li.view(b, nc, qc, h), lf.view(b, nc, qc, h)
     c, n, m = state if state is not None else \
-        mlstm_zero_state(b, h, hd, x.device)
+        mlstm_zero_state(b, h, hd, x.device, q.dtype)
 
     fcum = torch.cumsum(lf, dim=2)                        # (b, nc, t, h)
     # intra-chunk log weights A[t, s] = F_t - F_s + log i_s  (s <= t)
@@ -228,6 +255,9 @@ def mlstm_parallel(cfg, p, x: torch.Tensor, state=None):
         n_in.append(n)
         c = decay[:, j, :, None, None] * c + kv[:, j]
         n = decay[:, j, :, None] * n + ks[:, j]
+    if terms is not None:
+        terms.update(q=q, k=k, v=v, fcum=fcum, m_t=m_t, w=w, w_in=w_in,
+                     qkw=qkw, kv=kv, ks=ks)
     del kv
     c_in, n_in = torch.stack(c_in, dim=1), torch.stack(n_in, dim=1)
     num = (torch.einsum("bctsh,bcshk->bcthk", qkw, v)
@@ -235,6 +265,8 @@ def mlstm_parallel(cfg, p, x: torch.Tensor, state=None):
     den = (qkw.sum(dim=3)
            + w_in * torch.einsum("bchk,bcthk->bcth", n_in, q))
     y = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    if terms is not None:
+        terms.update(c_in=c_in, n_in=n_in, num=num, den=den, y=y)
     return _out(p, x, y.reshape(b, s, h * hd)), (c, n, m)
 
 
@@ -261,18 +293,25 @@ def mlstm_step(cfg, p, x: torch.Tensor, state):
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
-def slstm_zero_state(b: int, h: int, hd: int, device):
-    """(c, n, m, h) as the reference starts them: 0, 1e-6, -1e30, 0."""
-    zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=device)
+def slstm_zero_state(b: int, h: int, hd: int, device,
+                     dtype: torch.dtype = torch.float32):
+    """(c, n, m, h) as the reference starts them: 0, 1e-6, -1e30, 0 (in
+    fp32; fp64 for the exact evaluation)."""
+    zeros = torch.zeros((b, h, hd), dtype=dtype, device=device)
     return zeros, zeros + 1e-6, zeros + NEG, zeros.clone()
 
 
-def _slstm_cell(r: torch.Tensor, wx_t: torch.Tensor, c, n, m, hprev):
-    """One sLSTM step. r: (H, 4 * hd, hd), the recurrent weights heads
-    first; wx_t: (B, 4, H, hd) the input projection plus bias, fp32."""
+def _slstm_gates(r: torch.Tensor, wx_t: torch.Tensor, hprev):
+    """The step's gate pre-activations (B, 4, H, hd): wx_t (the input
+    projection plus bias) + R h_{t-1}, r (H, 4 * hd, hd) heads first."""
     hh, hd = hprev.shape[1:]
     rec = torch.bmm(r, hprev.permute(1, 2, 0))            # (H, 4hd, B)
-    g = wx_t + rec.view(hh, 4, hd, -1).permute(3, 1, 0, 2)
+    return wx_t + rec.view(hh, 4, hd, -1).permute(3, 1, 0, 2)
+
+
+def _slstm_update(g: torch.Tensor, c, n, m):
+    """The step's new state (c, n, m, h) from its gates and the state
+    before it."""
     zt = torch.tanh(g[:, 0])
     it = g[:, 1]
     ft = L.log_sigmoid(g[:, 2])
@@ -283,6 +322,56 @@ def _slstm_cell(r: torch.Tensor, wx_t: torch.Tensor, c, n, m, hprev):
     c = fp * c + ip * zt
     n = fp * n + ip
     return c, n, m_new, ot * (c / torch.clamp_min(n, 1e-6))
+
+
+def _slstm_cell(r: torch.Tensor, wx_t: torch.Tensor, c, n, m, hprev):
+    """One sLSTM step. r: (H, 4 * hd, hd), the recurrent weights heads
+    first; wx_t: (B, 4, H, hd) the input projection plus bias, fp32."""
+    return _slstm_update(_slstm_gates(r, wx_t, hprev), c, n, m)
+
+
+def _slstm_cell_backward(g, c, n, m, c1, n1, m1, dc, dn, dm, dh):
+    """The reverse of ``_slstm_update``: from the gates g, the state
+    before the step (c, n, m), the state after it (c1, n1, m1) and the
+    gradients of that state (dc, dn, dm, dh), the gradients of g and of
+    (c, n, m). Each line is the derivative autograd takes through the
+    forward's operation: ``torch.maximum`` splits a tie's gradient in
+    halves, ``clamp_min`` passes it where n1 >= 1e-6."""
+    zt = torch.tanh(g[:, 0])
+    it = g[:, 1]
+    a = L.log_sigmoid(g[:, 2]) + m
+    ot = L.sigmoid(g[:, 3])
+    ip = torch.exp(it - m1)
+    fp = torch.exp(a - m1)
+    nc = torch.clamp_min(n1, 1e-6)
+    d_ot = dh * (c1 / nc)
+    dq = dh * ot
+    dc = dc + dq / nc
+    dn = dn + torch.where(n1 >= 1e-6, -dq * c1 / (nc * nc), 0.0)
+    dfp = dc * c + dn * n
+    dip = dc * zt + dn
+    dit = dip * ip
+    da = dfp * fp
+    dm1 = dm - dit - da
+    share = torch.where(a > it, 1.0, torch.where(a == it, 0.5, 0.0)).to(
+        dm1.dtype)
+    da = da + dm1 * share
+    dit = dit + dm1 * (1 - share)
+    dg = torch.stack([dc * ip * (1 - zt * zt), dit,
+                      da * L.sigmoid(-g[:, 2]), d_ot * ot * (1 - ot)], dim=1)
+    return dg, dc * fp, dn * fp, da
+
+
+def _run_steps(step, n: int, device: torch.device, graphed: bool):
+    """``step()`` n times; ``graphed``: the first runs, then the step is
+    captured once as a CUDA graph (``graph.capture``) and replayed."""
+    if not graphed or n < 2:
+        for _ in range(n):
+            step()
+        return
+    _, graph, _ = G.capture(step, device)
+    for _ in range(n - 1):
+        graph.replay()
 
 
 def _scan_eager(r, wx, state):
@@ -308,24 +397,107 @@ def _scan_graphed(r, wx, state):
             dst.copy_(src)
         ys.index_copy_(1, t, new[3][:, None])
         t.add_(1)
-    _, graph, _ = G.capture(step, wx.device)
-    for _ in range(s - 1):
-        graph.replay()
+    _run_steps(step, s, wx.device, True)
     return ys, st
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The sLSTM recurrence with its own backward, for training.
+
+    ``apply(r, wx, c0, n0, m0, h0, graphed)`` -> (ys (B, S, H, hd), c, n,
+    m, h): ``_scan_eager``'s values (the same operations). Forward keeps
+    each step's gates (B, S, 4, H, hd) and the states before and after
+    every step, (c, n, m, h) at S + 1 positions; backward runs the
+    reverse recurrence (``_slstm_cell_backward``, then R^T dg into the
+    previous h) from the last step to the first, and takes R's gradient
+    as one product of all steps' gate gradients with the h before each.
+    It returns the gradients of r, wx and the initial state.
+
+    ``graphed`` (on the card): the forward step and the reverse step each
+    read and write their position through a device tensor, so each is
+    captured once as a CUDA graph and replayed (512 steps of ~40 kernels,
+    forward and backward, in each of xlstm-1.3b's six sLSTM blocks);
+    otherwise both loops run step by step, the same operations."""
+
+    @staticmethod
+    def forward(ctx, r, wx, c0, n0, m0, h0, graphed: bool):
+        b, s = wx.shape[:2]
+        seqs = []
+        for t0 in (c0, n0, m0, h0):
+            buf = t0.new_empty((b, s + 1) + tuple(t0.shape[1:]))
+            buf[:, 0] = t0
+            seqs.append(buf)
+        cs, ns, ms, hs = seqs
+        gs = torch.empty_like(wx)
+        pos = torch.zeros(1, dtype=torch.int64, device=wx.device)
+
+        def step():
+            prev = [t.index_select(1, pos)[:, 0] for t in seqs]
+            g = _slstm_gates(r, wx.index_select(1, pos)[:, 0], prev[3])
+            new = _slstm_update(g, *prev[:3])
+            gs.index_copy_(1, pos, g[:, None])
+            nxt = pos + 1
+            for buf, t in zip(seqs, new):
+                buf.index_copy_(1, nxt, t[:, None])
+            pos.add_(1)
+        _run_steps(step, s, wx.device, graphed)
+        ctx.save_for_backward(r, gs, cs, ns, ms, hs)
+        ctx.graphed = graphed
+        return (hs[:, 1:].contiguous(),) + tuple(t[:, s].clone()
+                                                 for t in seqs)
+
+    @staticmethod
+    def backward(ctx, dys, dc, dn, dm, dh):
+        r, gs, cs, ns, ms, hs = ctx.saved_tensors
+        b, s, _, hh, hd = gs.shape
+        dgs = torch.empty_like(gs)
+        carry = [t.contiguous().clone() for t in (dc, dn, dm, dh)]
+        dys = dys.contiguous()
+        rt = r.transpose(1, 2).contiguous()               # (H, hd, 4hd)
+        pos = torch.full((1,), s - 1, dtype=torch.int64, device=gs.device)
+
+        def step():
+            nxt = pos + 1
+            g = gs.index_select(1, pos)[:, 0]
+            before = [t.index_select(1, pos)[:, 0] for t in (cs, ns, ms)]
+            after = [t.index_select(1, nxt)[:, 0] for t in (cs, ns, ms)]
+            dh_t = carry[3] + dys.index_select(1, pos)[:, 0]
+            dg, dc_, dn_, dm_ = _slstm_cell_backward(
+                g, *before, *after, carry[0], carry[1], carry[2], dh_t)
+            dgs.index_copy_(1, pos, dg[:, None])
+            drec = dg.permute(2, 1, 3, 0).reshape(hh, 4 * hd, b)
+            dh_ = torch.bmm(rt, drec).permute(2, 0, 1)    # (B, H, hd)
+            for dst, src in zip(carry, (dc_, dn_, dm_, dh_)):
+                dst.copy_(src)
+            pos.sub_(1)
+        _run_steps(step, s, gs.device, ctx.graphed)
+        dr = torch.bmm(
+            dgs.permute(3, 2, 4, 0, 1).reshape(hh, 4 * hd, b * s),
+            hs[:, :s].permute(2, 0, 1, 3).reshape(hh, b * s, hd))
+        return (dr, dgs, *carry, None)
 
 
 def slstm_scan(cfg, p, x: torch.Tensor, state=None):
     """Whole-sequence sLSTM: the input product outside, the recurrence in
-    a loop. Returns (out, (c, n, m, h)), the state fp32 (B, H, hd)."""
+    a loop. Returns (out, (c, n, m, h)), the state fp32 (B, H, hd).
+
+    Where autograd records (gradients enabled and any input requiring
+    them) the recurrence is ``SLSTMScan``, graphed on the card; otherwise
+    ``_scan_graphed`` on the card (s > 1) or ``_scan_eager``."""
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.hd()
     wx = (x @ p.wx.to(x.dtype).reshape(d, 4 * h * hd)).view(
         b, s, 4, h, hd).to(_wide(x)) + p.b.to(_wide(x))
     r = p.r.to(_wide(x)).transpose(0, 1).reshape(h, 4 * hd, hd)
     if state is None:
-        state = slstm_zero_state(b, h, hd, x.device)
-    scan = _scan_graphed if x.is_cuda and s > 1 else _scan_eager
-    ys, state = scan(r, wx, state)
+        state = slstm_zero_state(b, h, hd, x.device, _wide(x))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, wx, *state)):
+        ys, *state = SLSTMScan.apply(r, wx, *state, x.is_cuda)
+        state = tuple(state)
+    else:
+        scan = _scan_graphed if x.is_cuda and s > 1 else _scan_eager
+        ys, state = scan(r, wx, state)
     y = ys.reshape(b, s, d).to(x.dtype)
     return y @ p.wo.to(x.dtype), state
 
@@ -367,12 +539,23 @@ def init_state(cfg, batch: int, device) -> XLSTMState:
 # ---------------------------------------------------------------------------
 # Model entry points
 # ---------------------------------------------------------------------------
-def _stack(cfg, params: XLSTM, x: torch.Tensor, state, m_fn, s_fn):
+def _mlstm_block(cfg, bp, x: torch.Tensor) -> torch.Tensor:
+    return x + mlstm_parallel(cfg, bp, L.rmsnorm(x, bp.norm))[0]
+
+
+def _stack(cfg, params, x: torch.Tensor, state, m_fn, s_fn,
+           remat: bool = False):
     """Every block on x (residual around each), with ``m_fn`` /
     ``s_fn`` the mLSTM and sLSTM runners; with a state, each block
-    starts from its entry and writes its final state back."""
+    starts from its entry and writes its final state back. ``remat``
+    (no state): each mLSTM block is recomputed in the backward pass, as
+    the reference's ``jax.checkpoint`` of its mLSTM scan body; the sLSTM
+    blocks are kept."""
     for g, blocks in enumerate(params.mlstm):
         for j, bp in enumerate(blocks):
+            if remat:
+                x = checkpoint(_mlstm_block, cfg, bp, x, use_reentrant=False)
+                continue
             st = None if state is None else \
                 (state.mc[g, j], state.mn[g, j], state.mm[g, j])
             out, new = m_fn(cfg, bp, L.rmsnorm(x, bp.norm), st)
@@ -392,13 +575,17 @@ def _stack(cfg, params: XLSTM, x: torch.Tensor, state, m_fn, s_fn):
     return L.rmsnorm(x, params.norm_f)
 
 
-def forward(cfg, params: XLSTM, tokens, *, mode: str = "train",
+def forward(cfg, params, tokens, *, mode: str = "train",
             last_only: bool = False, return_hidden: bool = False):
     """Returns (logits, aux = 0), or with ``return_hidden`` the
     mean-pooled final hidden state in fp32. Both modes run the chunked
-    mLSTM (``mode`` selects remat in the reference, for training)."""
+    mLSTM; in train mode with gradients enabled and ``remat="block"``
+    each mLSTM block is recomputed in the backward pass. ``params``: an
+    ``XLSTM`` or its training views (``stacked_views``)."""
     x = L.embed(params.embed, tokens, torch_dtype(cfg.dtype))
-    x = _stack(cfg, params, x, None, mlstm_parallel, slstm_scan)
+    remat = mode == "train" and cfg.remat == "block" and \
+        torch.is_grad_enabled()
+    x = _stack(cfg, params, x, None, mlstm_parallel, slstm_scan, remat)
     if return_hidden:
         return torch.mean(x.float(), dim=1)
     if last_only:

@@ -11,9 +11,9 @@ VLM-backbone, hybrid (hymba), SSM (xlstm) and enc-dec families:
   * ``prefill(params, batch, len)`` — last-token logits + cache or state
   * ``decode(params, cache, tok)``  — one token
   * ``init_cache(batch, len)``
-and, for the transformer families (dense, MoE, VLM backbone), training:
+and, for every family, training:
   * ``init_masters(seed)``          — fp32 masters {reference path:
-                                      tensor}, blocks stacked (L, ...)
+                                      tensor}, blocks stacked
   * ``loss(params, batch)``         — CE with z-loss + 0.01 x MoE aux
   * ``input_specs(shape)`` / ``make_batch(shape, gen)``
 ``params`` is the family's parameter module (``transformer.Transformer``,
@@ -23,13 +23,15 @@ returns or ``params_from_numpy`` loads. A batch holds ``tokens``, with
 enc-dec. ``device=None`` means the CUDA card and raises without one.
 
 Training works on the reference's layout: a flat {path: tensor} dict in
-``iter_defs`` order (the reference's flatten order), blocks stacked.
+``iter_defs`` order (the reference's flatten order), blocks stacked
+((L, ...); hymba's ``win/*`` and xlstm's ``mlstm/*`` (G, W, ...)).
 ``loss`` takes it in the compute type (the train step's cast of the fp32
-masters) and reads it through ``transformer.stacked_views``, so gradients
-come back stacked. ``masters_from_numpy`` / ``masters_to_numpy`` carry
-fp32 masters to and from the reference's tree; ``params_from_masters``
-makes the serving module of trained masters. Training hymba, xlstm and
-enc-dec comes with ROADMAP queue 1 item 9's second half.
+masters, the fp32-read leaves rounded to it too, as the reference's
+cast rounds them) and reads it through the family's ``stacked_views``,
+so gradients come back stacked. ``masters_from_numpy`` /
+``masters_to_numpy`` carry fp32 masters to and from the reference's
+tree; ``params_from_masters`` makes the serving module of trained
+masters.
 """
 from __future__ import annotations
 
@@ -125,6 +127,13 @@ class Model:
             out["frontend_embeds"] = None if patches is None else \
                 torch.as_tensor(patches, device=self.device)
         elif self.mod is encdec:
+            if "frames" not in batch:
+                raise ValueError(
+                    f"{self.cfg.name}: an enc-dec batch needs 'frames' "
+                    f"(B, {self.cfg.frontend_tokens}, {self.cfg.d_model}) "
+                    f"beside its tokens; train() feeds tokens only "
+                    f"(SyntheticLM), so train enc-dec through "
+                    f"make_train_step on make_batch's batches")
             out["frames"] = torch.as_tensor(batch["frames"],
                                             device=self.device)
         return out
@@ -139,16 +148,12 @@ class Model:
         """The train objective: ``cross_entropy`` over the text positions
         (the VLM's logits cover its patches too) plus 0.01 x the MoE aux
         loss. ``params``: {reference path: tensor}, blocks stacked, in the
-        compute type; gradients flow to those tensors. Runs in train mode
-        (with block or group remat where the config asks for it)."""
-        if self.mod is not transformer:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the {self.cfg.family} family "
-                f"comes with ROADMAP queue 1 item 9's second half")
+        compute type; gradients flow to those tensors. Runs the family's
+        forward in train mode on its ``stacked_views`` (with block or
+        group remat where the config asks for it)."""
         b = self._inputs(batch)
-        logits, aux = transformer.forward(
-            self.cfg, transformer.stacked_views(self.cfg, params),
-            b["tokens"], frontend_embeds=b["frontend_embeds"], mode="train")
+        views = self.mod.stacked_views(self.cfg, params)
+        logits, aux = self.mod.forward(self.cfg, views, **b, mode="train")
         labels = _as_tokens(batch["labels"], self.device)
         if self.cfg.frontend == "vit_stub":
             logits = logits[:, batch["patches"].shape[1]:]

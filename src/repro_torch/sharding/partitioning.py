@@ -1,7 +1,8 @@
 """Tile placement for the hybrid-query engine's sharded execution path —
-port of the tile part of ``repro/sharding/partitioning.py`` (``MeshRules``,
-``rules_for_mesh`` and ``shard`` serve training and the models' partition
-specs, and come with the training slice).
+port of the tile part of ``repro/sharding/partitioning.py`` — and the pod
+axis of the compressed train step (``pod_mesh``). ``MeshRules``,
+``rules_for_mesh`` and ``shard`` serve the models' partition specs, and
+come with the dry run (ROADMAP queue 1 item 9, second half, part 2).
 
 ``tile_mesh`` describes S shards in this process, all placed on one
 device. The reference builds a one-axis ``("shards",)`` JAX mesh over S
@@ -38,6 +39,8 @@ from typing import Protocol, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.utils.quant import div
 
 
 class Collectives(Protocol):
@@ -84,6 +87,44 @@ def tile_mesh(shards: int, device=None) -> TileMesh:
     from repro_torch import resolve_device
     return TileMesh(shards=int(shards), device=resolve_device(device),
                     collectives=LocalCollectives())
+
+
+@dataclass(frozen=True)
+class PodMesh:
+    """P data-parallel pods in this process, all on one device: the
+    counterpart of the reference's "pod" mesh axis, over which its
+    compressed train step (``train/compression.py``) is manual. A value
+    per pod is a *pod-stacked* tensor, axis 0 the pods in order; the
+    collectives reduce that axis. (A version over ``torch.distributed``,
+    one pod per rank, waits for a machine with more than one card.)"""
+    pods: int
+    device: torch.device
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the pods (axis 0), in x's type: int32 codes sum
+        in int32, as the reference's ``psum`` of int32 does."""
+        return x.sum(0, dtype=x.dtype)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the pods: their sum divided by P."""
+        return div(self.psum(x), float(self.pods))
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch array's rows as P contiguous pod shards, viewed
+        (P, rows / P, ...): the reference's ``P("pod", None, ...)``."""
+        p = self.pods
+        if x.shape[0] % p:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over {p} pods")
+        return x.reshape((p, x.shape[0] // p) + tuple(x.shape[1:]))
+
+
+def pod_mesh(pods: int, device=None) -> PodMesh:
+    """P pods on ``device`` (default: the package's). Raises on P < 1."""
+    if pods < 1:
+        raise ValueError(f"pods must be >= 1, got {pods}")
+    from repro_torch import resolve_device
+    return PodMesh(pods=int(pods), device=resolve_device(device))
 
 
 def strided_tile_layout(n_tiles: int, shards: int

@@ -1,14 +1,24 @@
-"""Gradient compression: int8 codes with error feedback (the numeric
-parts of ``repro/train/compression.py``).
+"""Cross-pod gradient compression: int8 codes with error feedback (port
+of ``repro/train/compression.py``).
 
-Across pods, the data-parallel all-reduce of the reference's compressed
-step sums per-channel int8 gradient codes and keeps the quantization
-residual in an error-feedback buffer (Seide et al. 2014), so the bias of
-the compression vanishes over steps. This module holds the arithmetic:
-``quantize_grad`` / ``dequantize_grad``, ``compress_residual`` and
-``init_error_tree``. The step that exchanges the codes over a pod axis
-(``make_compressed_train_step``) comes with the dry run (ROADMAP queue 1
-item 9, second half).
+Across pods, the data-parallel all-reduce of the compressed step sums
+per-channel int8 gradient codes and keeps the quantization residual in
+an error-feedback buffer (Seide et al. 2014), so the bias of the
+compression vanishes over steps. ``quantize_grad`` / ``dequantize_grad``
+and ``compress_residual`` are the arithmetic; ``pod_sync`` is the
+reference's ``_pod_sync`` over a ``PodMesh`` (``sharding/partitioning``):
+the int8 codes of (g + err) summed in int32 over the pods, the scales
+summed, decoded with the mean scale; ``make_compressed_train_step`` is
+the step around it: each pod's microbatched gradient on its row shard of
+the batch, ``pod_sync`` on every leaf, the loss's mean over the pods,
+one AdamW update of the replicated masters.
+
+Port decision (error buffers): each pod keeps its own residual, stacked
+(P, ...) (``init_error_tree(params, mesh)``), as error feedback needs and
+the reference's docstring describes. The reference's ``shard_map`` leaves
+with ``out_specs=P()`` under ``check_vma=False``, so it returns one pod's
+residual for every pod; from step 2 on its pods feed back that one
+residual. At step 1 the buffers are zero, and the two agree.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.train.optimizer import AdamState, adam_update
+from repro_torch.train.step import loss_and_grads
 from repro_torch.utils.quant import div
 
 
@@ -40,9 +52,63 @@ def compress_residual(g: torch.Tensor, err: torch.Tensor):
     return codes, scale, target - approx
 
 
-def init_error_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+def init_error_tree(params: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     """fp32 zeros of each parameter's shape, in the parameters' layout
-    (a flat or nested dict)."""
-    return {k: init_error_tree(p) if isinstance(p, dict)
-            else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    (a flat or nested dict); with a ``PodMesh``, one buffer per pod,
+    stacked (P, ...)."""
+    lead = () if mesh is None else (mesh.pods,)
+    return {k: init_error_tree(p, mesh) if isinstance(p, dict)
+            else torch.zeros(lead + tuple(p.shape), dtype=torch.float32,
+                             device=p.device)
             for k, p in params.items()}
+
+
+def pod_sync(mesh, g: torch.Tensor, err: torch.Tensor):
+    """The reference's ``_pod_sync`` over ``mesh``'s pods. g, err: (P,
+    ...) fp32, each pod's gradient and residual. Returns (the decoded
+    mean, the same on every pod; the new residuals (P, ...)): per pod
+    ``compress_residual(g + err)``, the int8 codes summed in int32, the
+    scales summed, and ``summed * (scale_sum / n) / n`` with n = P."""
+    codes, scale, new_err = compress_residual(g, err)
+    summed = mesh.psum(codes.to(torch.int32))
+    scale_sum = mesh.psum(scale)
+    n = float(mesh.pods)
+    return div(summed.float() * div(scale_sum, n), n), new_err
+
+
+def make_compressed_train_step(model, tc, mesh, state_dtype="float32"):
+    """Returns step(params, opt, err, batch) -> (params, opt, err,
+    metrics), the reference's compressed cross-pod train step over a
+    ``PodMesh``: each pod takes its contiguous row shard of the batch
+    (``mesh.split``) and computes its loss and fp32 gradients over its
+    ``tc.microbatches`` microbatches (``train/step.loss_and_grads``);
+    every leaf goes through ``pod_sync`` with that pod's residual; the
+    loss is the mean over the pods; one ``adam_update`` applies the
+    decoded mean to the single copy of the masters. ``err``: per-pod
+    residuals (P, ...) (``init_error_tree(params, mesh)``), returned
+    updated. The inputs are left as they were."""
+
+    def step(params: Dict[str, torch.Tensor], opt: AdamState,
+             err: Dict[str, torch.Tensor], batch):
+        shards = {k: mesh.split(torch.as_tensor(v, device=model.device))
+                  for k, v in batch.items()}
+        losses, grads = [], []
+        for i in range(mesh.pods):
+            loss, g = loss_and_grads(model, params,
+                                     {k: v[i] for k, v in shards.items()},
+                                     tc.microbatches)
+            losses.append(loss)
+            grads.append(g)
+        mean, new_err = {}, {}
+        for k in params:
+            mean[k], new_err[k] = pod_sync(
+                mesh, torch.stack([g[k] for g in grads]), err[k])
+        del grads
+        loss = mesh.pmean(torch.stack(losses))
+        new_p, new_opt, gnorm = adam_update(tc, params, mean, opt,
+                                            state_dtype)
+        metrics = {"loss": loss.float(), "grad_norm": gnorm,
+                   "step": new_opt.count}
+        return new_p, new_opt, new_err, metrics
+
+    return step

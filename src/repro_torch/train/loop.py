@@ -57,7 +57,14 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, seq_len: int = 512,
           max_consecutive_skips: int = 10, device=None) -> TrainResult:
     """Run up to tc.total_steps of training, resuming from the latest
     checkpoint in tc.checkpoint_dir. ``device=None`` means the CUDA card
-    (raises without one); tests pass ``device="cpu"``."""
+    (raises without one); tests pass ``device="cpu"``. The default data
+    is ``SyntheticLM``, tokens only: an enc-dec config, whose batches need
+    frames, raises here, as the reference's fails at its first step."""
+    if cfg.is_encdec and data is None:
+        raise ValueError(
+            f"{cfg.name}: train() feeds tokens only (SyntheticLM), and an "
+            f"enc-dec model needs 'frames' beside them; train it through "
+            f"make_train_step on Model.make_batch's batches")
     model = build_model(cfg, device)
     step_fn = make_train_step(model, tc, state_dtype=state_dtype)
 

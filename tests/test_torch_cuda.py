@@ -1570,3 +1570,177 @@ def test_int8_state_train_on_card_finite(cuda, tmp_path):
             for enc in (res.opt.m[k], res.opt.v[k]):
                 assert enc[0].dtype == torch.int8
                 assert tuple(enc[1].shape) == tuple(p.shape[:-1]) + (1,)
+
+
+# ------------------------------------------- training the other families
+FAMILY_TRAIN = {"hymba-1.5b": {}, "xlstm-1.3b": dict(num_layers=4,
+                                                     slstm_every=2),
+                "seamless-m4t-medium": {}}
+
+
+def _family_case(name, seed=0, rows=4, seq=16):
+    """Reduced ``name`` in fp32, its masters with q and k tempered to the
+    d_model fan-in (at the init law the gradient is ill-conditioned:
+    ``tests/test_torch_train_families.py``) and a batch (with frames for
+    enc-dec)."""
+    import dataclasses
+    import math
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                              **FAMILY_TRAIN[name])
+    m = build_model(cfg, "cpu")
+    masters = {k: t * math.sqrt(t.shape[-2] / t.shape[-3])
+               if k.rsplit("/", 1)[-1] in ("wq", "wk") else t
+               for k, t in m.init_masters(seed).items()}
+    batch = {k: v.numpy() for k, v in m.make_batch(
+        ShapeConfig("t", seq, rows, "train"), seed + 1).items()}
+    return cfg, masters, batch
+
+
+@pytest.mark.cuda
+def test_slstm_scan_graphed_on_card(cuda, monkeypatch):
+    """``SLSTMScan`` on the card: graphed (forward and reverse steps each
+    one captured CUDA graph) against the same Function step by step,
+    outputs and gradients bit for bit; against the CPU's within 1e-5 of
+    each tensor's largest magnitude (fp32 sum order); and a loss taken
+    with gradients on a CUDA tensor runs its sLSTM blocks through the
+    graphed Function."""
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm
+    gen = torch.Generator().manual_seed(3)
+    b, s, h, hd = 3, 40, 4, 16
+    r = torch.randn(h, 4 * hd, hd, generator=gen) * 0.3
+    wx = torch.randn(b, s, 4, h, hd, generator=gen)
+    cot = [torch.randn(b, s, h, hd, generator=gen)] + \
+        [torch.randn(b, h, hd, generator=gen) for _ in range(4)]
+    out = {}
+    for where, graphed in (("graphed", True), ("steps", False),
+                           ("cpu", False)):
+        dev = torch.device("cpu") if where == "cpu" else cuda
+        ri = r.to(dev).requires_grad_(True)
+        wi = wx.to(dev).requires_grad_(True)
+        st = xlstm.slstm_zero_state(b, h, hd, dev)
+        res = xlstm.SLSTMScan.apply(ri, wi, *st, graphed)
+        loss = sum((o * c.to(dev)).sum() for o, c in zip(res, cot))
+        grads = torch.autograd.grad(loss, (ri, wi))
+        out[where] = [t.detach().cpu() for t in (*res, *grads)]
+    for a, c, g in zip(out["graphed"], out["steps"], out["cpu"]):
+        assert torch.equal(a, c)
+        assert float((a - g).abs().max()) <= 1e-5 * float(g.abs().max())
+    cfg, masters, batch = _family_case("xlstm-1.3b")
+    taken = []
+    real = xlstm.SLSTMScan.apply
+    monkeypatch.setattr(xlstm.SLSTMScan, "apply", lambda *a: (
+        taken.append(a[-1]), real(*a))[1])
+    model = build_model(cfg, cuda)
+    p_c = {k: t.to(cuda).requires_grad_(True) for k, t in masters.items()}
+    model.loss(p_c, batch).backward()
+    assert taken == [True, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FAMILY_TRAIN))
+def test_family_train_step_on_card_matches_cpu(cuda, name):
+    """Reduced hymba, xlstm (with sLSTM blocks) and enc-dec: one fp32
+    step's loss and gradient (two microbatches) on the card against the
+    CPU's from the same masters, the loss within 1e-5 relative and each
+    leaf within 1e-4 of its largest magnitude (sum order); then a train
+    step on the card: that loss, finite masters, the count 1."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg, masters, batch = _family_case(name)
+    want_l, want_g = loss_and_grads(build_model(cfg, "cpu"), masters,
+                                    batch, 2)
+    model = build_model(cfg, cuda)
+    params = {k: t.to(cuda) for k, t in masters.items()}
+    got_l, got_g = loss_and_grads(model, params, batch, 2)
+    assert abs(float(got_l) - float(want_l)) <= 1e-5 * abs(float(want_l))
+    for k, g in want_g.items():
+        assert got_g[k].is_cuda and got_g[k].dtype == torch.float32
+        assert float((got_g[k].cpu() - g).abs().max()) <= \
+            1e-4 * float(g.abs().max()), k
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, microbatches=2)
+    new_p, opt, met = make_train_step(model, tc)(params, init_adam(params),
+                                                 batch)
+    assert abs(float(met["loss"]) - float(want_l)) <= \
+        1e-5 * abs(float(want_l))
+    assert int(opt.count) == 1
+    assert all(bool(torch.isfinite(t).all()) for t in new_p.values())
+
+
+@pytest.mark.cuda
+def test_compressed_step_on_card(cuda):
+    """``make_compressed_train_step`` over ``pod_mesh(2)`` on the card: the
+    loss within 0.05 of the plain step's on the same batch and every
+    parameter within 1e-2 (the reference's bounds); ``pod_sync`` of
+    gradients on the card equals the CPU's on the same values bit for
+    bit (codes, scales and the decode are exact or single roundings)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.sharding import pod_mesh
+    from repro_torch.train import compression as C
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.step import make_train_step
+    cfg = _train_cfg()
+    model = build_model(cfg, cuda)
+    masters = {k: t.to(cuda) for k, t in
+               build_model(cfg, "cpu").init_masters(0).items()}
+    batch = _train_batch(cfg, rows=16, seq=8, seed=2)
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    mesh = pod_mesh(2, cuda)
+    opt = init_adam(masters)
+    p1, _, m1 = make_train_step(model, tc)(masters, opt, batch)
+    p2, o2, e2, m2 = C.make_compressed_train_step(model, tc, mesh)(
+        masters, opt, C.init_error_tree(masters, mesh), batch)
+    assert abs(float(m1["loss"]) - float(m2["loss"])) < 0.05
+    assert max(float((p1[k] - p2[k]).abs().max()) for k in p1) < 1e-2
+    assert all(e.is_cuda and e.shape[0] == 2 for e in e2.values())
+    gen = torch.Generator().manual_seed(4)
+    g = torch.randn(2, 6, 40, generator=gen) * 0.05
+    e = torch.randn(2, 6, 40, generator=gen) * 1e-3
+    want = C.pod_sync(pod_mesh(2, "cpu"), g, e)
+    got = C.pod_sync(mesh, g.to(cuda), e.to(cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_xlstm_rows_independent_on_card(cuda, width, dtype):
+    """xlstm's forward on the card (no gradients: the chunked mLSTM and
+    the graphed sLSTM scan) gives each row the same logits in a batch of
+    4 as in batches of 2 and of 1, within 1e-10 (fp64) or 1e-4 (fp32)
+    of the largest magnitude; and the same with gradients enabled (the
+    graphed ``SLSTMScan``). ``full``: xlstm-1.3b's width (d_model 2048, 4
+    heads of hd 512) at 2 layers (1 mLSTM + 1 sLSTM), vocab 256."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm
+    base = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(base.reduced(), num_layers=4, slstm_every=2) \
+        if width == "reduced" else dataclasses.replace(
+            base, num_layers=2, slstm_every=2, vocab_size=256)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    masters = build_model(cfg, cuda).init_masters(0)
+    dt = getattr(torch, dtype)
+    views = xlstm.stacked_views(cfg, {k: t.to(dt) for k, t in
+                                      masters.items()})
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 64))).to(cuda)
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            if grad:
+                views = xlstm.stacked_views(cfg, {
+                    k: t.to(dt).requires_grad_(True)
+                    for k, t in masters.items()})
+            whole = xlstm.forward(cfg, views, toks)[0].detach()
+            for size in (2, 1):
+                for i in range(0, 4, size):
+                    part = xlstm.forward(cfg, views, toks[i:i + size])[0]
+                    _close_to(part.detach(), whole[i:i + size], tol,
+                              (grad, size, i))
