@@ -198,7 +198,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    at full size against one plain step (loss within 0.05, parameters
    within 1e-2), and 3 more steps with per-pod error buffers
    (``drive_family_train_path``); no kernel of the port launches;
-16. ``flash_attention`` against its plain version, each kernel at its
+16. build options (b) and the dry-run path (r) (``run_dryrun_paths``;
+   ``--path r`` builds and runs these alone): HIBOG on 4,096 x 512 grid
+   points on the ``topk_l2`` kernel (neighbour ids the plain version's,
+   moved points the CPU's), ``build_index(split_lpgf=True)`` on 4,096 x
+   512 blobs (a valid tree, queries the oracle's, compared with the
+   CPU's tree built beside); then llama3-8b at 2 of 32 layers, train
+   and prefill (``DRY_CELLS``), each predicted by ``launch/dryrun.py``
+   on fake tensors and run on the card (``drive_dry_cell``'s four
+   checks), and the full-size cells ``DRY_FULL`` traced on the CPU
+   beside them;
+17. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
@@ -225,6 +235,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import json
@@ -841,18 +852,23 @@ def _attn_pairs(s: int, causal: bool, window: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def _keep(torch, s: int, causal: bool, window: int, device):
-    """(S, S) bool: the (query, key) pairs the mask leaves open."""
-    pos = torch.arange(s, device=device)
-    keep = torch.ones((s, s), dtype=torch.bool, device=device)
+def _keep(torch, s: int, causal: bool, window: int, device, r0: int = 0,
+          r1=None):
+    """(r1 - r0, S) bool: the (query, key) pairs the mask leaves open, for
+    queries r0:r1 (all S by default)."""
+    r1 = s if r1 is None else r1
+    qpos = torch.arange(r0, r1, device=device)
+    kpos = torch.arange(s, device=device)
+    keep = torch.ones((r1 - r0, s), dtype=torch.bool, device=device)
     if causal:
-        keep &= pos[None, :] <= pos[:, None]
+        keep &= kpos[None, :] <= qpos[:, None]
     if window:
-        keep &= pos[None, :] > pos[:, None] - window
+        keep &= kpos[None, :] > qpos[:, None] - window
     return keep
 
 
-def _score_err(torch, q, k, v, want, causal: bool, window: int):
+def _score_err(torch, q, k, v, want, causal: bool, window: int,
+               r0: int = 0):
     """First-order bound on the output error that the fp32 rounding of the
     scores causes, on both sides (kernel and plain version): a score s_j
     summed from hd products errs by at most (hd + 2) u sum_d |q_d k_jd| /
@@ -860,10 +876,10 @@ def _score_err(torch, q, k, v, want, causal: bool, window: int):
     |d out| <= 2 (hd + 2) u sum_j w_j m_j (|v_j| + |out|), m_j the
     magnitude sum. Where the scores reach hundreds (a real prefill's), it
     exceeds the output's own bf16 rounding whenever two keys share the
-    weight."""
+    weight. ``q`` and ``want`` may be the block of queries from r0 on."""
     b, s, h, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
-    mask = _keep(torch, s, causal, window, q.device)
+    mask = _keep(torch, k.shape[1], causal, window, q.device, r0, r0 + s)
     out = torch.empty_like(want)
     for i in range(b):     # one batch row at a time: (H, S, S) temporaries
         qf, kf = q[i].float(), k[i].float()
@@ -877,26 +893,37 @@ def _score_err(torch, q, k, v, want, causal: bool, window: int):
 
 
 def flash_check(torch, ref, q, k, v, got, causal: bool, window: int,
-                score_err: bool = False):
+                score_err: bool = False, rows=None):
     """``got`` (the kernel's output) against the plain version. fp32:
     |a - b| <= 2e-5 + 2e-5 |b|. bf16: |a - b| <= 2^-8 |b| + 2^-16 max|v|,
     b the plain version's fp32 result on the widened inputs (one rounding
     to bf16 plus summation noise near zero); with ``score_err`` the
-    scores' own fp32 rounding (``_score_err``) is added. Returns (ok, max
+    scores' own fp32 rounding (``_score_err``) is added. ``rows``: the
+    plain version runs on that many queries at a time (``q_offset``),
+    for a prompt too long for its (S, S) scores. Returns (ok, max
     |a - b|, entries over the bf16 tolerance without the scores' term)."""
-    if q.dtype == torch.float32:
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
-        err = (got - want).abs()
-        over = int((err > 2e-5 + 2e-5 * want.abs()).sum())
-        return over == 0, float(err.max()), over
-    want = ref.flash_attention(q.float(), k.float(), v.float(),
-                               causal=causal, window=window)
-    err = (got.float() - want).abs()
-    tol = 2.0 ** -8 * want.abs() + 2.0 ** -16 * float(v.float().abs().max())
-    over = int((err > tol).sum())
-    if score_err and over:
-        tol += _score_err(torch, q, k, v, want, causal, window)
-    return bool((err <= tol).all()), float(err.max()), over
+    rows = rows or q.shape[1]
+    wide = q.dtype != torch.float32
+    kf, vf = (k.float(), v.float()) if wide else (k, v)
+    vmax = float(vf.abs().max())
+    ok, err, over = True, 0.0, 0
+    for r0 in range(0, q.shape[1], rows):
+        qb, gb = q[:, r0:r0 + rows], got[:, r0:r0 + rows]
+        want = ref.flash_attention(qb.float() if wide else qb, kf, vf,
+                                   causal=causal, window=window,
+                                   q_offset=r0)
+        e = (gb.float() - want).abs()
+        if wide:
+            tol = 2.0 ** -8 * want.abs() + 2.0 ** -16 * vmax
+        else:
+            tol = 2e-5 + 2e-5 * want.abs()
+        n = int((e > tol).sum())
+        if wide and score_err and n:
+            tol += _score_err(torch, qb, k, v, want, causal, window, r0)
+        ok = ok and bool((e <= tol).all())
+        err, over = max(err, float(e.max())), over + n
+        del want, e, tol
+    return ok, err, over
 
 
 def _flash_inputs(torch, shape, dt, dev, gen, inputs: str):
@@ -2551,7 +2578,7 @@ FP64_RATIO = 1.25
 
 
 @contextlib.contextmanager
-def held_flash(torch, fa, ref, route: str, score_err: bool):
+def held_flash(torch, fa, ref, route: str, score_err: bool, rows=None):
     """Inside the block every call of ``fa.flash_attention_cuda`` is held
     to the plain version (``flash_check``) and must launch the ``route``
     kernel. ``score_err`` marks a real prefill's random-weight scores,
@@ -2570,7 +2597,8 @@ def held_flash(torch, fa, ref, route: str, score_err: bool):
     list it fills, one (shape, type, ok, max |error| against the plain
     version, entries over the type's tolerance without the scores' term,
     routed, for fp32 with ``score_err`` ``_vs_fp64``'s errors, else None,
-    the window) per call."""
+    the window) per call. ``rows``: ``flash_check``'s blocks of queries
+    (bf16 only; fp32 with ``score_err`` holds the whole (S, S) scores)."""
     checks, launch = [], fa.flash_attention_cuda
 
     def checked(q, k, v, *, causal=True, window=0):
@@ -2578,7 +2606,7 @@ def held_flash(torch, fa, ref, route: str, score_err: bool):
         out = launch(q, k, v, causal=causal, window=window)
         routed = fa.launches_by_route[route] == before + 1
         ok, err, over = flash_check(torch, ref, q, k, v, out, causal,
-                                    window, score_err=score_err)
+                                    window, score_err=score_err, rows=rows)
         exact = None
         if q.dtype == torch.float32 and score_err:
             exact = _vs_fp64(torch, ref, q, k, v, out, causal, window)
@@ -3319,7 +3347,7 @@ def drive_xlstm_path(args, dev):
     one_chunk = types.SimpleNamespace(cfg=cfg, params=eng.params,
                                       model=build_model(dataclasses.replace(
                                           cfg, mlstm_chunk=longer.shape[1]),
-                                          eng.device))
+                                          device=eng.device))
     ok_d, info["decode_vs_forward"] = _greedy_vs(
         torch, ld[:, -1, :vocab].float(),
         _dense_logits(torch, one_chunk, longer),
@@ -3608,7 +3636,7 @@ def check_train_numerics(args, dev, cfg):
 
     batch = SyntheticLM(PipelineSpec(cfg.vocab_size, TRAIN_SEQ,
                                      8 * TRAIN_MB, seed=args.seed)).batch(0)
-    masters = build_model(cfg, dev).init_masters(args.seed)
+    masters = build_model(cfg, device=dev).init_masters(args.seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 7)
     moved = {k: t.double() * (1 + PERTURB * (2 * torch.randint(
@@ -3622,7 +3650,7 @@ def check_train_numerics(args, dev, cfg):
                               ("bf16", "bfloat16", masters, runs),
                               ("fp64", "float64", tempered, temp),
                               ("fp32", "float32", tempered, temp)):
-        m = build_model(dataclasses.replace(cfg, dtype=dt), dev)
+        m = build_model(dataclasses.replace(cfg, dtype=dt), device=dev)
         t0 = time.time()
         loss, grads = loss_and_grads(m, ps, batch, TRAIN_MB)
         _sync(torch, dev)
@@ -3771,7 +3799,7 @@ def drive_train_path(args, dev):
 
     cfg = get_config(TRAIN_ARCH)
     on = None if dev.type == "cuda" else dev
-    info = dict(n_params=build_model(cfg, dev).n_params(),
+    info = dict(n_params=build_model(cfg, device=dev).n_params(),
                 resident_gib_before=_resident_gib(torch, dev))
     t0 = time.time()
     err, info["numerics"] = check_train_numerics(args, dev, cfg)
@@ -3830,7 +3858,7 @@ def drive_train_path(args, dev):
         if dev.type == "cuda":
             # one more step from the trained state, traced: where a
             # step's device time goes, and how busy the card is
-            step = loop.make_train_step(build_model(cfg, dev), tc)
+            step = loop.make_train_step(build_model(cfg, device=dev), tc)
             batch = SyntheticLM(PipelineSpec(
                 cfg.vocab_size, TRAIN_SEQ, 8 * TRAIN_MB,
                 seed=args.seed)).batch(TRAIN_STEPS)
@@ -4160,7 +4188,7 @@ def drive_family_train(args, dev, name: str, depth: dict, seq: int,
                 seq=seq, rows=rows, microbatches=mb,
                 resident_gib_before=_resident_gib(torch, dev))
     t0 = time.time()
-    model = build_model(cfg, dev)
+    model = build_model(cfg, device=dev)
     info["n_params"] = model.n_params()
     masters = model.init_masters(args.seed)
     batch = _family_batch(cfg, model, seq, rows, args.seed)
@@ -4171,7 +4199,7 @@ def drive_family_train(args, dev, name: str, depth: dict, seq: int,
     t0 = time.time()
     l16 = _mean_loss(torch, model, masters, batch, mb)
     l64 = _mean_loss(torch, build_model(dataclasses.replace(
-        cfg, dtype="float64"), dev), masters, batch, mb)
+        cfg, dtype="float64"), device=dev), masters, batch, mb)
     info["loss"] = dict(bf16=l16, fp64=l64,
                         rel_err=abs(l16 - l64) / abs(l64))
     info["loss_s"] = time.time() - t0
@@ -4185,7 +4213,7 @@ def drive_family_train(args, dev, name: str, depth: dict, seq: int,
     # the fp32 gradient against fp64's, one group deep, q and k tempered
     t0 = time.time()
     cfg_g = dataclasses.replace(cfg, **FAMILY_GRAD_DEPTH[name])
-    tempered = _tempered_qk(build_model(cfg_g, dev).init_masters(args.seed))
+    tempered = _tempered_qk(build_model(cfg_g, device=dev).init_masters(args.seed))
     part = {k: torch.as_tensor(v, device=dev)[:FAMILY_GRAD_ROWS]
             for k, v in batch.items()}
     runs, secs = {}, {}
@@ -4321,7 +4349,7 @@ def drive_compressed_step(args, dev):
     from repro_torch.train.step import make_train_step
 
     cfg = get_config(TRAIN_ARCH)
-    model = build_model(cfg, dev)
+    model = build_model(cfg, device=dev)
     masters = model.init_masters(args.seed)
     data = SyntheticLM(PipelineSpec(cfg.vocab_size, TRAIN_SEQ, 16,
                                     seed=args.seed))
@@ -4456,6 +4484,505 @@ def run_family_train_path(args, dev, kmods, card: str, starts) -> int:
     return 0
 
 
+# ------------------------------------------- (b) HIBOG and split_lpgf
+def small_blobs(seed: int, rows: int, dim: int):
+    """``rows`` x ``dim`` Gaussian blobs around 12 centres (the law
+    ``build_platform`` draws its tables by), from their own seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 11)
+    centers = rng.normal(size=(12, dim)).astype(np.float32) * 6
+    return (centers[rng.integers(0, 12, rows)]
+            + rng.normal(size=(rows, dim))).astype(np.float32)
+
+
+def grid_points(seed: int, rows: int, dim: int):
+    """``rows`` x ``dim`` points of {-0.5, -0.25, 0, 0.25, 0.5}: every
+    squared distance between them, and between HIBOG's moved points
+    (multiples of 1/64, two iterations), is an exact fp32 sum on either
+    side, so the kernel and the plain version pick the same neighbours,
+    ties by index."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    return (rng.integers(-2, 3, (rows, dim)) * 0.25).astype(np.float32)
+
+
+def cpu_split_tree(seed: int, rows: int, dim: int, out: str) -> None:
+    """``build_index(split_lpgf=True)`` of ``small_blobs`` on the CPU, its
+    permutation and node structure saved to ``out`` (run in a process of
+    its own beside the card's phases)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.core.index import build_index
+    torch.set_num_threads(6)
+    tree, perm, _ = build_index(small_blobs(seed, rows, dim),
+                                split_lpgf=True, device="cpu")
+    np.savez(out, perm=perm, parent=tree.parent, is_leaf=tree.is_leaf,
+             bucket_start=tree.bucket_start, bucket_end=tree.bucket_end)
+
+
+def _helper(code: str, log_path: str):
+    """``python -c code`` in a process of its own, beside the script, on
+    the CPU only; its output into ``log_path``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]),
+               CUDA_VISIBLE_DEVICES="")
+    f = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=f, stderr=subprocess.STDOUT), f
+
+
+def _finish(proc, f, timeout: float) -> int:
+    """Wait for a helper (killed at ``timeout`` s); its exit code."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    f.close()
+    return rc
+
+
+def drive_build_options(args, dev, kmods):
+    """Path (b)'s build options on ``args.small_rows`` rows:
+    ``hibog(x, iters=2)`` on the card over ``grid_points`` (at least two
+    ``topk_l2`` launches; each iteration's neighbour ids equal to the
+    plain version's on the same card input; the moved points within 1e-5
+    (relative to their largest magnitude) of the same call on the CPU;
+    on Gaussian points the fp32 expansion's order of near-tied
+    neighbours differs between the kernel's tile and the library GEMM),
+    then ``build_index(split_lpgf=True)`` on the card over ``small_blobs``:
+    a valid tree
+    (every row in exactly one leaf bucket), whose ``BatchedExecutor``
+    returns the brute force's rows for 32 V.K queries at k = 20, its
+    ``pairwise_sq_l2`` launches counted. Returns (error or None, info,
+    (tree, perm) for ``equals_cpu_tree``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lpgf
+    from repro_torch.core import query as Q
+    from repro_torch.core.index import BatchedExecutor, build_index
+    from repro_torch.core.lake import MMOTable
+    from repro_torch.kernels import ops, ref
+
+    g = grid_points(args.seed, args.small_rows, args.dim)
+    info = {"rows": len(g), "dim": args.dim}
+    calls, real = [], ops.topk_l2_blocked
+
+    def recording(q, p, k, row_block=2048):
+        d, i = real(q, p, k, row_block)
+        calls.append((q, p, k, i))
+        return d, i
+    _reset(kmods)
+    ops.topk_l2_blocked = recording
+    try:
+        t0 = time.time()
+        moved = lpgf.hibog(g, iters=2, device=dev)
+        _sync(torch, dev)
+        info["hibog_s"] = time.time() - t0
+    finally:
+        ops.topk_l2_blocked = real
+    info["hibog_launches"] = _counters(kmods)
+    same = [bool(torch.equal(i, ref.topk_l2(q, p, k)[1]))
+            for q, p, k, i in calls]
+    del calls
+    info["hibog_ids_equal_plain"] = same
+    t0 = time.time()
+    on_cpu = lpgf.hibog(g, iters=2, device="cpu")
+    info["hibog_cpu_s"] = time.time() - t0
+    rel = float(np.abs(moved - on_cpu).max() / np.abs(on_cpu).max())
+    info["hibog_vs_cpu"] = rel
+    if info["hibog_launches"]["topk_l2"] < 2:
+        return f"hibog launched topk_l2 fewer than twice: {info}", info, \
+            None
+    if not all(same) or len(same) != 2:
+        return f"hibog's neighbour ids differ from the plain version's: " \
+            f"{info}", info, None
+    if not rel <= 1e-5:
+        return f"hibog on the card differs from the CPU's by {rel}", info, \
+            None
+
+    x = small_blobs(args.seed, args.small_rows, args.dim)
+    _reset(kmods)
+    t0 = time.time()
+    tree, perm, rep = build_index(x, split_lpgf=True, device=dev)
+    _sync(torch, dev)
+    info["split_build_s"] = time.time() - t0
+    info["split_launches"] = _counters(kmods)
+    info["leaves"] = int(rep.n_leaves)
+    leaves = np.flatnonzero(tree.is_leaf)
+    spans = sorted(zip(tree.bucket_start[leaves], tree.bucket_end[leaves]))
+    valid = (np.array_equal(np.sort(perm), np.arange(len(x)))
+             and spans[0][0] == 0 and spans[-1][1] == len(x)
+             and all(a[1] == b[0] for a, b in zip(spans, spans[1:])))
+    info["valid_tree"] = bool(valid)
+    feats = x[perm]
+    rng = np.random.default_rng(args.seed + 12)
+    qs = (feats[rng.integers(0, len(feats), 32)]
+          + rng.normal(0, 0.01, (32, feats.shape[1]))).astype(np.float32)
+    _, rows, _ = BatchedExecutor(tree, feats, device=dev).knn(qs, 20)
+    table = MMOTable("split").add_vector("e", feats)
+    bad = [i for i, q in enumerate(qs) if not np.array_equal(
+        rows[i], Q.execute_bruteforce(table, Q.VK.of("e", q, 20)))]
+    info["query_mismatches"] = len(bad)
+    if not valid:
+        return f"split_lpgf's tree is not valid: {info}", info, None
+    if bad:
+        return f"split_lpgf's tree answers {len(bad)} queries otherwise " \
+            f"than the brute force: {info}", info, None
+    if info["split_launches"]["pairwise_sq_l2"] <= 0:
+        return f"split_lpgf's build launched no pairwise_sq_l2: {info}", \
+            info, None
+    return None, info, (tree, perm)
+
+
+def equals_cpu_tree(helper, tree_file: str, built):
+    """Whether the card's split tree ``built`` ((tree, perm)) equals the
+    CPU's (``cpu_split_tree``, waited for here), or why it is unknown."""
+    import numpy as np
+    rc = _finish(*helper, timeout=600)
+    if rc:
+        return f"the CPU build failed (exit {rc})"
+    cpu = np.load(tree_file)
+    tree, perm = built
+    return bool(np.array_equal(cpu["perm"], perm) and all(
+        np.array_equal(cpu[f], getattr(tree, f))
+        for f in ("parent", "is_leaf", "bucket_start", "bucket_end")))
+
+
+# ------------------------------------------------------ (r) the dry run
+DRY_ARCH = "llama3-8b"
+DRY_LAYERS = 2            # of llama3-8b's 32, at its published width
+# cut for the script's time limit, in this order (it ran ~830 s without
+# the cuts): (1) the decode cell (a 32,768 cache, batch 8) dropped, (2)
+# the full-size cells llama3-8b train_4k on 2 x 16 x 16 and arctic-480b
+# train_4k dropped, (3) the prefill at seq 16,384, not 32,768
+DRY_CELLS = (("train", 4096, 4), ("prefill", 16384, 1))
+# full-size cells traced beside the card's phases
+DRY_FULL = (("llama3-8b", "train_4k", False),)
+DRY_ALLOC = 512           # the allocator's rounding: bytes a block
+DRY_UNSPLIT = 2 ** 20     # a large block's remainder it does not split
+DRY_PEAK_RTOL = 0.25      # measured peak against argument + temp bytes
+DRY_FLOP_RTOL = 0.01      # matmul FLOPs against the profiler's
+DRY_REPS = 3              # timed steps after a warm one
+DRY_FLASH_ROWS = 1024     # queries a block when flash is held (prefill)
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _leaf_tensors(tree):
+    """The tensors of an argument tree (dicts, tuples, dataclasses)."""
+    import dataclasses
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaf_tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaf_tensors(v)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in _leaf_tensors(getattr(tree, f.name))]
+    return []
+
+
+def drive_dry_cell(args, dev, fa, ref, kind: str, seq: int, batch: int):
+    """One cut cell of path (r): llama3-8b at its published width and
+    ``DRY_LAYERS`` layers on ``make_dev_mesh(1, 1)``. The dry run predicts
+    it on fake tensors; then the same step runs on the card: (1) the
+    arguments' requests (the allocator's ``requested_bytes``) equal the
+    predicted argument bytes within ``DRY_ALLOC`` a leaf, one block a
+    leaf on the card, and the growth of ``memory_allocated`` exceeds them
+    by no more than the allocator's rounding (``DRY_ALLOC`` a block, and
+    ``DRY_UNSPLIT`` a large block); (2) the counter run live
+    on the card gives the trace's FLOPs exactly, and its matmul FLOPs
+    (the total less the kernels' charges) equal ``torch.profiler``'s
+    ``with_flops`` sum over the ``MM_OPS`` within ``DRY_FLOP_RTOL``, taken
+    over the products the step dispatched (block remat's recomputation
+    stops early, aborting its last product, which the profiler records
+    all the same); (3) the
+    peak of ``max_memory_allocated`` above the memory before the
+    arguments lies within ``DRY_PEAK_RTOL`` of argument + temp bytes; (4)
+    the median of ``DRY_REPS`` steps after the counted one is no less
+    than the roofline bound max(t_compute, t_memory). A prefill's flash
+    launches are held to the plain version (``held_flash`` by blocks of
+    ``DRY_FLASH_ROWS`` queries).
+    Returns (error or None, info)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.utils import opcount
+
+    cfg = dataclasses.replace(get_config(DRY_ARCH), num_layers=DRY_LAYERS)
+    shape = ShapeConfig(f"{kind}_cut", seq, batch, kind)
+    mesh = make_dev_mesh(1, 1)
+    over = dryrun.overrides(DRY_ARCH, kind)
+    pred = dryrun.dry_run(cfg, shape, mesh, over)
+    mem, rf = pred["memory"], pred["roofline"]
+    info = {"kind": kind, "seq": seq, "batch": batch,
+            "trace_s": pred["trace_s"], "predicted": dict(
+                argument_bytes=mem["argument_bytes"],
+                temp_bytes=mem["temp_bytes"],
+                flops=rf["flops_per_dev"], bytes=rf["bytes_per_dev"],
+                t_compute=rf["t_compute"], t_memory=rf["t_memory"],
+                bottleneck=rf["bottleneck"],
+                roofline_fraction=rf["roofline_fraction"])}
+    prog = dryrun.program(cfg, shape, mesh, over, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = dryrun.make_args(prog, seed=args.seed)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    placed = torch.cuda.memory_allocated() - base
+    requested = (after["requested_bytes.all.current"]
+                 - before["requested_bytes.all.current"])
+    blocks = (after["allocation.all.current"]
+              - before["allocation.all.current"])
+    large = (after["allocation.large_pool.current"]
+             - before["allocation.large_pool.current"])
+    leaves = _leaf_tensors(a)
+    info["placed_bytes"] = placed
+    info["requested_bytes"] = requested
+    info["leaves"] = len(leaves)
+    info["blocks"] = blocks
+    info["large_blocks"] = large
+    # the arguments' requests, as the allocator records them, are the
+    # predicted bytes to its rounding (512 bytes a leaf), one block each;
+    # memory_allocated counts each block whole, and after the earlier
+    # paths a large block carved from a cached free one keeps the
+    # remainder the allocator does not split off (under 1 MiB)
+    ok1 = (abs(requested - mem["argument_bytes"]) <= DRY_ALLOC * len(leaves)
+           and blocks == sum(t.is_cuda for t in leaves)
+           and 0 <= placed - requested <= DRY_ALLOC * blocks
+           + DRY_UNSPLIT * large)
+
+    # a prefill's flash launches held first, in a step of their own, then
+    # a step counted live and one profiled
+    checks = []
+    if kind == "prefill":
+        with held_flash(torch, fa, ref, "wgmma", True,
+                        rows=DRY_FLASH_ROWS) as checks:
+            out = prog.step(*a)
+            torch.cuda.synchronize()
+        del out
+    dispatched = collections.Counter()
+    with opcount.count_ops(fake=False) as counter, \
+            _DotRecorder(dispatched):
+        out = counter.run(prog.step, *a)
+        torch.cuda.synchronize()
+    del out
+    # profiled apart: under the counter's dispatch mode the profiler
+    # records each operator twice (its call and the mode's re-dispatch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True, record_shapes=True) as prof:
+        out = prog.step(*a)
+        torch.cuda.synchronize()
+    del out
+    live = counter.stats
+    kern = sum(k["flops"] for k in live.kernels.values())
+    # the profiler also records, with its FLOPs, a product that block
+    # remat's early stop aborts (the recomputation's saved-tensor hook
+    # raises before the product runs): its sum is taken over the recorded
+    # products that the counted step dispatched, signature by signature
+    prof_mm, extra = _dispatched_flops(prof, dispatched)
+    info["profiler_matmul_flops_recorded"] = sum(
+        e.flops for e in prof.events() if e.name in MM_OPS)
+    info["profiler_matmul_not_dispatched"] = extra
+    del prof
+    info["live_flops"] = live.flops
+    info["kernel_charges"] = live.kernels
+    info["matmul_flops"] = live.flops - kern
+    info["profiler_matmul_flops"] = prof_mm
+    ok2 = live.flops == rf["flops_per_dev"] and abs(
+        live.flops - kern - prof_mm) <= DRY_FLOP_RTOL * max(prof_mm, 1.0)
+    info["flash_held"] = [c[:6] for c in checks]
+    ok_flash = kind != "prefill" or (
+        len(checks) == DRY_LAYERS and all(c[2] and c[5] for c in checks))
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRY_REPS):
+        t0 = time.time()
+        out = prog.step(*a)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    want = mem["argument_bytes"] + mem["temp_bytes"]
+    info["peak_bytes"] = peak
+    info["argument_plus_temp_bytes"] = want
+    ok3 = abs(peak - want) <= DRY_PEAK_RTOL * want
+    step = float(np.median(times))
+    bound = max(rf["t_compute"], rf["t_memory"])
+    info["step_s"] = step
+    info["steps_s"] = times
+    info["bound_s"] = bound
+    info["of_the_bound"] = bound / step
+    ok4 = step >= bound
+    info["checks"] = dict(argument_bytes=ok1, flops=ok2, peak=ok3,
+                          bound=ok4, flash=ok_flash)
+    del a, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(info["checks"].values()):
+        return f"dry run {kind} cell: {info['checks']}", info
+    return None, info
+
+
+def _dot_key(name: str, shapes) -> tuple:
+    return (name, tuple(tuple(x) for x in shapes if x))
+
+
+def _DotRecorder(into):
+    """A dispatch mode counting, by ``_dot_key``, each product (``MM_OPS``)
+    that reaches dispatch: what ran, whatever the counter weights."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = f"aten::{func.overloadpacket.__name__}"
+            if name in MM_OPS:
+                into[_dot_key(name, [tuple(t.shape) for t in args
+                                     if isinstance(t, torch.Tensor)])] += 1
+            return func(*args, **(kwargs or {}))
+    return Recorder()
+
+
+def _dispatched_flops(prof, dispatched):
+    """The profiler's FLOPs over its recorded products (``MM_OPS``), each
+    signature counted as often as the step dispatched it; and how many
+    recorded products had no dispatch (aborted before they ran)."""
+    by_key = {}
+    for e in prof.events():
+        if e.name in MM_OPS:
+            by_key.setdefault(_dot_key(e.name, e.input_shapes), []).append(
+                e.flops)
+    total, extra = 0, 0
+    for key, flops in by_key.items():
+        n = min(len(flops), dispatched.get(key, 0))
+        total += sum(flops[:n])
+        extra += len(flops) - n
+    return total, extra
+
+
+def drive_dryrun_path(args, dev, fa, ref, cells_dir: str, helper):
+    """Path (r): each of ``DRY_CELLS`` through ``drive_dry_cell``, then the
+    full-size cells ``DRY_FULL`` that ``helper`` traced meanwhile with
+    ``dryrun.run_cells`` into ``cells_dir``: each one's memory per device
+    and bottleneck. Returns (error or None, info)."""
+    info = {"cells": [], "full": {}}
+    for kind, seq, batch in DRY_CELLS:
+        err, cell = drive_dry_cell(args, dev, fa, ref, kind, seq, batch)
+        info["cells"].append(cell)
+        if err:
+            return err, info
+    rc = _finish(*helper, timeout=600)
+    for arch, shape, multi in DRY_FULL:
+        tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+        path = os.path.join(cells_dir, tag + ".json")
+        if not os.path.exists(path):
+            return f"the dry run of {tag} wrote no result (exit {rc})", info
+        with open(path) as f:
+            res = json.load(f)
+        info["full"][tag] = dict(
+            mem_per_dev_gib=res["memory"]["peak_per_device_bytes"] / 2 ** 30,
+            bottleneck=res["roofline"]["bottleneck"],
+            trace_s=res["trace_s"], split=res["roofline"]["split"],
+            collective_bytes_per_dev=res["roofline"][
+                "collective_bytes_per_dev"])
+    if rc:
+        return f"dryrun.run_cells exited {rc}", info
+    return None, info
+
+
+def run_dryrun_paths(args, dev, kmods, fa, ref, card: str, starts) -> int:
+    """(b)'s build options and path (r) inside ``main``, with their two
+    CPU helpers (the CPU's split tree, the full-size dry-run cells)
+    started first, so they run beside the card's phases. Returns 0, or
+    ``fail``'s code."""
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    tree_file = os.path.join(tmp, "cpu_tree.npz")
+    cells_dir = os.path.join(tmp, "cells")
+    tree_helper = _helper(
+        f"import chip_smoke; chip_smoke.cpu_split_tree({args.seed}, "
+        f"{args.small_rows}, {args.dim}, {tree_file!r})",
+        os.path.join(tmp, "tree.log"))
+    cells_helper = _helper(
+        "import sys; from repro_torch.launch import dryrun; "
+        f"sys.exit(0 if dryrun.run_cells({list(DRY_FULL)!r}, "
+        f"{cells_dir!r}) else 1)", os.path.join(tmp, "cells.log"))
+    try:
+        starts.append(("build options (b)", time.time()))
+        err, bo, built = drive_build_options(args, dev, kmods)
+        log(f"build options on the small table ({bo.get('rows')} x "
+            f"{bo.get('dim')}; {card}): " + json.dumps(bo))
+        if err:
+            return fail(f"build options: {err}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        starts.append(("dry-run path (r)", time.time()))
+        _reset(kmods)
+        err, dr = drive_dryrun_path(args, dev, fa, ref, cells_dir,
+                                    cells_helper)
+        launches = _counters(kmods)
+        for c in dr["cells"]:
+            log(f"dry run, {DRY_ARCH} at {DRY_LAYERS} layers, {c['kind']} "
+                f"(seq {c['seq']}, batch {c['batch']}; {card}): "
+                + json.dumps(c, default=str))
+            if "step_s" in c:
+                p = c["predicted"]
+                log(f"  {c['kind']}: arguments {c['requested_bytes']} bytes "
+                    f"requested ({c['placed_bytes']} allocated), "
+                    f"{p['argument_bytes']} predicted; peak "
+                    f"{c['peak_bytes'] / 2**30:.3f} GiB, argument + temp "
+                    f"{c['argument_plus_temp_bytes'] / 2**30:.3f} GiB; "
+                    f"FLOPs {c['live_flops']:.6e} live = trace, matmul "
+                    f"{c['matmul_flops']:.6e} against the profiler's "
+                    f"{c['profiler_matmul_flops']:.6e}; step "
+                    f"{c['step_s']:.4f} s, bound {c['bound_s']:.4f} s "
+                    f"({p['bottleneck']}), of the bound "
+                    f"{c['of_the_bound']:.3f}, roofline_fraction "
+                    f"{p['roofline_fraction']:.3f}")
+        for tag, r in dr["full"].items():
+            log(f"dry run, full-size cell {tag}: {r['mem_per_dev_gib']:.2f} "
+                f"GiB a device, bottleneck {r['bottleneck']}, trace "
+                f"{r['trace_s']} s (CPU), split {r['split']}, collective "
+                f"bytes a device {r['collective_bytes_per_dev']}")
+        log("launches on the dry-run path: " + json.dumps(launches))
+        log("split_lpgf's tree on the card equals the CPU's (built "
+            "meanwhile): " + json.dumps(equals_cpu_tree(
+                tree_helper, tree_file, built)))
+        if err:
+            return fail(f"dry-run path: {err}")
+        if launches["flash_attention_wgmma"] < DRY_LAYERS:
+            return fail(f"the dry-run path's prefill launched the wgmma "
+                        f"flash kernel {launches['flash_attention_wgmma']} "
+                        f"times")
+    finally:
+        for proc, f in (tree_helper, cells_helper):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.path == "r":
+        starts.append(("end", time.time()))
+        log("seconds by section: " + json.dumps(
+            {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
+    return 0
+
+
 def log_kernel(label: str, ok: bool, row: dict) -> None:
     lib = row["library_ms"]
     log(f"kernel {label}: ok={ok} {row['shape']} ms={row['ms']:.4f} "
@@ -4497,7 +5024,7 @@ def main() -> int:
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--small-rows", type=int, default=4096)
-    ap.add_argument("--path", choices=["q"], default=None,
+    ap.add_argument("--path", choices=["q", "r"], default=None,
                     help="build, then run this path alone and stop (a "
                     "shorter call while the path is worked on; prints no "
                     "result line)")
@@ -4567,6 +5094,9 @@ def main() -> int:
         return fail(f"flash_attention (SIMT): ptxas reports spills {simt}")
     if args.path == "q":
         return run_family_train_path(args, dev, kmods, card, starts)
+    if args.path == "r":
+        return run_dryrun_paths(args, dev, kmods, flash_attention, ref, card,
+                                starts)
 
     # -------------------------------------------------------- kernels
     starts.append(("kernels", time.time()))
@@ -5222,6 +5752,12 @@ def main() -> int:
 
     # ------------------------------------- (q) the families trained
     rc = run_family_train_path(args, dev, kmods, card, starts)
+    if rc:
+        return rc
+
+    # ------------------- (b) build options and (r) the dry run held
+    rc = run_dryrun_paths(args, dev, kmods, flash_attention, ref, card,
+                          starts)
     if rc:
         return rc
 

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -39,6 +40,7 @@ def dpc(x: np.ndarray, *, dc: Optional[float] = None,
         seed: int = 0, device=None) -> DPCResult:
     """Cluster x (N, D). Returns labels + center indices (see the
     reference for the dc / gamma-gap rules)."""
+    device = resolve_device(device)
     x = np.asarray(x, np.float32)
     n = len(x)
     if n <= 2:

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.dpc import dpc
+from repro_torch.core.lpgf import lpgf
 from repro_torch.core.engine import (_RERANK_EXTRA, _U32, EngineStats,
                                      LeafGeometry, batched_knn,
                                      bucket_tiles, rerank_exact, tile_data,
@@ -129,14 +130,19 @@ def _hit_ratio(keys_sorted: np.ndarray, a: float, b: float,
 
 def build_index(features: np.ndarray, *, delta: float = 0.951,
                 hit_tol: int = 8, min_leaf: int = 32, max_leaf: int = 4096,
-                max_depth: int = 12, dpc_max_clusters: int = 8,
-                dpc_sample: int = 4096, seed: int = 0, device=None
+                max_depth: int = 12, split_lpgf: bool = False,
+                dpc_max_clusters: int = 8, dpc_sample: int = 4096,
+                seed: int = 0, device=None
                 ) -> Tuple[ClusterTree, np.ndarray, BuildReport]:
     """Build the cluster tree over features (already representation-
     enhanced). Returns (tree, perm, report): ``perm`` maps new physical
-    row order -> original row index. (The reference's ``split_lpgf``
-    option, off by default and unused by the platform, is not ported.)"""
+    row order -> original row index. ``split_lpgf``: each node of more
+    than ``min_leaf`` rows is split by DPC on its points moved by one
+    LPGF step (``lpgf(pts, iters=1)`` on ``device``), as the
+    reference's option does; the tree's centroids and keys stay the
+    unmoved points'."""
     t0 = time.time()
+    device = resolve_device(device)
     x = np.asarray(features, np.float32)
     n = len(x)
     idx_all = np.arange(n)
@@ -173,7 +179,10 @@ def build_index(features: np.ndarray, *, delta: float = 0.951,
                 or nodes[node_id]["depth"] >= max_depth
                 or (hr >= delta and len(rows) <= max_leaf))
         if not stop:
+            # split via DPC (optionally LPGF-enhanced coordinates)
             sub = pts
+            if split_lpgf and len(rows) > min_leaf:
+                sub = lpgf(pts, iters=1, device=device)
             if len(rows) > dpc_sample:
                 # sample-fit DPC centers, then assign all rows to nearest
                 sel = rng.choice(len(rows), dpc_sample, replace=False)

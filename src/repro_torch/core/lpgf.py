@@ -1,5 +1,6 @@
 """Hyperspace Movement — Local Parallelized Gravitational Field (paper
-§5.2.3). Port of ``repro/core/lpgf.py`` (``hibog`` comes later).
+§5.2.3), and the paper's HIBOG baseline (``hibog``). Port of
+``repro/core/lpgf.py``.
 
 The point matrix stays a host numpy array between steps, as in the
 reference; each step uploads it to ``device`` and evaluates the
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 # ``_tile_disp`` materialises several (rows, N) intermediates; each
@@ -30,7 +32,8 @@ def mean_nn_distance(x, sample: int = 4096, seed: int = 0,
     n = len(x)
     rng = np.random.default_rng(seed)
     idx = rng.choice(n, size=min(sample, n), replace=False)
-    xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    xt = torch.as_tensor(np.asarray(x, np.float32),
+                         device=resolve_device(device))
     d, _ = ops.topk_l2_blocked(xt[torch.as_tensor(idx, device=xt.device)],
                                xt, k=2)
     # k=2: first hit is the point itself (distance 0)
@@ -43,6 +46,7 @@ def lpgf_step(x, radius: float, g_mean: float, step: float = 0.5,
     """One force-and-move step. x: (N, D) host array -> moved (N, D).
 
     Displacement = step * F / sum(w) — the weight-normalized pull."""
+    device = resolve_device(device)
     xj = torch.as_tensor(np.asarray(x, np.float32), device=device)
     n = x.shape[0]
     if n <= block:
@@ -94,6 +98,7 @@ def lpgf(x, *, r_mult: float = 7.5, iters: int = 2, step: float = 0.5,
          g_mean: Optional[float] = None, block: int = 4096,
          seed: int = 0, device=None) -> np.ndarray:
     """Full LPGF movement: returns the moved copy of x."""
+    device = resolve_device(device)
     x = np.asarray(x, np.float32)
     out = x.copy()
     for _ in range(iters):
@@ -101,4 +106,22 @@ def lpgf(x, *, r_mult: float = 7.5, iters: int = 2, step: float = 0.5,
             out, seed=seed, device=device)
         out = lpgf_step(out, radius=r_mult * g, g_mean=g, step=step,
                         block=block, device=device)
+    return out
+
+
+def hibog(x, *, k: int = 8, iters: int = 2, step: float = 0.5,
+          device=None) -> np.ndarray:
+    """HIBOG baseline (Li et al. 2021): K-nearest attraction, for the
+    paper's comparison experiments (Table 6). Each iteration moves every
+    point by ``step`` times the mean offset to its k nearest others,
+    found by ``ops.topk_l2_blocked`` (on the card, the ``topk_l2``
+    kernel; the point itself comes first, at distance 0)."""
+    device = resolve_device(device)
+    out = np.asarray(x, np.float32).copy()
+    for _ in range(iters):
+        xj = torch.as_tensor(out, device=device)
+        _, idx = ops.topk_l2_blocked(xj, xj, k=k + 1)
+        nbrs = out[idx.cpu().numpy()[:, 1:]]               # (N, k, D)
+        f = (nbrs - out[:, None, :]).mean(axis=1)
+        out = out + step * f
     return out

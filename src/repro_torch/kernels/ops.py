@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import counted
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
 from repro_torch.kernels.fused_topk import topk_l2 as _topk_l2
@@ -27,6 +28,7 @@ def require_ieee_matmul(t: torch.Tensor) -> None:
                            "False for exact fp32 products")
 
 
+@counted
 def pairwise_sq_l2(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return _pairwise(q.float().contiguous(), p.float().contiguous())
 
@@ -38,10 +40,12 @@ def pairwise_sq_l2_blocked(q: torch.Tensor, p: torch.Tensor,
                       for i in range(0, q.shape[0], row_block)])
 
 
+@counted
 def topk_l2(q: torch.Tensor, p: torch.Tensor, k: int):
     return _topk_l2(q.float().contiguous(), p.float().contiguous(), k)
 
 
+@counted
 def topk_l2_masked(q: torch.Tensor, p: torch.Tensor, valid: torch.Tensor,
                    k: int, lb2=None):
     """Per-query candidate tiles + validity mask (hybrid-engine leaf
@@ -70,6 +74,7 @@ def _ceil_pow2(x: int) -> int:
     return p
 
 
+@counted
 def quant_lb2(q, codes, cscale, cppq, ceps, valid, *, precision: str):
     """Widened squared lower bounds from a reduced-precision candidate
     scan (semantics: ``ref.quant_lb2``; conservative-bound contract: for
@@ -181,12 +186,14 @@ def topk_l2_masked_mp(q, sel, valid, data_tiles, pdata, pscale, pppq, peps,
     return dd, idx, rescued, refuted_lb
 
 
+@counted
 def lpgf_force(points: torch.Tensor, radius: float, g_mean: float):
     """LPGF force field and total weights: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     return _lpgf_force(points.float().contiguous(), radius, g_mean)
 
 
+@counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Online-softmax attention over (B, S, H, hd) with expanded kv heads

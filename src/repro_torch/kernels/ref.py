@@ -168,18 +168,21 @@ def lpgf_force(points: torch.Tensor, radius: float, g_mean: float,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """Attention over (B, S, H, hd) q, k, v with the same H (GQA heads are
     expanded by the caller), semantics of ``repro.kernels.ref.
     flash_attention``: fp32 scores divided by sqrt(hd), masked scores set
     to -1e30 (causal: key <= query; window: key > query - window, by
     absolute position), an fp32 softmax over the keys, fp32 weights times
-    V, and the output cast to q's dtype. Returns (B, S, H, hd)."""
+    V, and the output cast to q's dtype. Returns (B, S, H, hd).
+    ``q_offset``: q holds the queries at positions q_offset onwards (a
+    block of a longer prompt's queries, against all its keys)."""
     hd = q.shape[-1]
     s, skv = q.shape[1], k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         / math.sqrt(hd)
-    qpos = torch.arange(s, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + s, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     mask = torch.ones((s, skv), dtype=torch.bool, device=q.device)
     if causal:

@@ -24,9 +24,9 @@ decode step is captured as a CUDA graph that its later steps replay
 (``graph.StepGraph``), as hymba's is. ``prefill`` (in ``models/zoo.py``)
 returns a cache of length 0 holding only the cross K/V, as the
 reference's does: ``ServeEngine`` fills the self-attention K/V by
-replaying the prompt through ``decode_step``. The reference's
-``cache_spec`` (a partition spec) comes with the dry run (ROADMAP queue
-1 item 9, second half, part 2) and is left out.
+replaying the prompt through ``decode_step``. ``cache_spec`` gives the
+cache's abstract tree and partition specs for the dry run
+(``launch/dryrun.py``).
 
 Training reads the stacked {reference path: tensor} dict through
 ``stacked_views`` and recomputes every encoder and decoder block in the
@@ -45,10 +45,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
-from repro_torch.models.spec import ParamDef
+from repro_torch.models.spec import ParamDef, TensorSpec
 from repro_torch.models.transformer import (Group, _positions, embed_view,
                                             layer_tree, stack_defs,
                                             stacked_rows, torch_dtype)
+from repro_torch.sharding.partitioning import P
 
 
 def _enc_block_defs(cfg) -> Dict[str, Any]:
@@ -225,6 +226,23 @@ def init_cache(cfg, batch: int, max_len: int, device) -> EncDecCache:
     return EncDecCache(k=zeros(max_len), v=zeros(max_len),
                        xk=zeros(cfg.frontend_tokens),
                        xv=zeros(cfg.frontend_tokens), length=0)
+
+
+def cache_spec(cfg, batch: int, max_len: int, rules):
+    """(abstract cache, its partition specs), each an ``EncDecCache``: the
+    self- and cross-attention K/V split as ``rules.kv_spec`` splits
+    them; ``length`` the reference's int32 scalar (a host int here)."""
+    kv, hd, lyr = cfg.kvp(), cfg.hd(), cfg.num_layers
+    dt = torch_dtype(cfg.dtype)
+    lg = (None, "batch", None, "kv_heads", None)
+    shp = {"k": (lyr, batch, max_len, kv, hd),
+           "v": (lyr, batch, max_len, kv, hd),
+           "xk": (lyr, batch, cfg.frontend_tokens, kv, hd),
+           "xv": (lyr, batch, cfg.frontend_tokens, kv, hd)}
+    return (EncDecCache(**{k: TensorSpec(s, dt) for k, s in shp.items()},
+                        length=TensorSpec((), torch.int32)),
+            EncDecCache(**{k: rules.kv_spec(s, lg, batch_dim=1, seq_dim=2)
+                           for k, s in shp.items()}, length=P()))
 
 
 def build_cross_cache(cfg, params: EncDec, frames: torch.Tensor,

@@ -1,4 +1,5 @@
-"""CUDA graphs for the models' sequential loops.
+"""CUDA graphs for the models' sequential loops, and ``scan``, the loop
+over chunks whose steps the op counter weights by their number.
 
 A decode step, or one step of a recurrence, is a few thousand small
 kernels whose launches hold the card idle most of the time. Captured
@@ -12,7 +13,26 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+import repro_torch
+from repro_torch import counted
 
+
+@counted
+def scan(step: Callable, carry: Tuple[torch.Tensor, ...],
+         xs: Tuple[torch.Tensor, ...], dim: int = 1):
+    """``lax.scan`` over index ``j`` of dimension ``dim`` of every tensor
+    of ``xs``: ``carry = step(*carry, *(x.select(dim, j) for x in xs))``
+    for each j in turn. Returns (the last carry, the list of the carries
+    entering each step). The op counter (``utils/opcount.py``) runs one
+    step and weights it by the number of steps."""
+    seen = []
+    for j in range(xs[0].shape[dim]):
+        seen.append(carry)
+        carry = step(*carry, *(x.select(dim, j) for x in xs))
+    return carry, seen
+
+
+@counted
 def capture(fn: Callable[[], Any], device: torch.device):
     """Runs ``fn()`` once on a side stream (the real call, and the
     warm-up a capture needs), then captures it as a CUDA graph. Returns
@@ -63,7 +83,7 @@ def decode(step: Callable, params, graph: Optional[StepGraph],
     as it is on the CPU; on the card through ``graph`` (the cache's),
     captured by this step if the cache has none for ``params``. Returns
     (logits, the cache's graph)."""
-    if not tokens.is_cuda:
+    if not repro_torch.on_card(tokens):
         return step(tokens, torch.tensor(idx)), graph
     if graph is None or graph.params is not params:
         graph = StepGraph(step, params, tokens, idx)

@@ -35,7 +35,8 @@ Port decisions:
   captured by the cache's first step and replayed (``decode_step``).
   ``prefill`` (in ``models/zoo.py``) returns an empty cache, as the
   reference's does: ``ServeEngine`` fills it by replaying the prompt
-  through ``decode_step``.
+  through ``decode_step``. ``cache_spec`` gives the cache's abstract
+  tree and partition specs for the dry run (``launch/dryrun.py``).
 - Training reads the stacked {reference path: tensor} dict through
   ``stacked_views`` and recomputes each windowed block in the backward
   pass (``remat="block"``), as the reference does; the global blocks
@@ -55,10 +56,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
-from repro_torch.models.spec import ParamDef
+from repro_torch.models.spec import ParamDef, TensorSpec
 from repro_torch.models.transformer import (Group, embed_view, layer_tree,
                                             stack_defs, stacked_rows,
                                             torch_dtype)
+from repro_torch.sharding.partitioning import P
 
 CONV_K = 4  # depthwise causal conv kernel width
 
@@ -349,6 +351,50 @@ def init_cache(cfg, batch: int, max_len: int, device) -> HymbaCache:
         g_ssm=zeros((g, batch, dm, n), torch.float32),
         g_conv=zeros((g, batch, CONV_K - 1, dm)),
         length=0)
+
+
+def cache_spec(cfg, batch: int, max_len: int, rules):
+    """(abstract cache, its partition specs), each a ``HymbaCache`` of the
+    reference's shapes and types (``wpos`` int32 and ``length`` an int32
+    scalar there; the port holds ``wpos`` in int64 and ``length`` as a
+    host int); the attention caches split as ``rules.kv_spec`` splits
+    them."""
+    g, w = group_shape(cfg)
+    kv, hd, dm, n = cfg.kvp(), cfg.hd(), _dm(cfg), cfg.ssm_state
+    win = min(cfg.window, max_len)
+    dt = torch_dtype(cfg.dtype)
+    f32, i32 = torch.float32, torch.int32
+    shp = dict(
+        wk=((g, w, batch, win, kv, hd), dt),
+        wv=((g, w, batch, win, kv, hd), dt),
+        wpos=((g, w, win), i32),
+        gk=((g, batch, max_len, kv, hd), dt),
+        gv=((g, batch, max_len, kv, hd), dt),
+        w_ssm=((g, w, batch, dm, n), f32),
+        w_conv=((g, w, batch, CONV_K - 1, dm), dt),
+        g_ssm=((g, batch, dm, n), f32),
+        g_conv=((g, batch, CONV_K - 1, dm), dt),
+        length=((), i32))
+    logical = dict(
+        wk=(None, None, "batch", None, "kv_heads", None),
+        wv=(None, None, "batch", None, "kv_heads", None),
+        wpos=(None, None, None),
+        gk=(None, "batch", None, "kv_heads", None),
+        gv=(None, "batch", None, "kv_heads", None),
+        w_ssm=(None, None, "batch", "heads", None),
+        w_conv=(None, None, "batch", None, "heads"),
+        g_ssm=(None, "batch", "heads", None),
+        g_conv=(None, "batch", None, "heads"),
+        length=())
+    spec = {k: rules.spec_for(shp[k][0], lg) for k, lg in logical.items()}
+    for k in ("gk", "gv"):
+        spec[k] = rules.kv_spec(shp[k][0], logical[k], batch_dim=1,
+                                seq_dim=2)
+    for k in ("wk", "wv"):
+        spec[k] = rules.kv_spec(shp[k][0], logical[k], batch_dim=2,
+                                seq_dim=3)
+    return (HymbaCache(**{k: TensorSpec(*v) for k, v in shp.items()}),
+            HymbaCache(**spec))
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ Attention comes in the reference's three executions of one function:
 Parameters are read as the modules hold them: matrices in the serving
 type (``cfg.dtype``), norm scales in fp32 (see ``models/transformer.py``);
 training's compute copy holds every parameter in ``cfg.dtype``. The
-reference's ``shard`` hooks come with the mesh rules (ROADMAP queue 1
-item 9, second half) and are left out.
+reference threads a ``shard`` hook (a sharding constraint by logical
+axes) through every layer; on one card a constraint splits nothing, so
+the layers take none, and ``no_shard`` is the reference's default hook
+for code written against it.
 """
 from __future__ import annotations
 
@@ -22,8 +24,14 @@ from typing import Dict, Optional
 
 import torch
 
+import repro_torch
+
 from repro_torch.kernels import ops
 from repro_torch.models.spec import ParamDef
+
+
+def no_shard(x, *logical):
+    return x
 
 
 def wide(x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +193,7 @@ def attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     online-softmax loop over KV chunks, whose live memory is one
     (Sq, chunk) tile of scores per head, and which needs skv to be a
     multiple of min(chunk, skv), as the reference's does."""
-    if q.is_cuda and q.shape[1] == k.shape[1]:
+    if repro_torch.on_card(q) and q.shape[1] == k.shape[1]:
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     b, sq, h, hd = q.shape
     skv = k.shape[1]

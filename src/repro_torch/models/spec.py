@@ -3,9 +3,11 @@
 Each model declares its parameters once as a nested dict of ``ParamDef``
 (shape, logical axes, init law). ``init_params`` draws them; the model
 modules then hold them under the same names. ``TensorSpec`` stands in for
-the reference's ``jax.ShapeDtypeStruct`` (shapes and types, no storage).
-The reference's partition specs come with the dry run (ROADMAP queue 1
-item 9, second half).
+the reference's ``jax.ShapeDtypeStruct`` (shapes and types, no storage):
+``abstract_params`` gives the fp32 masters' tree of them, and
+``param_specs`` each parameter's partition spec under a ``MeshRules``,
+both keyed as the defs are (what the dry run, ``launch/dryrun.py``,
+reads).
 """
 from __future__ import annotations
 
@@ -38,6 +40,30 @@ class ParamDef:
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} and logical axes "
                              f"{self.logical} differ in rank")
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def tree_map_defs(fn: Callable[[ParamDef], Any], defs) -> Dict[str, Any]:
+    """``fn`` of every ParamDef of a nested dict, in a dict of the same
+    keys."""
+    return {k: fn(v) if is_def(v) else tree_map_defs(fn, v)
+            for k, v in defs.items()}
+
+
+def abstract_params(defs) -> Dict[str, Any]:
+    """The parameters' shapes and types without storage: fp32, the
+    masters' type (the reference's ``ParamDef.dtype``, which no model
+    sets otherwise)."""
+    return tree_map_defs(lambda d: TensorSpec(d.shape, torch.float32), defs)
+
+
+def param_specs(defs, rules) -> Dict[str, Any]:
+    """Each parameter's partition spec: ``rules.spec_for`` of its shape
+    and logical axes."""
+    return tree_map_defs(lambda d: rules.spec_for(d.shape, d.logical), defs)
 
 
 def iter_defs(defs, prefix: str = "") -> Iterator[Tuple[str, ParamDef]]:

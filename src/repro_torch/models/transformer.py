@@ -45,6 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import spec as S
 from repro_torch.models.moe import moe, moe_defs
 from repro_torch.models.spec import ParamDef
+from repro_torch.sharding.partitioning import P
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +347,19 @@ def init_cache(cfg, batch: int, max_len: int, device) -> KVCache:
     dt = torch_dtype(cfg.dtype)
     return KVCache(k=torch.zeros(shp, dtype=dt, device=device),
                    v=torch.zeros(shp, dtype=dt, device=device), length=0)
+
+
+def cache_spec(cfg, batch: int, max_len: int, rules):
+    """(abstract cache, its partition specs), each a ``KVCache``: K and V
+    split as ``rules.kv_spec`` splits them; ``length`` the reference's
+    int32 scalar (the port keeps it as a host int)."""
+    shp = (cfg.num_layers, batch, max_len, cfg.kvp(), cfg.hd())
+    dt = torch_dtype(cfg.dtype)
+    spec = rules.kv_spec(shp, ("layers", "batch", None, "kv_heads", None),
+                         batch_dim=1, seq_dim=2)
+    return (KVCache(k=S.TensorSpec(shp, dt), v=S.TensorSpec(shp, dt),
+                    length=S.TensorSpec((), torch.int32)),
+            KVCache(k=spec, v=spec, length=P()))
 
 
 def prefill(cfg, params: Transformer, tokens, max_len: int, *,

@@ -45,9 +45,8 @@ Port decisions:
   ``XLSTMState``'s tensors in place (the reference returns new ones)
   and return a state over the same tensors; on the card a state's
   decode steps are one captured CUDA graph (``graph.StepGraph``).
-- The reference's ``state_spec`` (a partition spec) comes with the
-  dry run (ROADMAP queue 1 item 9, second half, part 2) and is left
-  out.
+- ``state_spec`` gives the state's abstract tree and partition specs
+  for the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -61,12 +60,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+import repro_torch
+from repro_torch import counted
 from repro_torch.models import graph as G
 from repro_torch.models import layers as L
-from repro_torch.models.spec import ParamDef
+from repro_torch.models.spec import ParamDef, TensorSpec
 from repro_torch.models.transformer import (Group, embed_view, layer_tree,
                                             stack_defs, stacked_rows,
                                             torch_dtype)
+from repro_torch.sharding.partitioning import P
 
 NEG = -1e30     # the reference's "minus infinity" for log weights
 
@@ -233,11 +235,10 @@ def mlstm_parallel(cfg, p, x: torch.Tensor, state=None, terms=None):
     f_total = fcum[:, :, -1]                              # (b, nc, h)
     wk_log = f_total[:, :, None] - fcum + li              # (b, nc, s, h)
     # the stabiliser entering each chunk, then its end-of-chunk updates
-    m_in = []
-    for j in range(nc):
-        m_in.append(m)
-        m = torch.maximum(m + f_total[:, j], wk_log[:, j].amax(dim=1))
-    m_in = torch.stack(m_in, dim=1)                       # (b, nc, h)
+    (m,), seen = G.scan(
+        lambda m, f_j, wk_j: (torch.maximum(m + f_j, wk_j.amax(dim=1)),),
+        (m,), (f_total, wk_log))
+    m_in = torch.stack([e[0] for e in seen], dim=1)       # (b, nc, h)
     m_out = torch.cat([m_in[:, 1:], m[:, None]], dim=1)
     bvec = m_in[:, :, None] + fcum                        # carry-in
     m_t = torch.maximum(bvec, a.amax(dim=3))              # (b, nc, t, h)
@@ -249,17 +250,17 @@ def mlstm_parallel(cfg, p, x: torch.Tensor, state=None, terms=None):
     decay = torch.exp(m_in + f_total - m_out)             # (b, nc, h)
     kv = torch.einsum("bcsh,bcshk,bcshv->bchkv", wk_s, k, v)
     ks = torch.einsum("bcsh,bcshk->bchk", wk_s, k)
-    c_in, n_in = [], []
-    for j in range(nc):
-        c_in.append(c)
-        n_in.append(n)
-        c = decay[:, j, :, None, None] * c + kv[:, j]
-        n = decay[:, j, :, None] * n + ks[:, j]
+    (c, n), seen = G.scan(
+        lambda c, n, d_j, kv_j, ks_j: (d_j[:, :, None, None] * c + kv_j,
+                                       d_j[:, :, None] * n + ks_j),
+        (c, n), (decay, kv, ks))
     if terms is not None:
         terms.update(q=q, k=k, v=v, fcum=fcum, m_t=m_t, w=w, w_in=w_in,
                      qkw=qkw, kv=kv, ks=ks)
     del kv
-    c_in, n_in = torch.stack(c_in, dim=1), torch.stack(n_in, dim=1)
+    c_in = torch.stack([e[0] for e in seen], dim=1)
+    n_in = torch.stack([e[1] for e in seen], dim=1)
+    del seen
     num = (torch.einsum("bctsh,bcshk->bcthk", qkw, v)
            + w_in[..., None] * torch.einsum("bchkv,bcthk->bcthv", c_in, q))
     den = (qkw.sum(dim=3)
@@ -362,6 +363,7 @@ def _slstm_cell_backward(g, c, n, m, c1, n1, m1, dc, dn, dm, dh):
     return dg, dc * fp, dn * fp, da
 
 
+@counted
 def _run_steps(step, n: int, device: torch.device, graphed: bool):
     """``step()`` n times; ``graphed``: the first runs, then the step is
     captured once as a CUDA graph (``graph.capture``) and replayed."""
@@ -493,10 +495,11 @@ def slstm_scan(cfg, p, x: torch.Tensor, state=None):
         state = slstm_zero_state(b, h, hd, x.device, _wide(x))
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, wx, *state)):
-        ys, *state = SLSTMScan.apply(r, wx, *state, x.is_cuda)
+        ys, *state = SLSTMScan.apply(r, wx, *state, repro_torch.on_card(x))
         state = tuple(state)
     else:
-        scan = _scan_graphed if x.is_cuda and s > 1 else _scan_eager
+        scan = _scan_graphed if repro_torch.on_card(x) and s > 1 \
+            else _scan_eager
         ys, state = scan(r, wx, state)
     y = ys.reshape(b, s, d).to(x.dtype)
     return y @ p.wo.to(x.dtype), state
@@ -534,6 +537,26 @@ def init_state(cfg, batch: int, device) -> XLSTMState:
         sc=sc.view(g, batch, h, hd), sn=sn.view(g, batch, h, hd),
         sm=sm.view(g, batch, h, hd), sh=sh.view(g, batch, h, hd),
         length=0)
+
+
+def state_spec(cfg, batch: int, rules):
+    """(abstract state, its partition specs), each an ``XLSTMState``: the
+    batch and head axes split by the rules; ``length`` the reference's
+    int32 scalar (a host int here)."""
+    g, m_per = group_shape(cfg)
+    h, hd = cfg.num_heads, cfg.hd()
+    shp = dict(mc=((g, m_per, batch, h, hd, hd),
+                   (None, None, "batch", "heads", None, None)),
+               mn=((g, m_per, batch, h, hd),
+                   (None, None, "batch", "heads", None)),
+               mm=((g, m_per, batch, h), (None, None, "batch", "heads")))
+    for k in ("sc", "sn", "sm", "sh"):
+        shp[k] = ((g, batch, h, hd), (None, "batch", "heads", None))
+    return (XLSTMState(**{k: TensorSpec(s, torch.float32)
+                          for k, (s, _) in shp.items()},
+                       length=TensorSpec((), torch.int32)),
+            XLSTMState(**{k: rules.spec_for(s, lg)
+                          for k, (s, lg) in shp.items()}, length=P()))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,14 @@
 """Model API over every family (port of ``repro/models/zoo.py``).
 
-``Model = build_model(cfg, device=None)`` exposes, for the dense, MoE,
-VLM-backbone, hybrid (hymba), SSM (xlstm) and enc-dec families:
+``Model = build_model(cfg, device=None, rules=None, mesh=None)`` exposes,
+for the dense, MoE, VLM-backbone, hybrid (hymba), SSM (xlstm) and enc-dec
+families:
   * ``defs``                        — ParamDef tree (single source of truth)
   * ``init(seed)``                  — random parameters on the device
+  * ``abstract()`` / ``specs()``    — the fp32 masters' ``TensorSpec`` tree
+                                      and partition specs (``rules``)
+  * ``cache_abstract(batch, len)``  — the cache's (abstract, specs)
+  * ``input_shardings(shape)``      — the inputs' partition specs
   * ``n_params()``
   * ``forward(params, batch)``      — (logits, MoE aux loss), train-style
                                       dense attention
@@ -47,6 +52,7 @@ from repro_torch.configs.base import (AUDIO, HYBRID, SSM, ModelConfig,
 from repro_torch.models import encdec, hymba, transformer, xlstm
 from repro_torch.models import layers as L
 from repro_torch.models import spec as S
+from repro_torch.sharding.partitioning import P, MeshRules
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -98,10 +104,39 @@ def _as_tokens(x, device) -> torch.Tensor:
 class Model:
     cfg: ModelConfig
     device: torch.device
+    # the mesh rules and logical mesh of the dry run's specs; None serves
+    # and trains on one card without them
+    rules: Optional[MeshRules] = None
+    mesh: Any = None
 
     def __post_init__(self):
         self.mod = _module(self.cfg)
         self.defs = self.mod.model_defs(self.cfg)
+
+    def abstract(self) -> Dict[str, Any]:
+        return S.abstract_params(self.defs)
+
+    def specs(self) -> Dict[str, Any]:
+        return S.param_specs(self.defs, self._rules())
+
+    def _rules(self) -> MeshRules:
+        if self.rules is None:
+            raise ValueError(f"{self.cfg.name}: specs need mesh rules: "
+                             f"build_model(cfg, rules=...)")
+        return self.rules
+
+    def cache_abstract(self, batch: int, max_len: int):
+        """(abstract cache or state, its partition specs) in the family's
+        cache type."""
+        if self.mod is xlstm:
+            return xlstm.state_spec(self.cfg, batch, self._rules())
+        return self.mod.cache_spec(self.cfg, batch, max_len, self._rules())
+
+    def input_shardings(self, shape: ShapeConfig) -> Dict[str, P]:
+        """Each input's spec: the batch axis split over the data axes."""
+        r = self._rules()
+        return {k: r.spec_for(v.shape, ("batch",) + (None,) * (
+            len(v.shape) - 1)) for k, v in self.input_specs(shape).items()}
 
     def init(self, seed: int = 0):
         flat = S.init_params(
@@ -247,8 +282,13 @@ class Model:
         return self.mod.init_cache(self.cfg, batch, max_len, self.device)
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
-    return Model(cfg=cfg, device=resolve_device(device))
+def build_model(cfg: ModelConfig, device=None, *,
+                rules: Optional[MeshRules] = None, mesh=None) -> Model:
+    """The model of ``cfg`` on ``device`` (None: the card, raising without
+    one). ``device`` comes second, before the reference's ``rules`` and
+    ``mesh``, which only the dry run's specs read."""
+    return Model(cfg=cfg, device=resolve_device(device), rules=rules,
+                 mesh=mesh)
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):

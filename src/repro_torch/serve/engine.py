@@ -133,7 +133,7 @@ class ServeEngine:
                  max_len: int = 512, batch_size: int = 8, seed: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device)
+        self.model = build_model(cfg, device=self.device)
         self.params = _params(self.model, params, seed)
         self.max_len = max_len
         self.batch_size = batch_size
@@ -213,7 +213,7 @@ class EmbeddingServer:
                  seed: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device)
+        self.model = build_model(cfg, device=self.device)
         self.params = _params(self.model, params, seed)
         self._stream = None
         if self.device.type == "cuda":

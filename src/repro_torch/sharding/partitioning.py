@@ -1,8 +1,17 @@
-"""Tile placement for the hybrid-query engine's sharded execution path —
-port of the tile part of ``repro/sharding/partitioning.py`` — and the pod
-axis of the compressed train step (``pod_mesh``). ``MeshRules``,
-``rules_for_mesh`` and ``shard`` serve the models' partition specs, and
-come with the dry run (ROADMAP queue 1 item 9, second half, part 2).
+"""Logical-axis -> mesh-axis translation for the models' partition specs
+(``P``, ``MeshRules``, ``rules_for_mesh``, ``shard``), tile placement for
+the hybrid-query engine's sharded execution path and the pod axis of the
+compressed train step (``pod_mesh``): port of
+``repro/sharding/partitioning.py``.
+
+Parameters, caches and inputs carry *logical* axis names (``batch``,
+``heads``, ``embed``, ...); a ``MeshRules`` maps them onto the axes of a
+logical mesh (``launch/mesh.py``: ``(data, model)`` or ``(pod, data,
+model)``, names and sizes, no devices). The specs it builds are the
+reference's, entry for entry; the dry run (``launch/dryrun.py``) divides
+each leaf's shape by them to get its bytes on one device. On one card no
+tensor is split, so ``shard`` (the reference's sharding constraint)
+returns its input.
 
 ``tile_mesh`` describes S shards in this process, all placed on one
 device. The reference builds a one-axis ``("shards",)`` JAX mesh over S
@@ -35,12 +44,165 @@ fits the same three calls.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Protocol, Tuple
+from typing import Optional, Protocol, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.utils.quant import div
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+
+def _entry(e) -> MeshAxes:
+    """A spec entry in ``PartitionSpec``'s canonical form: a sequence of
+    one name is that name, an empty one None."""
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else (e[0] if len(e) == 1 else e)
+    return e
+
+
+class P(tuple):
+    """A partition spec: one entry per dimension, each None (replicated),
+    a mesh axis name, or a tuple of names (split over their product).
+    A plain tuple, so it equals the reference's ``PartitionSpec`` taken
+    as a tuple; entries are canonical as there (a one-name tuple is the
+    name)."""
+
+    def __new__(cls, *entries: MeshAxes):
+        return super().__new__(cls, map(_entry, entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclass(frozen=True)
+class MeshRules:
+    """Maps logical axis names to mesh axes (the reference's, field for
+    field)."""
+
+    # data-parallel axes (batch). ("pod", "data") on a multi-pod mesh.
+    dp: Tuple[str, ...] = ("data",)
+    # tensor-parallel axis; None = TP disabled (the "model" axis is then
+    # extra data/FSDP parallelism)
+    tp: Optional[str] = "model"
+    # FSDP axes for parameter sharding; () disables FSDP
+    fsdp: Tuple[str, ...] = ("data",)
+    # sequence-parallel axes for long context; shares the data axis
+    sp: Tuple[str, ...] = ("data",)
+    # mesh axis sizes, for divisibility-aware specs
+    sizes: Tuple[Tuple[str, int], ...] = ()
+
+    def axis_size(self, axes: MeshAxes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        table = dict(self.sizes)
+        n = 1
+        for a in axes:
+            n *= table.get(a, 1)
+        return n
+
+    def spec(self, *logical: Optional[str]) -> P:
+        return P(*[self._resolve(ax) for ax in logical])
+
+    def spec_for(self, shape: Tuple[int, ...],
+                 logical: Tuple[Optional[str], ...]) -> P:
+        """Shape-aware spec: a mesh axis that does not divide its
+        dimension is dropped (the dimension is replicated)."""
+        out = []
+        for dim, ax in zip(shape, logical):
+            resolved = self._resolve(ax)
+            n = self.axis_size(resolved)
+            out.append(resolved if (n > 1 and dim % n == 0) or n == 1
+                       else None)
+        return P(*out)
+
+    def kv_spec(self, shape: Tuple[int, ...],
+                logical: Tuple[Optional[str], ...],
+                batch_dim: int, seq_dim: int) -> P:
+        """KV-cache spec: where the sequence dimension is unsplit, the mesh
+        axes no other dimension uses (never "pod") split it, all of them
+        if they divide it, else the first."""
+        sp = list(self.spec_for(shape, logical))
+        used = set()
+        for entry in sp:
+            if entry is None:
+                continue
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                used.add(a)
+        free = [a for a, _ in self.sizes if a not in used and a != "pod"]
+        if sp[seq_dim] is None and free:
+            for cand in (tuple(free), (free[0],)):
+                n = self.axis_size(cand)
+                if n > 1 and shape[seq_dim] % n == 0:
+                    sp[seq_dim] = cand if len(cand) > 1 else cand[0]
+                    break
+        return P(*sp)
+
+    def flat_spec(self, n_rows: int) -> P:
+        """The widest split of a flat (rows, block) tensor: over fsdp x tp
+        when it divides the rows, else over fsdp, else replicated."""
+        full = tuple(self.fsdp) + (self.tp,)
+        if self.axis_size(full) > 1 and n_rows % self.axis_size(full) == 0:
+            return P(full, None)
+        f = self.fsdp if len(self.fsdp) > 1 else \
+            (self.fsdp[0] if self.fsdp else None)
+        if f is not None and n_rows % self.axis_size(f) == 0:
+            return P(f, None)
+        return P(None, None)
+
+    def _resolve(self, ax: Optional[str]) -> MeshAxes:
+        if ax is None:
+            return None
+
+        def one(axes: Tuple[str, ...]) -> MeshAxes:
+            return axes if len(axes) > 1 else (axes[0] if axes else None)
+        table = {
+            "batch": one(self.dp), "fsdp": one(self.fsdp),
+            "seq_sp": one(self.sp), "vocab": self.tp, "heads": self.tp,
+            "kv_heads": self.tp, "ff": self.tp, "experts": self.tp,
+            "model": self.tp, "layers": None,
+            # parameters' d_model axes; activations never name "embed"
+            "embed": one(self.fsdp), "seq": None, "state": None,
+        }
+        if ax not in table:
+            raise KeyError(f"unknown logical axis {ax!r}")
+        return table[ax]
+
+
+def rules_for_mesh(mesh, fsdp: bool = True, fsdp_over_pods: bool = False,
+                   tensor_parallel: bool = True) -> MeshRules:
+    """The rules for a mesh (anything with ``axis_names`` and ``shape``,
+    as ``launch/mesh.py`` makes it): data parallelism over ("pod",)
+    "data", tensor parallelism over "model"; without tensor parallelism
+    "model" is one more data/FSDP axis."""
+    axes = tuple(mesh.axis_names)
+    has_pod = "pod" in axes
+    if tensor_parallel:
+        dp = ("pod", "data") if has_pod else ("data",)
+        tp: Optional[str] = "model"
+        base_fsdp: Tuple[str, ...] = ("data",)
+    else:
+        dp = ("pod", "data", "model") if has_pod else ("data", "model")
+        tp = None
+        base_fsdp = ("data", "model")
+    if not fsdp:
+        fsdp_axes: Tuple[str, ...] = ()
+    elif fsdp_over_pods and has_pod:
+        fsdp_axes = ("pod",) + base_fsdp
+    else:
+        fsdp_axes = base_fsdp
+    sizes = tuple(zip(axes, (int(n) for n in mesh.shape)))
+    return MeshRules(dp=dp, tp=tp, fsdp=fsdp_axes, sp=("data",), sizes=sizes)
+
+
+def shard(x, mesh, spec: P):
+    """The reference's sharding constraint. On one card nothing is split,
+    so it returns ``x``."""
+    return x
 
 
 class Collectives(Protocol):

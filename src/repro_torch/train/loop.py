@@ -65,7 +65,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, seq_len: int = 512,
             f"{cfg.name}: train() feeds tokens only (SyntheticLM), and an "
             f"enc-dec model needs 'frames' beside them; train it through "
             f"make_train_step on Model.make_batch's batches")
-    model = build_model(cfg, device)
+    model = build_model(cfg, device=device)
     step_fn = make_train_step(model, tc, state_dtype=state_dtype)
 
     if data is None:

@@ -35,9 +35,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import counted
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.spec import TensorSpec
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.sharding.partitioning import P
 from repro_torch.utils.quant import dequantize_i8, div, quantize_i8, sqrt_rn
 
 STATE_DTYPES = ("float32", "bfloat16", "int8")
@@ -128,6 +130,22 @@ def adam_abstract(params_abs: Dict[str, Any],
                      count=TensorSpec((), torch.int32))
 
 
+def adam_specs(params_abs: Dict[str, Any], param_specs: Dict[str, Any],
+               rules=None, state_dtype: str = "float32") -> AdamState:
+    """The state's partition specs, mirroring the parameters': {path:
+    spec} for m and v (int8: (the codes' spec, the scales' with their
+    last axis unsplit) where the codes are kept), and ``P()`` for the
+    count. ``params_abs`` and ``param_specs`` are keyed alike."""
+    _check_dtype(state_dtype)
+
+    def sp(p, s):
+        if state_dtype == "int8" and _quantizable(tuple(p.shape)):
+            return (s, P(*(tuple(s)[:-1] + (None,))))
+        return s
+    leaves = {k: sp(p, param_specs[k]) for k, p in params_abs.items()}
+    return AdamState(m=dict(leaves), v=dict(leaves), count=P())
+
+
 def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup, then cosine to a tenth; ``step`` an fp32 tensor,
     every operation in fp32 as the reference's."""
@@ -138,6 +156,7 @@ def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
+@counted
 def _scalars(tc: TrainConfig, count: torch.Tensor) -> Tuple[float, ...]:
     """(c1, c2, lr) at ``count`` as fp32 tensors on the host, returned as
     the Python floats that hold those fp32 values exactly (an fp32

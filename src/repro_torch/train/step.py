@@ -18,12 +18,14 @@ from typing import Dict
 
 import torch
 
+from repro_torch import counted
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.train.optimizer import AdamState, adam_update
 from repro_torch.utils.quant import div
 
 
+@counted
 def split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     """The batch as ``n`` microbatches of consecutive rows (the
     reference's ``reshape((n, b // n) + ...)``)."""

@@ -1744,3 +1744,49 @@ def test_xlstm_rows_independent_on_card(cuda, width, dtype):
                     part = xlstm.forward(cfg, views, toks[i:i + size])[0]
                     _close_to(part.detach(), whole[i:i + size], tol,
                               (grad, size, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_counter_live_on_card_equals_fake_trace(cuda, kind):
+    """The op counter run live on the card's tensors gives the fake CPU
+    trace's FLOPs and kernel charges exactly (reduced llama3-8b; the
+    prefill's attention charged as the flash kernel on both)."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.utils import opcount
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              head_dim=64, d_model=128, num_heads=2,
+                              num_kv_heads=1)
+    shape = ShapeConfig(kind, 256, 4, kind)
+    over = dryrun.overrides("llama3-8b", kind)
+    fake, _ = dryrun.trace(dryrun.program(cfg, shape, make_dev_mesh(1, 1),
+                                          over))
+    prog = dryrun.program(cfg, shape, make_dev_mesh(1, 1), over,
+                          device=cuda)
+    args = dryrun.make_args(prog, seed=0)
+    with opcount.count_ops(fake=False) as c:
+        c.run(prog.step, *args)
+        torch.cuda.synchronize()
+    assert c.stats.flops == fake.flops > 0
+    assert c.stats.kernels == fake.kernels
+    assert ("flash_attention" in c.stats.kernels) == (kind == "prefill")
+
+
+@pytest.mark.cuda
+def test_hibog_kernel_route_equals_plain_route(cuda):
+    """HIBOG on the card (``topk_l2`` kernel, one launch an iteration at
+    least) returns the CPU's plain route's moved points within 1e-5 of
+    their largest magnitude, on points where every distance is exact."""
+    from repro_torch.core.lpgf import hibog
+    from repro_torch.kernels import fused_topk
+    rng = np.random.default_rng(3)
+    x = np.unique(rng.integers(-12, 13, (1200, 8)), axis=0)[:600]
+    x = (x[rng.permutation(len(x))] * 0.25).astype(np.float32)
+    fused_topk.reset_launches()
+    got = hibog(x, k=8, iters=2, device=cuda)
+    assert fused_topk.topk_l2_launches >= 2
+    want = hibog(x, k=8, iters=2, device="cpu")
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -688,3 +688,37 @@ def test_expand_kv_and_head_mask_match_reference():
             np.asarray(JL.expand_kv(jcfg, t.numpy())))
         assert (TL.expand_kv(cfg, t) is t) == identity == \
             (name != "hymba-1.5b")
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_plain_version_by_query_blocks_equals_whole(causal, window):
+    """``ref.flash_attention`` on blocks of queries (``q_offset``, their
+    positions) gives the whole call's rows, and ``chip_smoke.flash_check``
+    by blocks of rows judges a kernel's output as the whole call does:
+    the same verdict, error and count over the tolerance, on an output
+    within it and on one pushed past it."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((2, 96, 3, 16), generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    whole = tref.flash_attention(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window)
+    blocks = torch.cat([tref.flash_attention(
+        q[:, r0:r0 + 32].float(), k.float(), v.float(), causal=causal,
+        window=window, q_offset=r0) for r0 in range(0, 96, 32)], dim=1)
+    torch.testing.assert_close(blocks, whole, rtol=1e-6, atol=1e-6)
+    got = whole.to(torch.bfloat16)
+    bad = got.clone()
+    bad[1, 70, 2, 5] += 0.25
+    for out, verdict in ((got, True), (bad, False)):
+        a = cs.flash_check(torch, tref, q, k, v, out, causal, window,
+                           score_err=True)
+        b = cs.flash_check(torch, tref, q, k, v, out, causal, window,
+                           score_err=True, rows=32)
+        assert a[0] is b[0] is verdict and a[2] == b[2]
+        assert b[1] == pytest.approx(a[1], rel=1e-5, abs=1e-7)
