@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of MQRLD (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--seed 0] [--rows 200000] [--dim 512]
-                          [--batch 256] [--path q]
+                          [--batch 256] [--path q|r|s]
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
@@ -45,8 +45,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    skewed workload, the scalar path's rows and work unchanged; and
    ``calibrate(batch=16)``, then the hybrid batch again under the fitted
    model, every row the oracle's;
-   Then ingest on that platform (``drive_ingest_path``): 4 appends of
-   5,000 rows (20,000 in a delta capacity of 32,768, so 12,768 NaN pad
+   Then ingest on that platform (``drive_ingest_path``): 3 appends of
+   5,000 rows (15,000 in a delta capacity of 16,384, so 1,384 NaN pad
    rows), each followed by ``sync_delta`` and the hybrid batch on the
    fp32 device loop, every row equal to the oracle's over ``view()``
    (all 256 queries after the first and last append, 64 after the
@@ -76,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    Then retrieval serving on the loaded platform
    (``drive_serving_path``, path (i)): ``RetrievalServer(batch_size=64)``
    with ``EmbeddingServer(mqrld-embedder-100m)`` at full size in bf16 (on
-   its own stream) and a seeded 768 -> 512 projection, 512 requests
+   its own stream) and a seeded 768 -> 512 projection, 384 requests
    (prompts of 16, 32, 64 and 128 tokens; V.K k = 20, V.K k = 100 and
    N.R + V.K k = 20 in turn) at pipeline depth 1 in fp32 and at depth 1
    and 3 in int8: rows identical request by request, 128 sampled
@@ -89,7 +89,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    in fp32 with (i)'s embedder, ``fold_mode = "background"``, 2,500 rows
    appended (fold due), and a ``ReoptController`` attached: its first
    steps between micro-batches build, warm and swap a fold generation of
-   225,000 rows; then it tunes the transform on 1,024-row shadows,
+   220,000 rows; then it tunes the transform on 1,024-row shadows,
    builds the winner's generation at full size beside the serving one,
    warms it (a second engine on the card) and swaps it (or, when the
    tuner finds no improvement, the path builds, warms and swaps the best
@@ -208,7 +208,19 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    on fake tensors and run on the card (``drive_dry_cell``'s four
    checks), and the full-size cells ``DRY_FULL`` traced on the CPU
    beside them;
-17. ``flash_attention`` against its plain version, each kernel at its
+17. the examples (s) (``run_examples_path``; ``--path s`` builds and
+   runs it alone): each of the port's seven examples
+   (``repro_torch.examples``) and ``scripts/smoke_models`` through its
+   ``main(["--device", "cuda", ...])`` in this process (the quickstart's
+   lake in a temporary directory, ``train_embedder`` at the published
+   width, ``EXAMPLE_TRAIN``), the launch counters reset before each:
+   every row it answers equal, as a set, to the brute force over its raw
+   columns (``oracle_misses``), rows identical across precisions, depths
+   and shard counts, exact through the tuner's swap, the background fold
+   and the rollback, the embedder's loss falling, every reduced config
+   finite, and each example's kernels (``EXAMPLE_KERNELS``) launched;
+   one line each with its seconds, launches, figures and peak memory;
+18. ``flash_attention`` against its plain version, each kernel at its
    widest path launch (the kernels JSON rows: llama3-8b's bf16 prefill
    on wgmma, olmo-1b's fp32 prefill on SIMT), at path 8's shape, at the
    llama prefill's shape on both kernels (the SIMT one launched by name
@@ -225,8 +237,8 @@ Each path's kernels must have launched in that path's run (counts set to
 0 just before it, read just after); the embedding and xlstm paths run
 none, the training path ``pairwise_sq_l2`` and ``topk_l2_masked``
 through its platform, the family training path none (it fails if any
-launches). ``--path q`` builds and runs path (q) alone, and prints no
-result line. The
+launches). ``--path q``, ``r`` or ``s`` builds and runs that path alone,
+and prints no result line. The
 last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -364,10 +376,11 @@ def _nan_equal(torch, a, b) -> bool:
 def check_nan_rows(torch, pw, ft, lf, ref, dev, gen, rows: int, dim: int,
                    capacity: int = 32768, live: int = 20000):
     """``pairwise_sq_l2`` with NaN rows, at the dense V.R pass's shape on
-    the ingest path: a 256-query batch against the base rows plus a delta
-    of ``capacity`` rows of which ``live`` hold data and the rest are
-    NaN, one query row NaN and one point NaN in one coordinate. On an
-    integer grid (every sum exact) the kernel must give NaN exactly where
+    the ingest path before its cut to 3 appends: a 256-query batch
+    against the base rows plus a delta of ``capacity`` rows of which
+    ``live`` hold data and the rest are NaN, one query row NaN and one
+    point NaN in one coordinate. On an integer grid (every sum exact)
+    the kernel must give NaN exactly where
     the plain version does and its bits everywhere else; on Gaussian
     inputs the entries off the NaN rows must equal the kernel's output
     without them, bit for bit. ``topk_l2`` on the same grid and on 40
@@ -1379,9 +1392,9 @@ def drive_calibration(args, dev, p, batch, truths, t_uncal: float, kmods):
 
 
 # ------------------------------------------------------------ ingest path
-# 4 appends of 5,000 rows: the 20,000-row delta of 8 of 2,500, cut for the
-# time limit (PERF.md §4)
-INGEST_APPENDS, INGEST_ROWS = 4, 5000
+# 3 appends of 5,000 rows: cut from 8 of 2,500, then from 4 of 5,000, for
+# the time limit (PERF.md §4)
+INGEST_APPENDS, INGEST_ROWS = 3, 5000
 FULL_CHECK_AFTER = (0, INGEST_APPENDS - 1)   # appends checked on all queries
 SLICE = 64        # queries checked after the other appends
 
@@ -1908,7 +1921,8 @@ def drive_rollback(args, dev, sp, sbatch):
 
 
 # -------------------------------------------------------- serving path
-SERVE_REQUESTS = 512     # cut from 1,024 for the time limit (PERF.md §4)
+SERVE_REQUESTS = 384     # cut from 1,024, then 512, for the time limit
+#                          (PERF.md §4)
 SERVE_LENGTHS = (16, 32, 64, 128)
 SERVE_SAMPLE = 128       # served requests held to the oracle
 SERVE_APPEND = 64        # prompts appended by token, then served
@@ -2104,14 +2118,14 @@ def _reopt_chunk(np, Q, RetrievalRequest, vocab: int, rng, kind: int):
 
 
 def drive_reopt_path(args, dev, p, keep, kmods):
-    """Path (j): online re-optimization on (h)'s live platform (220,000
+    """Path (j): online re-optimization on (h)'s live platform (215,000
     folded rows plus ``PERSIST_ROWS`` live delta rows, prepared with
     ``min_leaf=64, max_leaf=1024``, which the beside-build reproduces).
     ``RetrievalServer(batch_size=64)`` in fp32 at depth 1 with (i)'s
     embedder and projection; ``fold_mode = "background"`` with an
     ``auto_fold_ratio`` that the append of ``REOPT_APPEND`` rows crosses,
     so the attached ``ReoptController``'s first steps build, warm and swap
-    a fold generation of 225,000 rows between micro-batches. Then it
+    a fold generation of 220,000 rows between micro-batches. Then it
     tunes on 1,024-row shadows, builds the winner's generation at full
     size beside the serving one, warms and swaps it. If the tuner finds
     no improvement (its choice rests partly on wall time), the path
@@ -2170,7 +2184,7 @@ def drive_reopt_path(args, dev, p, keep, kmods):
             raise RuntimeError(f"reopt: an idle poll served {n}")
         served[phase] += [(f, view) for f in futs]
 
-    ref = p.view()                 # 222,500 rows: (j)'s first epoch
+    ref = p.view()                 # 217,500 rows: (j)'s first epoch
     ref_pos = np.argsort(ref.row_ids)
     probe = np.random.default_rng(args.seed + 23).choice(
         ref.n_rows, 1024, replace=False)
@@ -4983,6 +4997,245 @@ def run_dryrun_paths(args, dev, kmods, fa, ref, card: str, starts) -> int:
     return 0
 
 
+# ---------------------------------------------------- (s) the examples
+# train_embedder's flags: the published width, 30 steps (cut from 60 for
+# the time limit, PERF.md §4)
+EXAMPLE_TRAIN = ("--full", "--steps", "30")
+# the kernels each example must launch (counts reset before it)
+EXAMPLE_KERNELS = {
+    "quickstart": ("pairwise_sq_l2", "topk_l2"),
+    "precision_scan": ("pairwise_sq_l2", "topk_l2", "topk_l2_masked",
+                       "quant_lb2"),
+    "query_aware_tuning": ("pairwise_sq_l2",),
+    "serve_retrieval": ("pairwise_sq_l2", "topk_l2", "topk_l2_masked",
+                        "flash"),
+    "serve_pipelined": ("pairwise_sq_l2", "topk_l2", "topk_l2_masked"),
+    "serve_sharded": ("pairwise_sq_l2", "topk_l2", "topk_l2_masked"),
+    "train_embedder": ("pairwise_sq_l2", "topk_l2", "lpgf_force"),
+    "smoke_models": ("flash",),
+}
+
+
+def oracle_misses(table, queries, rows, row_ids, extra=None) -> list:
+    """Indices of the queries whose rows, mapped to logical ids through
+    ``row_ids`` (None: taken as they are) and taken as sets, differ from
+    ``query.execute_bruteforce`` over ``table``'s raw columns with
+    ``extra`` ({column: rows}) appended: the plain reference."""
+    import numpy as np
+    from repro_torch.core import query as Q
+    from repro_torch.core.lake import MMOTable
+    extra = extra or {}
+    t = MMOTable(table.name)
+    for k, v in table.vector.items():
+        t.add_vector(k, np.concatenate([v, extra[k]]) if k in extra else v)
+    for k, v in table.numeric.items():
+        t.add_numeric(k, np.concatenate([v, extra[k]]) if k in extra else v)
+    bad = []
+    for i, (q, r) in enumerate(zip(queries, rows)):
+        got = np.asarray(r) if row_ids is None else row_ids[np.asarray(r)]
+        if set(got.tolist()) != set(Q.execute_bruteforce(t, q).tolist()):
+            bad.append(i)
+    return bad
+
+
+def _request_queries(Q, reqs, vecs):
+    return [Q.VK.of(r.attr, v, r.k) if r.predicate is None else
+            Q.And.of(r.predicate, Q.VK.of(r.attr, v, r.k))
+            for r, v in zip(reqs, vecs)]
+
+
+def example_contract(name: str, out: dict):
+    """(errors, figures) of one example's returned dict: every contract
+    of the example held, every row held to ``oracle_misses``."""
+    import numpy as np
+    from repro_torch.core import query as Q
+    from repro_torch.core.lake import MMOTable
+    err, fig = [], {}
+
+    def need(ok, what):
+        if not ok:
+            err.append(what)
+    if name == "quickstart":
+        need(out["exact"] and len(out["rows"]) == 10, "Fig. 1 rows")
+        need(not oracle_misses(out["table"], [out["query"]], [out["rows"]],
+                               out["row_ids"]), "Fig. 1 rows vs the oracle")
+        need(out["uris"] == [f"s3://catalog/{i}.jpg" for i in
+                             out["row_ids"][out["rows"][:3]]], "get_mmos")
+        need(out["lake_tables"] == ["products"] and MMOTable.load(
+            os.path.join(out["lake"], "products")).n_rows == 5000, "lake")
+        fig = dict(cbr=out["cbr"], rows_scanned=out["rows_scanned"],
+                   changed=out["changed"], qbs_score=out["qbs_score"])
+    elif name == "precision_scan":
+        for prec, run in out["precisions"].items():
+            need(run["identical_to_fp32"], f"{prec} rows identical")
+            need(not oracle_misses(out["table"], out["queries"], run["rows"],
+                                   out["base_row_ids"]), f"{prec} oracle")
+            fig[prec] = dict(qps=run["qps"], rescue=run["rescue"]["ratio"])
+        need(out["precisions"]["int8"]["rescue"]["scanned"] > 0,
+             "int8 scanned nothing")
+        extra = dict(out["appended"])
+        for key in ("delta_rows", "delta_rows_int8", "default_rows"):
+            need(not oracle_misses(out["table"], out["queries"], out[key],
+                                   out["delta_row_ids"], extra),
+                 f"{key} vs the oracle")
+        need(out["delta_identical"], "base+delta identical")
+        need(out["default_mp_scanned"] > 0, "default int8 scanned nothing")
+        fig.update(default_mp_scanned=out["default_mp_scanned"],
+                   default_mp_rescued=out["default_mp_rescued"])
+    elif name == "query_aware_tuning":
+        need(out["n_swaps"] >= 1, f"no swap in {out['steps']} steps")
+        need(set(out["checks"]) == {"serving", "swap", "fold", "final"},
+             f"phases {sorted(out['checks'])}")
+        need(out["exact"], "a phase's rows differ from the oracle")
+        for phase, (n_rows, pairs) in out["checks"].items():
+            extra = out.get("appended") if n_rows > 4000 else None
+            got = [g for g, _ in pairs]
+            need(not oracle_misses(out["table"], out["workload"][:4], got,
+                                   None, extra), f"{phase} vs the oracle")
+        fig = dict(steps=out["steps"], events=out["events"],
+                   cbr_before=out["cbr_before"],
+                   cbr_after=out.get("cbr_after"))
+    elif name == "serve_retrieval":
+        enh = MMOTable("enhanced").add_vector("e", out["enhanced"])
+        need(not oracle_misses(enh, [Q.VK.of("e", q, 10) for q in
+                                     out["knn_queries"]],
+                               list(out["knn_rows"]), None),
+             "batched KNN vs the oracle")
+        need(out["cache"] == "hit" and out["n_engine"] == 64,
+             "planned batch not a warm plan of 64 engine queries")
+        need(not oracle_misses(out["table"], out["hybrid"],
+                               out["hybrid_rows"], out["row_ids"]),
+             "hybrid batch vs the oracle")
+        need(not oracle_misses(out["table"], out["hybrid"][:20],
+                               out["scalar_rows"], out["row_ids"]),
+             "scalar queries vs the oracle")
+        need(not oracle_misses(out["table"], _request_queries(
+            Q, out["requests"], out["served_vectors"]), out["served_rows"],
+            out["row_ids"]), "served requests vs the oracle")
+        need(len(out["gen_tokens"]) == 4 and all(
+            t.shape == (8,) for t in out["gen_tokens"]), "generation")
+        fig = dict(knn_ms=out["knn_ms"], hybrid_qps=out["hybrid_qps"],
+                   qbs_rows=out["qbs_rows"], served_ms=out["served_ms"],
+                   prefill_ms=out["prefill_ms"], decode_ms=out["decode_ms"])
+    elif name == "serve_pipelined":
+        need(out["identical"], "depth 3 rows differ from depth 1")
+        vecs = out["vectors"]
+        reqs = out["requests"]
+        need(not oracle_misses(out["table"], _request_queries(
+            Q, reqs, [vecs[int(r.tokens[0]) % len(vecs)] + 0.01
+                      for r in reqs]), out["rows"][1], out["row_ids"]),
+             "served rows vs the oracle")
+        need(out["inflight_after"] == 0 and
+             out["resolved"] == out["pre_append"], "drain barrier")
+        fig = dict(qps_depth_1=out["qps"][1], qps_depth_3=out["qps"][3],
+                   gain=out["gain"], inflight_before=out["inflight_before"])
+    elif name == "serve_sharded":
+        for s, run in out["runs"].items():
+            need(run["identical"], f"shards={s} rows differ")
+            need(not oracle_misses(out["table"], out["queries"], run["rows"],
+                                   out["row_ids"]), f"shards={s} oracle")
+            fig[f"qps_shards_{s}"] = run["qps"]
+        need(set(out["runs"]) == {"off", 1, 2, 8}, "a shard count skipped")
+        need(out["server_shards"] == 2, "default_shards not taken")
+        need(not oracle_misses(out["table"], _request_queries(
+            Q, out["requests"], out["served_vectors"]), out["served_rows"],
+            out["row_ids"]), "served requests vs the oracle")
+    elif name == "train_embedder":
+        ls = out["losses"]
+        need(out["steps_run"] == int(EXAMPLE_TRAIN[-1]) and ls and
+             all(np.isfinite(ls)), "steps run / finite losses")
+        need(out["loss_last"] < out["loss_first"], "the loss did not fall")
+        need(out["exact"] and not oracle_misses(
+            out["table"], [out["query"]], [out["rows"]], out["row_ids"]),
+            "hybrid query vs the oracle")
+        fig = dict(losses=[round(x, 4) for x in ls],
+                   loss_first=out["loss_first"], loss_last=out["loss_last"],
+                   step_s_median=float(np.median(out["step_s"][1:])),
+                   first_step_s=out["step_s"][0], chose=out["chose"],
+                   scores=out["scores"], cbr=out["cbr"],
+                   d_model=out["cfg"].d_model)
+    elif name == "smoke_models":
+        need(out["ok"], "a config failed: " + json.dumps(
+            {k: v.get("error") for k, v in out["configs"].items()
+             if not v["ok"]}))
+        fig = {k: dict(loss=v.get("loss"), gnorm=v.get("gnorm"))
+               for k, v in out["configs"].items()}
+    return err, fig
+
+
+def drive_examples_path(args, dev, kmods, card: str) -> int:
+    """Path (s): each example's ``main(["--device", "cuda", ...])`` and
+    ``scripts/smoke_models``, in this process, the launch counters reset
+    before each and read after it; each held to its contract
+    (``example_contract``) and to the kernels it must launch
+    (``EXAMPLE_KERNELS``). Returns 0, or ``fail``'s code."""
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.examples import (precision_scan, query_aware_tuning,
+                                      quickstart, serve_pipelined,
+                                      serve_retrieval, serve_sharded,
+                                      train_embedder)
+    from repro_torch.scripts import smoke_models
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    runs = (("quickstart", quickstart,
+             ["--lake", os.path.join(tmp, "lake")]),
+            ("precision_scan", precision_scan, []),
+            ("query_aware_tuning", query_aware_tuning, []),
+            ("serve_retrieval", serve_retrieval, []),
+            ("serve_pipelined", serve_pipelined, []),
+            ("serve_sharded", serve_sharded, []),
+            ("train_embedder", train_embedder,
+             list(EXAMPLE_TRAIN) + ["--ckpt", os.path.join(tmp, "ckpt")]),
+            ("smoke_models", smoke_models, []))
+    try:
+        for name, mod, extra in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(kmods)
+            text = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(text):
+                out = mod.main(["--device", str(dev)] + extra)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = _counters(kmods)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            err, fig = example_contract(name, out)
+            for line in text.getvalue().splitlines():
+                log(f"  {name} | {line}")
+            launches["flash"] = (launches["flash_attention"]
+                                 + launches["flash_attention_wgmma"])
+            missing = [k for k in EXAMPLE_KERNELS[name] if launches[k] <= 0]
+            log(f"example {name} ({card}): " + json.dumps(dict(
+                seconds=round(secs, 2), launches=launches, figures=fig,
+                peak_gib=round(peak, 3)), default=str))
+            if err:
+                return fail(f"example {name}: " + "; ".join(err))
+            if missing:
+                return fail(f"example {name} never launched {missing}: "
+                            f"{launches}")
+            del out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def run_examples_path(args, dev, kmods, card: str, starts) -> int:
+    """Path (s) inside ``main``, with its section time."""
+    starts.append(("examples", time.time()))
+    rc = drive_examples_path(args, dev, kmods, card)
+    if rc or args.path != "s":
+        return rc
+    starts.append(("end", time.time()))
+    log("seconds by section: " + json.dumps(
+        {a[0]: round(b[1] - a[1], 1) for a, b in zip(starts, starts[1:])}))
+    return 0
+
 def log_kernel(label: str, ok: bool, row: dict) -> None:
     lib = row["library_ms"]
     log(f"kernel {label}: ok={ok} {row['shape']} ms={row['ms']:.4f} "
@@ -5024,7 +5277,7 @@ def main() -> int:
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--small-rows", type=int, default=4096)
-    ap.add_argument("--path", choices=["q", "r"], default=None,
+    ap.add_argument("--path", choices=["q", "r", "s"], default=None,
                     help="build, then run this path alone and stop (a "
                     "shorter call while the path is worked on; prints no "
                     "result line)")
@@ -5097,6 +5350,8 @@ def main() -> int:
     if args.path == "r":
         return run_dryrun_paths(args, dev, kmods, flash_attention, ref, card,
                                 starts)
+    if args.path == "s":
+        return run_examples_path(args, dev, kmods, card, starts)
 
     # -------------------------------------------------------- kernels
     starts.append(("kernels", time.time()))
@@ -5758,6 +6013,11 @@ def main() -> int:
     # ------------------- (b) build options and (r) the dry run held
     rc = run_dryrun_paths(args, dev, kmods, flash_attention, ref, card,
                           starts)
+    if rc:
+        return rc
+
+    # ------------------------------------------------- (s) the examples
+    rc = run_examples_path(args, dev, kmods, card, starts)
     if rc:
         return rc
 

@@ -274,10 +274,12 @@ def make_args(prog: Program, seed: int = 0, fake: bool = False):
 # ---------------------------------------------------------------------------
 # The dry run of one cell
 # ---------------------------------------------------------------------------
-def trace(prog: Program) -> Tuple[opcount.OpStats, float]:
-    """(the count of the step on fake tensors, seconds it took)."""
+def trace(prog: Program, counter_cls=None
+          ) -> Tuple[opcount.OpStats, float]:
+    """(the count of the step on fake tensors, seconds it took), counted
+    by ``counter_cls`` (``opcount.count_ops``'s)."""
     t0 = time.time()
-    with opcount.count_ops(fake=True) as counter:
+    with opcount.count_ops(fake=True, counter_cls=counter_cls) as counter:
         args = make_args(prog, fake=True)
         out = counter.run(prog.step, *args)
         del out, args
@@ -285,12 +287,13 @@ def trace(prog: Program) -> Tuple[opcount.OpStats, float]:
 
 
 def dry_run(cfg, shape: ShapeConfig, mesh, over: Optional[Dict] = None,
-            count: bool = True, arch: Optional[str] = None
-            ) -> Dict[str, Any]:
+            count: bool = True, arch: Optional[str] = None,
+            counter_cls=None) -> Dict[str, Any]:
     """The reference's result for ``cfg`` at ``shape`` on ``mesh``:
     memory per device, the count and its roofline. ``count=False`` skips
     the roofline, as the reference's ``--no-hlo`` does; the trace still
-    runs for ``temp_bytes``."""
+    runs for ``temp_bytes``. ``counter_cls``: the trace's counter class
+    (``opcount.count_ops``)."""
     over = over if over is not None else overrides(cfg.name, shape.kind)
     prog = program(cfg, shape, mesh, over)
     n_dev = mesh.size
@@ -299,7 +302,7 @@ def dry_run(cfg, shape: ShapeConfig, mesh, over: Optional[Dict] = None,
     out_b = tree_bytes(prog.out_abs, prog.out_specs, mesh)
     alias_b = sum(tree_bytes(a, s, mesh) for a, s, d in zip(
         prog.args_abs, prog.args_specs, prog.donated) if d)
-    stats, trace_s = trace(prog)
+    stats, trace_s = trace(prog, counter_cls)
     temp_b = max(0, int(stats.peak_bytes) // n_dev - (out_b - alias_b))
     result = {
         "arch": arch or cfg.name, "shape": shape.name,

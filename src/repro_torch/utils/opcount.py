@@ -520,10 +520,12 @@ def _stand_ins(counter: Counter) -> Dict[str, Callable]:
 
 
 @contextlib.contextmanager
-def count_ops(fake: bool = True):
+def count_ops(fake: bool = True, counter_cls=None):
     """A ``Counter`` for one step: make its arguments inside the block
     (fake tensors when ``fake``), then ``counter.run(step, *args)``;
-    ``counter.stats`` holds the count.
+    ``counter.stats`` holds the count. ``counter_cls(fake)`` makes the
+    counter (None: ``Counter``); a subclass extends its per-op accounting,
+    as ``scripts/flash_projection.py``'s does.
     While ``counter.run`` runs, and on its thread only (and the threads
     autograd runs its backward on), the counter stands in for the kernel
     entry points and the weighted loops (``counter.stand_ins``, each a
@@ -539,6 +541,6 @@ def count_ops(fake: bool = True):
     if fake:
         from torch._subclasses.fake_tensor import FakeTensorMode
         mode = FakeTensorMode(allow_non_fake_inputs=True)
-    counter = Counter(fake)
+    counter = (counter_cls or Counter)(fake)
     with (mode if mode is not None else contextlib.nullcontext()):
         yield counter
