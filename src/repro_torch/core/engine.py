@@ -103,7 +103,7 @@ from repro_torch.kernels.ref import stable_topk
 from repro_torch.sharding.partitioning import (TileMesh, shard_put,
                                                strided_tile_layout,
                                                tile_mesh)
-from repro_torch.utils import quant
+from repro_torch.utils import quant, tracing
 
 # candidates kept past the stopping rank for the re-rank: a margin for
 # speed only, since a job whose margin is too thin to certify takes
@@ -379,7 +379,7 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
     l = geom.n_leaves
     prologue = _knn_prologue_fast if l <= 4096 else _knn_prologue
     order, lb_dev = prologue(qs, geom.centroid, geom.radius, masks_tiles)
-    lb_sorted = lb_dev.cpu().numpy()
+    lb_sorted = _to_host(lb_dev).numpy()
     best_d2 = np.full((g, k), np.inf, np.float32)
     best_r = np.full((g, k), -1, np.int64)
     conv = np.zeros(g, np.int64)
@@ -404,17 +404,18 @@ def batched_knn(geom: LeafGeometry, data_tiles, qs, k: int, *,
             data_tiles, geom.bucket_rows, planes, lb_dev, kth0_all, w0=w0,
             w1=w, k=k, k_stop=k_stop, precision=precision)
         first = False
-        d2 = d2[:na].cpu().numpy()
-        rows = rows[:na].cpu().numpy()
-        refuted[active] = np.minimum(refuted[active], rlb[:na].cpu().numpy())
+        d2 = _to_host(d2[:na]).numpy()
+        rows = _to_host(rows[:na]).numpy()
+        refuted[active] = np.minimum(refuted[active],
+                                     _to_host(rlb[:na]).numpy())
         if stats is not None:
             stats.knn_rounds += 1
             stats.knn_buckets += na * (w - w0)
-            nv = int(nvalid[:na].sum())
+            nv = int(_to_host(nvalid[:na].sum()))
             stats.rows_scanned += nv
             if precision != "fp32":
                 stats.mp_scanned += nv
-                stats.mp_rescued += int(resc[:na].sum())
+                stats.mp_rescued += int(_to_host(resc[:na].sum()))
         # host merge with the carry: carried entries come from earlier
         # (lower-lb) buckets, so a stable sort keeps the visit-order
         # tie-break
@@ -478,7 +479,7 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
     nresc = torch.zeros((), dtype=torch.int64, device=dev)
     refuted = torch.full((g, 2), _INF, device=dev)
     r = 0
-    while r < budget and bool(active.any()):
+    while r < budget and bool(_to_host(active.any())):
         start = r * w
         sel = order_pad[:, start:start + w]
         lb_col = lb_pad[:, start:start + w]
@@ -520,7 +521,8 @@ def _knn_device_loop(idx, active0, qs_full, d2_full, rows_full, order,
         bd, br, active = md, mr, active2
         r += 1
     rr = torch.where(active, r, rr)  # budget-exhausted: scanned everything
-    return bd, br, (r, int(nbuck), int(nrows), int(nresc)), rr, refuted
+    return bd, br, (r, int(_to_host(nbuck)), int(_to_host(nrows)),
+                    int(_to_host(nresc))), rr, refuted
 
 
 def _knn_start(qs, masks_tiles, centroid, radius, data_tiles, bucket_rows,
@@ -561,12 +563,24 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     """Start a device->host copy of ``t`` into pinned memory on the
     current stream (a copy into pageable memory is synchronous); read it
-    after an event recorded behind it. A CPU tensor is returned as is."""
+    after an event recorded behind it. A CPU tensor is returned as is.
+    Its bytes count as read back (``utils.tracing``)."""
+    tracing.count("engine.readback_bytes", t.numel() * t.element_size())
     if not t.is_cuda:
         return t
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     h.copy_(t, non_blocking=True)
     return h
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``: a read-back the host waits for, counted as one sync
+    and its bytes (``utils.tracing``) whatever the device, so the counts
+    are the hybrid path's own. Callers take ``.numpy()``, ``int()`` or
+    ``bool()`` of it."""
+    tracing.count("engine.syncs")
+    tracing.count("engine.readback_bytes", t.numel() * t.element_size())
+    return t.cpu()
 
 
 class _PendingDeviceKnn:
@@ -642,8 +656,10 @@ def batched_knn_device_async(
 
     def _finish() -> Tuple[np.ndarray, np.ndarray]:
         t1 = time.time()
-        if ready is not None:
-            ready.synchronize()
+        with tracing.span("engine.fence"):
+            if ready is not None:
+                tracing.count("engine.syncs")
+                ready.synchronize()
         active_h, d2f, rowsf, refuted_h, nvalid_h, resc_h = (
             x.numpy() for x in host)
         if stats is not None:
@@ -657,31 +673,33 @@ def batched_knn_device_async(
         act = np.nonzero(active_h)[0]
         refuted_f = refuted_h
         if len(act) and w1 < l:
-            na = len(act)
-            gp = _next_pow2(na)
-            padded = np.zeros(gp, np.int64)
-            padded[:na] = act
-            idx = torch.as_tensor(padded, device=dev)
-            active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
-            w = max(1, min(ws if ws else beam,
-                           _round_tiles(gp, data_tiles, planes)))
-            budget = -(-(l - w1) // w)
-            bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
-                _knn_device_loop(
-                    idx, active0, qs, d2, rows, order, lb_sorted,
-                    masks_tiles, data_tiles, geom.bucket_rows, planes,
-                    w1=w1, w=w, budget=budget, k=k, k_stop=k_stop,
-                    precision=precision)
-            refuted_f = refuted_h.copy()
-            refuted_f[act] = np.minimum(refuted_f[act],
-                                        rlb[:na].cpu().numpy())
-            d2f = d2f.copy()
-            rowsf = rowsf.copy()
-            d2f[act] = bd[:na].cpu().numpy()
-            rowsf[act] = br[:na].cpu().numpy()
-            conv[act] = np.minimum(
-                w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w,
-                l)
+            with tracing.span("engine.stragglers"):
+                na = len(act)
+                gp = _next_pow2(na)
+                padded = np.zeros(gp, np.int64)
+                padded[:na] = act
+                idx = torch.as_tensor(padded, device=dev)
+                active0 = torch.as_tensor(np.arange(gp) < na, device=dev)
+                w = max(1, min(ws if ws else beam,
+                               _round_tiles(gp, data_tiles, planes)))
+                budget = -(-(l - w1) // w)
+                bd, br, (rounds, nbuck, nrows, nresc), retire_round, rlb = \
+                    _knn_device_loop(
+                        idx, active0, qs, d2, rows, order, lb_sorted,
+                        masks_tiles, data_tiles, geom.bucket_rows, planes,
+                        w1=w1, w=w, budget=budget, k=k, k_stop=k_stop,
+                        precision=precision)
+            with tracing.span("engine.readback"):
+                refuted_f = refuted_h.copy()
+                refuted_f[act] = np.minimum(refuted_f[act],
+                                            _to_host(rlb[:na]).numpy())
+                d2f = d2f.copy()
+                rowsf = rowsf.copy()
+                d2f[act] = _to_host(bd[:na]).numpy()
+                rowsf[act] = _to_host(br[:na]).numpy()
+                conv[act] = np.minimum(
+                    w1 + _to_host(retire_round[:na]).numpy().astype(
+                        np.int64) * w, l)
             if stats is not None:
                 stats.knn_rounds += rounds
                 stats.knn_buckets += nbuck
@@ -699,14 +717,16 @@ def batched_knn_device_async(
             # whose rows the lb2 early-out may have skipped (bound^2 at or
             # above the final k-th expansion distance, which no running
             # k-th undercuts)
-            lbs = F.pad(lb_sorted, (0, 1), value=_INF).double()
-            thr = np.sqrt(d2f[:, -1].astype(np.float64) * (1 - 4 * _U32))
-            pos = torch.minimum(
-                torch.searchsorted(lbs, torch.as_tensor(
-                    thr, device=dev)[:, None]),
-                torch.as_tensor(conv, device=dev)[:, None])
-            next_lb_out.append(
-                torch.gather(lbs, 1, pos)[:, 0].cpu().numpy())
+            with tracing.span("engine.readback"):
+                lbs = F.pad(lb_sorted, (0, 1), value=_INF).double()
+                thr = np.sqrt(d2f[:, -1].astype(np.float64)
+                              * (1 - 4 * _U32))
+                pos = torch.minimum(
+                    torch.searchsorted(lbs, torch.as_tensor(
+                        thr, device=dev)[:, None]),
+                    torch.as_tensor(conv, device=dev)[:, None])
+                next_lb_out.append(
+                    _to_host(torch.gather(lbs, 1, pos)[:, 0]).numpy())
         if refuted_out is not None:
             refuted_out.append(refuted_f)
         return np.sqrt(d2f), rowsf.astype(np.int64)
@@ -830,7 +850,7 @@ def widen_exact(x: np.ndarray, x_dev: torch.Tensor, qs: torch.Tensor,
         thr, dtype=torch.float32, device=x_dev.device)[:, None]
     if masks is not None:
         hit &= masks[sel]
-    at = torch.nonzero(hit).cpu().numpy()
+    at = _to_host(torch.nonzero(hit)).numpy()
     out = []
     for j, (p, k, _) in enumerate(fails):
         cand = at[at[:, 0] == j, 1]
@@ -1119,7 +1139,7 @@ def _sharded_loop(st: ShardedTiles, lay, idx, active0, qs_f, lbd_f, lbr_f,
     nresc = torch.zeros((), dtype=torch.int64, device=dev)
     refuted = torch.full((g, 2), _INF, device=dev)
     r = 0
-    while r < budget and bool(active.any()):
+    while r < budget and bool(_to_host(active.any())):
         start = r * w
         sel = order_pad[..., start:start + w]
         lb_col = lb_pad[..., start:start + w]
@@ -1140,7 +1160,8 @@ def _sharded_loop(st: ShardedTiles, lay, idx, active0, qs_f, lbd_f, lbr_f,
         gbd, gbr, active = gbd2, gbr2, active2
         r += 1
     rr = torch.where(active, r, rr)
-    return gbd, gbr, (r, int(nbuck), int(nrows), int(nresc)), rr, refuted
+    return gbd, gbr, (r, int(_to_host(nbuck)), int(_to_host(nrows)),
+                      int(_to_host(nresc))), rr, refuted
 
 
 def batched_knn_sharded(st: ShardedTiles, geom: LeafGeometry, data_tiles,
@@ -1186,15 +1207,15 @@ def batched_knn_sharded(st: ShardedTiles, geom: LeafGeometry, data_tiles,
     if stats is not None:
         stats.knn_rounds += 1
         stats.knn_buckets += g * w1 * s
-        stats.rows_scanned += int(nvalid)
+        stats.rows_scanned += int(_to_host(nvalid))
         if precision != "fp32":
-            stats.mp_scanned += int(nvalid)
-            stats.mp_rescued += int(resc)
+            stats.mp_scanned += int(_to_host(nvalid))
+            stats.mp_rescued += int(_to_host(resc))
     conv = np.full(g, w1, np.int64)
-    act = np.nonzero(active.cpu().numpy())[0]
-    d2f = d2.cpu().numpy()
-    rowsf = rows.cpu().numpy()
-    refuted_f = refuted.cpu().numpy()
+    act = np.nonzero(_to_host(active).numpy())[0]
+    d2f = _to_host(d2).numpy()
+    rowsf = _to_host(rows).numpy()
+    refuted_f = _to_host(refuted).numpy()
     if len(act) and w1 < l:
         na = len(act)
         gp = _next_pow2(na)
@@ -1210,13 +1231,13 @@ def batched_knn_sharded(st: ShardedTiles, geom: LeafGeometry, data_tiles,
                           lb_sorted, mt, w1=w1, w=w, budget=budget, k=k, k_stop=k_stop,
                           precision=precision)
         refuted_f = refuted_f.copy()
-        refuted_f[act] = np.minimum(refuted_f[act], rlb[:na].cpu().numpy())
+        refuted_f[act] = np.minimum(refuted_f[act], _to_host(rlb[:na]).numpy())
         d2f = d2f.copy()
         rowsf = rowsf.copy()
-        d2f[act] = bd[:na].cpu().numpy()
-        rowsf[act] = br[:na].cpu().numpy()
+        d2f[act] = _to_host(bd[:na]).numpy()
+        rowsf[act] = _to_host(br[:na]).numpy()
         conv[act] = np.minimum(
-            w1 + retire_round[:na].cpu().numpy().astype(np.int64) * w, l)
+            w1 + _to_host(retire_round[:na]).numpy().astype(np.int64) * w, l)
         if stats is not None:
             stats.knn_rounds += rounds
             stats.knn_buckets += nbuck
@@ -1240,8 +1261,8 @@ def batched_knn_sharded(st: ShardedTiles, geom: LeafGeometry, data_tiles,
             torch.searchsorted(lbs, torch.as_tensor(
                 np.tile(thr, s), device=dev)[:, None]),
             torch.as_tensor(np.tile(conv, s), device=dev)[:, None])
-        next_lb_out.append(st.mesh.collectives.pmin(
-            torch.gather(lbs, 1, pos).view(s, g)).cpu().numpy())
+        next_lb_out.append(_to_host(st.mesh.collectives.pmin(
+            torch.gather(lbs, 1, pos).view(s, g))).numpy())
     if refuted_out is not None:
         refuted_out.append(refuted_f)
     return np.sqrt(d2f), rowsf.astype(np.int64)
@@ -1254,14 +1275,14 @@ def _ne_group_masks(col, num_lo, num_hi, row_leaf, v, tol):
     leaf_ok = ((num_lo[None, :] <= (v + tol)[:, None])
                & (num_hi[None, :] >= (v - tol)[:, None]))
     m = torch.abs(col[None, :] - v[:, None]) <= tol[:, None]
-    return m & leaf_ok[:, row_leaf], int(leaf_ok.sum())
+    return m & leaf_ok[:, row_leaf], int(_to_host(leaf_ok.sum()))
 
 
 def _nr_group_masks(col, num_lo, num_hi, row_leaf, lo, hi):
     leaf_ok = ((num_lo[None, :] <= hi[:, None])
                & (num_hi[None, :] >= lo[:, None]))
     m = (col[None, :] >= lo[:, None]) & (col[None, :] <= hi[:, None])
-    return m & leaf_ok[:, row_leaf], int(leaf_ok.sum())
+    return m & leaf_ok[:, row_leaf], int(_to_host(leaf_ok.sum()))
 
 
 _VR_DENSE_CUTOFF = 0.5  # surviving-tile row fraction above which the
@@ -1832,13 +1853,13 @@ class HybridEngine:
                     self.num[attr], self.num_lo[attr], self.num_hi[attr],
                     self.row_leaf, vals([b.value for b in grp]),
                     vals([b.tol for b in grp]))
-                m = m.cpu().numpy()
+                m = _to_host(m).numpy()
             elif tname == "NR":
                 m, touched = _nr_group_masks(
                     self.num[attr], self.num_lo[attr], self.num_hi[attr],
                     self.row_leaf, vals([b.lo for b in grp]),
                     vals([b.hi for b in grp]))
-                m = m.cpu().numpy()
+                m = _to_host(m).numpy()
             else:  # VR
                 m, touched = self._vr_masks(attr, grp, stats, tile_route)
             stats.predicate_buckets += int(touched)
@@ -1862,81 +1883,90 @@ class HybridEngine:
         Both routes return the same masks; rows near the boundary are
         re-checked on the host with the exact formula either way."""
         t_vr0 = time.time()
-        vecs = np.stack([b.vec() for b in grp])
-        r = np.asarray([b.radius for b in grp], np.float32)
-        r2 = r.astype(np.float32) ** 2
-        qs = torch.as_tensor(vecs, dtype=torch.float32, device=self.device)
-        r_t = torch.as_tensor(r, device=self.device)
-        sharded = tile_route and self.sharded_vr is not None
-        if sharded:
-            leaf_ok, cols = self._vr_plan_sharded(attr, qs, r_t)
-            leaf_ok_t = torch.as_tensor(leaf_ok, device=self.device)
-        else:
-            leaf_ok_t = _vr_leaf_plan(qs, r_t, self.geom[attr].centroid,
-                                      self.geom[attr].radius)
-            leaf_ok = leaf_ok_t.cpu().numpy()
-        touched = int(leaf_ok.sum())
-        g = len(grp)
-        stats.vr_tiles_pruned += g * self.n_tiles - touched
-        union = np.nonzero(leaf_ok.any(axis=0))[0]
-        dim = vecs.shape[1]
-        col = self.vec_np[attr]
-        feats_dense = costm.vr_features("vr:dense", g, len(union),
-                                        self.cap, dim, self.n)
-        feats_tile = costm.vr_features("vr:tile", g, len(union),
-                                       self.cap, dim, self.n)
-        use_dense = len(union) * self.cap > _VR_DENSE_CUTOFF \
-            * max(1, self.n)
-        cm = self.cost_model
-        if tile_route and cm is not None \
-                and cm.reliable("vr:dense", "vr:tile"):
-            pd = cm.predict("vr:dense", feats_dense)
-            pt = cm.predict("vr:tile", feats_tile)
-            if pd is not None and pt is not None:
-                use_dense = pd <= pt
+        with tracing.span("engine.vr_route"):
+            vecs = np.stack([b.vec() for b in grp])
+            r = np.asarray([b.radius for b in grp], np.float32)
+            r2 = r.astype(np.float32) ** 2
+            qs = torch.as_tensor(vecs, dtype=torch.float32,
+                                 device=self.device)
+            r_t = torch.as_tensor(r, device=self.device)
+            sharded = tile_route and self.sharded_vr is not None
+            if sharded:
+                leaf_ok, cols = self._vr_plan_sharded(attr, qs, r_t)
+                leaf_ok_t = torch.as_tensor(leaf_ok, device=self.device)
+            else:
+                leaf_ok_t = _vr_leaf_plan(qs, r_t, self.geom[attr].centroid,
+                                          self.geom[attr].radius)
+                leaf_ok = _to_host(leaf_ok_t).numpy()
+            touched = int(leaf_ok.sum())
+            g = len(grp)
+            stats.vr_tiles_pruned += g * self.n_tiles - touched
+            union = np.nonzero(leaf_ok.any(axis=0))[0]
+            dim = vecs.shape[1]
+            col = self.vec_np[attr]
+            feats_dense = costm.vr_features("vr:dense", g, len(union),
+                                            self.cap, dim, self.n)
+            feats_tile = costm.vr_features("vr:tile", g, len(union),
+                                           self.cap, dim, self.n)
+            use_dense = len(union) * self.cap > _VR_DENSE_CUTOFF \
+                * max(1, self.n)
+            cm = self.cost_model
+            if tile_route and cm is not None \
+                    and cm.reliable("vr:dense", "vr:tile"):
+                pd = cm.predict("vr:dense", feats_dense)
+                pt = cm.predict("vr:tile", feats_tile)
+                if pd is not None and pt is not None:
+                    use_dense = pd <= pt
         if not tile_route or use_dense:
             if tile_route:
                 stats.vr_dense_fallbacks += 1
-            m, near = _vr_dense_masks(qs, r_t, leaf_ok_t, self.vec[attr],
-                                      self.row_leaf)
-            m, near = m.cpu().numpy(), near.cpu().numpy()
-            gis, ris = np.nonzero(near)
-            if len(gis):
-                exact = (((col[ris] - vecs[gis]) ** 2).sum(1) <= r2[gis])
-                m[gis, ris] = exact
+            with tracing.span("engine.vr_eval"):
+                m, near = _vr_dense_masks(qs, r_t, leaf_ok_t,
+                                          self.vec[attr], self.row_leaf)
+                m, near = _to_host(m).numpy(), _to_host(near).numpy()
+            with tracing.span("engine.vr_recheck"):
+                gis, ris = np.nonzero(near)
+                if len(gis):
+                    exact = (((col[ris] - vecs[gis]) ** 2).sum(1)
+                             <= r2[gis])
+                    m[gis, ris] = exact
             stats.stage_samples.append(
                 ("vr:dense", feats_dense, time.time() - t_vr0))
             return m, touched
         stats.vr_tiles_scanned += touched
         if sharded:
-            m = self._vr_union_sharded(attr, cols, qs, r2, vecs)
+            with tracing.span("engine.vr_eval"):
+                m = self._vr_union_sharded(attr, cols, qs, r2, vecs)
             stats.stage_samples.append(
                 ("vr:tile", feats_tile, time.time() - t_vr0))
             return m, touched
-        # pad the union to a power of two (bounded shape universe, as in
-        # the reference); pad columns have no members
-        u = len(union)
-        up = _next_pow2(u)
-        sel_u = np.zeros(up, np.int64)
-        sel_u[:u] = union
-        member = np.zeros((g, up), bool)
-        member[:, :u] = leaf_ok[:, union]
-        packed = _vr_union_eval(
-            qs, torch.as_tensor(r2, device=self.device),
-            torch.as_tensor(sel_u, device=self.device),
-            torch.as_tensor(member, device=self.device),
-            self.vec_tiles[attr], self.vec_tile_pp[attr],
-            self.bucket_rows).cpu().numpy()
-        within, near = (packed & 1).astype(bool), (packed & 2).astype(bool)
-        rows = self.bucket_rows_np[sel_u].reshape(-1)     # host-side map
-        m = np.zeros((g, self.n), bool)
-        gis, cis = np.nonzero(within)
-        m[gis, rows[cis]] = True
-        gis, cis = np.nonzero(near)
-        if len(gis):
-            rws = rows[cis]
-            exact = (((col[rws] - vecs[gis]) ** 2).sum(1) <= r2[gis])
-            m[gis, rws] = exact
+        with tracing.span("engine.vr_eval"):
+            # pad the union to a power of two (bounded shape universe, as
+            # in the reference); pad columns have no members
+            u = len(union)
+            up = _next_pow2(u)
+            sel_u = np.zeros(up, np.int64)
+            sel_u[:u] = union
+            member = np.zeros((g, up), bool)
+            member[:, :u] = leaf_ok[:, union]
+            packed = _to_host(_vr_union_eval(
+                qs, torch.as_tensor(r2, device=self.device),
+                torch.as_tensor(sel_u, device=self.device),
+                torch.as_tensor(member, device=self.device),
+                self.vec_tiles[attr], self.vec_tile_pp[attr],
+                self.bucket_rows)).numpy()
+        with tracing.span("engine.vr_recheck"):
+            within = (packed & 1).astype(bool)
+            near = (packed & 2).astype(bool)
+            rows = self.bucket_rows_np[sel_u].reshape(-1)   # host-side map
+            m = np.zeros((g, self.n), bool)
+            gis, cis = np.nonzero(within)
+            m[gis, rows[cis]] = True
+            gis, cis = np.nonzero(near)
+            if len(gis):
+                rws = rows[cis]
+                exact = (((col[rws] - vecs[gis]) ** 2).sum(1) <= r2[gis])
+                m[gis, rws] = exact
         stats.stage_samples.append(
             ("vr:tile", feats_tile, time.time() - t_vr0))
         return m, touched
@@ -1951,7 +1981,7 @@ class HybridEngine:
         st = self.sharded_vr
         geom = self.geom[attr]
         surv = _vr_leaf_plan(qs, r_t, geom.centroid, geom.radius)
-        cols = (surv[:, st.local] & st.live[None]).cpu().numpy()
+        cols = _to_host(surv[:, st.local] & st.live[None]).numpy()
         leaf_ok = np.zeros((cols.shape[0], self.n_tiles), bool)
         leaf_ok[:, st.local_np[st.live_np]] = cols[:, st.live_np]
         return leaf_ok, cols
@@ -1974,12 +2004,12 @@ class HybridEngine:
             member[:, s, :len(loc)] = cols[:, s, loc]
         flat = np.take_along_axis(st.local_np, sel_u, axis=1).reshape(-1)
         dev = self.device
-        packed = _vr_union_eval(
+        packed = _to_host(_vr_union_eval(
             qs, torch.as_tensor(r2, device=dev),
             torch.as_tensor(flat, device=dev),
             torch.as_tensor(member.reshape(g, -1), device=dev),
             self.vec_tiles[attr], self.vec_tile_pp[attr],
-            self.bucket_rows).cpu().numpy()
+            self.bucket_rows)).numpy()
         within, near = (packed & 1).astype(bool), (packed & 2).astype(bool)
         rows = self.bucket_rows_np[flat].reshape(-1)
         m = np.zeros((g, self.n), bool)
@@ -2096,61 +2126,63 @@ class HybridEngine:
             conv: list = []
             next_lb: list = []
             refuted: list = []
-            qv = np.stack([jobs[i][0].vec() for i in idxs])
-            qs = _to_device(qv, self.device)
-            masks = None
-            if n_masked:
-                masks = _to_device(np.stack(
-                    [jobs[i][1] for i in idxs[:n_masked]]), self.device)
-                if n_masked < len(idxs):
-                    masks = torch.cat(
-                        [masks, torch.ones((len(idxs) - n_masked, self.n),
-                                           dtype=torch.bool,
-                                           device=self.device)])
-            geom = self.geom_dev[attr] if device_loop else self.geom[attr]
-            tiles = self.vec_tiles_dev[attr] if device_loop \
-                else self.vec_tiles[attr]
-            planes = None
-            if self.precision != "fp32":
-                planes = (self.vec_planes_dev if device_loop
-                          else self.vec_planes)[attr]
-            l = geom.n_leaves
-            k_scan = kmax + _RERANK_EXTRA
-            feat_shards, feat_tiles, feat_cap = 0, l, geom.cap
-            if sharded:
-                st = self.sharded_dev
-                ws = max(1, _next_pow2(seed)) if seed else None
-                knn = _ReadyKnn(batched_knn_sharded(
-                    st, geom, tiles, qs, k_scan, masks=masks,
-                    beam=self.beam, ws=ws, k_stop=kmax, planes=planes,
-                    precision=self.precision, stats=stats, conv_out=conv,
-                    next_lb_out=next_lb, refuted_out=refuted))
-                w_base = max(1, min(-(-max(1, self.beam // 2)
-                                      // st.shards), st.t_total))
-                feat_shards, feat_tiles = st.shards, st.t_total
-            elif device_loop:
-                ws = max(self.beam, _next_pow2(seed)) if seed else None
-                knn = batched_knn_device_async(
-                    geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
-                    ws=ws, k_stop=kmax, planes=planes,
-                    precision=self.precision, stats=stats, conv_out=conv,
-                    next_lb_out=next_lb, refuted_out=refuted)
-                w_base = max(1, min(max(1, self.beam // 2), l))
-            else:
-                beam_eff = max(self.beam,
-                               _next_pow2(self.beam + seed)) \
-                    if seed else self.beam
-                knn = _ReadyKnn(batched_knn(
-                    geom, tiles, qs, k_scan, masks=masks, beam=beam_eff,
-                    k_stop=kmax, planes=planes, precision=self.precision,
-                    stats=stats, conv_out=conv, next_lb_out=next_lb,
-                    refuted_out=refuted))
-                w_base = max(1, min(beam_eff, l))
-            kind = costm.knn_kind(device_loop, feat_shards)
-            feats = costm.knn_plan_features(
-                device_loop=device_loop, shards=feat_shards, g=len(idxs),
-                k=kmax, beam=self.beam, tiles=feat_tiles, cap=feat_cap,
-                dim=qv.shape[1], precision=self.precision, seed=seed)
+            with tracing.span("engine.upload"):
+                qv = np.stack([jobs[i][0].vec() for i in idxs])
+                qs = _to_device(qv, self.device)
+                masks = None
+                if n_masked:
+                    masks = _to_device(np.stack(
+                        [jobs[i][1] for i in idxs[:n_masked]]), self.device)
+                    if n_masked < len(idxs):
+                        masks = torch.cat(
+                            [masks, torch.ones(
+                                (len(idxs) - n_masked, self.n),
+                                dtype=torch.bool, device=self.device)])
+            with tracing.span("engine.dispatch"):
+                geom = self.geom_dev[attr] if device_loop else self.geom[attr]
+                tiles = self.vec_tiles_dev[attr] if device_loop \
+                    else self.vec_tiles[attr]
+                planes = None
+                if self.precision != "fp32":
+                    planes = (self.vec_planes_dev if device_loop
+                              else self.vec_planes)[attr]
+                l = geom.n_leaves
+                k_scan = kmax + _RERANK_EXTRA
+                feat_shards, feat_tiles, feat_cap = 0, l, geom.cap
+                if sharded:
+                    st = self.sharded_dev
+                    ws = max(1, _next_pow2(seed)) if seed else None
+                    knn = _ReadyKnn(batched_knn_sharded(
+                        st, geom, tiles, qs, k_scan, masks=masks,
+                        beam=self.beam, ws=ws, k_stop=kmax, planes=planes,
+                        precision=self.precision, stats=stats, conv_out=conv,
+                        next_lb_out=next_lb, refuted_out=refuted))
+                    w_base = max(1, min(-(-max(1, self.beam // 2)
+                                          // st.shards), st.t_total))
+                    feat_shards, feat_tiles = st.shards, st.t_total
+                elif device_loop:
+                    ws = max(self.beam, _next_pow2(seed)) if seed else None
+                    knn = batched_knn_device_async(
+                        geom, tiles, qs, k_scan, masks=masks, beam=self.beam,
+                        ws=ws, k_stop=kmax, planes=planes,
+                        precision=self.precision, stats=stats, conv_out=conv,
+                        next_lb_out=next_lb, refuted_out=refuted)
+                    w_base = max(1, min(max(1, self.beam // 2), l))
+                else:
+                    beam_eff = max(self.beam,
+                                   _next_pow2(self.beam + seed)) \
+                        if seed else self.beam
+                    knn = _ReadyKnn(batched_knn(
+                        geom, tiles, qs, k_scan, masks=masks, beam=beam_eff,
+                        k_stop=kmax, planes=planes, precision=self.precision,
+                        stats=stats, conv_out=conv, next_lb_out=next_lb,
+                        refuted_out=refuted))
+                    w_base = max(1, min(beam_eff, l))
+                kind = costm.knn_kind(device_loop, feat_shards)
+                feats = costm.knn_plan_features(
+                    device_loop=device_loop, shards=feat_shards, g=len(idxs),
+                    k=kmax, beam=self.beam, tiles=feat_tiles, cap=feat_cap,
+                    dim=qv.shape[1], precision=self.precision, seed=seed)
 
             def _fin(out, knn=knn, conv=conv, next_lb=next_lb,
                      refuted=refuted, idxs=idxs, attr=attr, arch=arch,
@@ -2166,20 +2198,22 @@ class HybridEngine:
                         (kind, feats, time.time() - t_g0))
                 fails, failed = [], []
                 stats.knn_jobs += len(idxs)
-                for pos, i in enumerate(idxs):
-                    out[i], proven, t_k = rerank_exact(
-                        self.vec_np[attr], qv[pos], dist[pos], rows[pos],
-                        next_lb[0][pos], jobs[i][0].k, self.vec_max2[attr],
-                        geom, refuted[0][pos])
-                    if not proven:
-                        fails.append((pos, jobs[i][0].k, t_k))
-                        failed.append(i)
+                with tracing.span("engine.rerank"):
+                    for pos, i in enumerate(idxs):
+                        out[i], proven, t_k = rerank_exact(
+                            self.vec_np[attr], qv[pos], dist[pos],
+                            rows[pos], next_lb[0][pos], jobs[i][0].k,
+                            self.vec_max2[attr], geom, refuted[0][pos])
+                        if not proven:
+                            fails.append((pos, jobs[i][0].k, t_k))
+                            failed.append(i)
                 if fails:
                     stats.knn_exact_fallbacks += len(fails)
-                    for i, r in zip(failed, widen_exact(
-                            self.vec_np[attr], self.vec[attr], qs, qv,
-                            masks, fails, self.vec_max2[attr])):
-                        out[i] = r
+                    with tracing.span("engine.widen"):
+                        for i, r in zip(failed, widen_exact(
+                                self.vec_np[attr], self.vec[attr], qs, qv,
+                                masks, fails, self.vec_max2[attr])):
+                            out[i] = r
 
             if eager:
                 pend.run_now(_fin)
@@ -2224,13 +2258,15 @@ class HybridEngine:
                      ) -> Dict[Q.Query, np.ndarray]:
         """The plannability check (skipped under a planner's plan) and the
         batch's predicate masks (host numpy, so this stage syncs)."""
-        if plan is None:
-            for q in queries:
-                if not plannable(q):
-                    raise ValueError(
-                        f"query not plannable for the batched engine: "
-                        f"{q!r}")
-        return self._predicate_masks(queries, stats, tile_route=device_loop)
+        with tracing.span("engine.masks"):
+            if plan is None:
+                for q in queries:
+                    if not plannable(q):
+                        raise ValueError(
+                            f"query not plannable for the batched engine: "
+                            f"{q!r}")
+            return self._predicate_masks(queries, stats,
+                                         tile_route=device_loop)
 
     def execute_batch(self, queries: Sequence[Q.Query], *,
                       device_loop: Optional[bool] = None,
@@ -2295,17 +2331,19 @@ class HybridEngine:
         job layout against them. Returns (jobs, groups, seeds)."""
         jobs: List[Tuple[Q.VK, Optional[np.ndarray]]] = []
         ctr = [0]
-        for q in queries:
-            self._walk(q, None, pred_masks, jobs, None, ctr)
-        groups = seeds = None
-        if plan is not None:
-            got = tuple((vk.attr, vk.k, m is not None) for vk, m in jobs)
-            if got != plan.job_specs:
-                raise ValueError(
-                    f"EnginePlan job layout does not match this batch "
-                    f"(stale or mis-keyed plan cache): plan expects "
-                    f"{plan.job_specs}, walk produced {got}")
-            groups, seeds = plan.groups, plan.seeds
+        with tracing.span("engine.walk"):
+            for q in queries:
+                self._walk(q, None, pred_masks, jobs, None, ctr)
+            groups = seeds = None
+            if plan is not None:
+                got = tuple((vk.attr, vk.k, m is not None)
+                            for vk, m in jobs)
+                if got != plan.job_specs:
+                    raise ValueError(
+                        f"EnginePlan job layout does not match this batch "
+                        f"(stale or mis-keyed plan cache): plan expects "
+                        f"{plan.job_specs}, walk produced {got}")
+                groups, seeds = plan.groups, plan.seeds
         return jobs, groups, seeds
 
     def _finish_walk(self, queries: Sequence[Q.Query],
@@ -2315,12 +2353,13 @@ class HybridEngine:
         walk (host numpy)."""
         out: List[np.ndarray] = []
         ctr = [0]
-        for q in queries:
-            if isinstance(q, Q.VK):
-                ctr[0] += 1  # consume this query's own job slot
-                rows = np.asarray(job_rows[ctr[0] - 1])
-                out.append(rows[rows >= 0].astype(np.int64))
-                continue
-            m = self._walk(q, None, pred_masks, jobs, job_rows, ctr)
-            out.append(np.nonzero(m)[0].astype(np.int64))
+        with tracing.span("engine.finish_walk"):
+            for q in queries:
+                if isinstance(q, Q.VK):
+                    ctr[0] += 1  # consume this query's own job slot
+                    rows = np.asarray(job_rows[ctr[0] - 1])
+                    out.append(rows[rows >= 0].astype(np.int64))
+                    continue
+                m = self._walk(q, None, pred_masks, jobs, job_rows, ctr)
+                out.append(np.nonzero(m)[0].astype(np.int64))
         return out

@@ -62,6 +62,7 @@ from repro_torch.core import query as Q
 from repro_torch.core.engine import (_VR_DENSE_CUTOFF, EnginePlan,
                                      EngineStats, KnnGroupSpec,
                                      group_job_specs, plannable)
+from repro_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -239,42 +240,46 @@ class ExecutablePlan:
         order — exactly the rows of the brute-force oracle. Engine
         fragments run as one batch, then each unplannable query on the
         scalar path (its work is not in the engine's counters)."""
-        lp = self.logical
-        p = self.session.platform
-        t0 = time.time()
-        results: List[Optional[np.ndarray]] = [None] * len(self.norm)
-        if lp.engine_idx:
-            eng_plan = EnginePlan(
-                device_loop=lp.device_loop, job_specs=lp.job_specs,
-                groups=lp.groups, seeds=self._seeds(), shards=lp.shards,
-                precision=self.session.precision)
-            eng = self.session.engine(lp.shards)
-            rows, stats = eng.execute_batch(
-                [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
-            for i, r in zip(lp.engine_idx, rows):
-                results[i] = r
-            for arch, width in stats.knn_group_widths:
-                p.qbs.record_convergence(arch, width)
-            for kind, feats, secs in stats.stage_samples:
-                p.qbs.record_cost(kind, feats, secs)
-            if p.cost_model is not None and stats.stage_samples:
-                p.cost_model.maybe_refit(p.qbs)
-            self.session.mp_scanned += stats.mp_scanned
-            self.session.mp_rescued += stats.mp_rescued
-        else:
-            stats = EngineStats()
-        stats.queries = len(self.norm)
-        for i in lp.scalar_idx:
-            results[i] = p.execute(self.norm[i], record=False)[0]
-        stats.time_s = time.time() - t0
-        # tuner feedback: one representative AST per signature per batch
-        reps: Dict[str, list] = {}
-        for q, frag in zip(self.norm, lp.fragments):
-            slot = reps.setdefault(frag.signature, [q, 0])
-            slot[1] += 1
-        for sig, (q, cnt) in reps.items():
-            p.qbs.record_workload(sig, q, cnt)
-        return results, stats  # type: ignore[return-value]
+        with tracing.span("planner.execute"):
+            lp = self.logical
+            p = self.session.platform
+            t0 = time.time()
+            results: List[Optional[np.ndarray]] = [None] * len(self.norm)
+            if lp.engine_idx:
+                eng_plan = EnginePlan(
+                    device_loop=lp.device_loop, job_specs=lp.job_specs,
+                    groups=lp.groups, seeds=self._seeds(), shards=lp.shards,
+                    precision=self.session.precision)
+                eng = self.session.engine(lp.shards)
+                rows, stats = eng.execute_batch(
+                    [self.norm[i] for i in lp.engine_idx], plan=eng_plan)
+                with tracing.span("planner.record"):
+                    for i, r in zip(lp.engine_idx, rows):
+                        results[i] = r
+                    for arch, width in stats.knn_group_widths:
+                        p.qbs.record_convergence(arch, width)
+                    for kind, feats, secs in stats.stage_samples:
+                        p.qbs.record_cost(kind, feats, secs)
+                    if p.cost_model is not None and stats.stage_samples:
+                        p.cost_model.maybe_refit(p.qbs)
+                    self.session.mp_scanned += stats.mp_scanned
+                    self.session.mp_rescued += stats.mp_rescued
+            else:
+                stats = EngineStats()
+            stats.queries = len(self.norm)
+            for i in lp.scalar_idx:
+                results[i] = p.execute(self.norm[i], record=False)[0]
+            stats.time_s = time.time() - t0
+            with tracing.span("planner.record"):
+                # tuner feedback: one representative AST per signature per
+                # batch
+                reps: Dict[str, list] = {}
+                for q, frag in zip(self.norm, lp.fragments):
+                    slot = reps.setdefault(frag.signature, [q, 0])
+                    slot[1] += 1
+                for sig, (q, cnt) in reps.items():
+                    p.qbs.record_workload(sig, q, cnt)
+            return results, stats  # type: ignore[return-value]
 
     def execute_async(self, *, record: bool = True) -> PendingExecution:
         """Dispatch half of ``execute()`` for the serving pipeline: the
@@ -568,39 +573,40 @@ class Session:
         and shard count: an explicit ``device_loop`` wins (with the
         session's shard count on the device loop), then the cost model's
         choice (``_cost_choice``), then the session's defaults."""
-        norm = [Q.normalize(q) for q in queries]
-        choices: Optional[dict] = None
-        if device_loop is not None:
-            dl = device_loop
-            shards = (self.shards or 0) if dl else 0
-            choices = {"by": "explicit"}
-        else:
-            sel = self._cost_choice(norm)
-            if sel is not None:
-                dl, choices = sel
-                shards = choices["chosen"]["shards"]
-            else:
-                dl = self.device_loop
+        with tracing.span("planner.plan"):
+            norm = [Q.normalize(q) for q in queries]
+            choices: Optional[dict] = None
+            if device_loop is not None:
+                dl = device_loop
                 shards = (self.shards or 0) if dl else 0
-        if self._cache_build != self.platform.build_id:
-            # entries of dead builds go; entries prewarmed for this build
-            # (keyed on it before it was installed) stay
-            b = self.platform.build_id
-            self._cache = {k: v for k, v in self._cache.items()
-                           if k[-1] == b}
-            self._cache_build = b
-        key = (tuple(Q.signature(q) for q in norm), dl, shards,
-               self.precision, self.platform.build_id)
-        logical = self._cache.get(key)
-        hit = logical is not None
-        if hit:
-            self.cache_hits += 1
-        else:
-            self.cache_misses += 1
-            logical = build_logical_plan(norm, dl, shards)
-            self._cache[key] = logical
-        return ExecutablePlan(self, logical, queries, norm, hit,
-                              choices=choices)
+                choices = {"by": "explicit"}
+            else:
+                sel = self._cost_choice(norm)
+                if sel is not None:
+                    dl, choices = sel
+                    shards = choices["chosen"]["shards"]
+                else:
+                    dl = self.device_loop
+                    shards = (self.shards or 0) if dl else 0
+            if self._cache_build != self.platform.build_id:
+                # entries of dead builds go; entries prewarmed for this build
+                # (keyed on it before it was installed) stay
+                b = self.platform.build_id
+                self._cache = {k: v for k, v in self._cache.items()
+                               if k[-1] == b}
+                self._cache_build = b
+            key = (tuple(Q.signature(q) for q in norm), dl, shards,
+                   self.precision, self.platform.build_id)
+            logical = self._cache.get(key)
+            hit = logical is not None
+            if hit:
+                self.cache_hits += 1
+            else:
+                self.cache_misses += 1
+                logical = build_logical_plan(norm, dl, shards)
+                self._cache[key] = logical
+            return ExecutablePlan(self, logical, queries, norm, hit,
+                                  choices=choices)
 
     def prewarm(self, queries: Sequence[Q.Query], *,
                 build_id: Optional[int] = None,
